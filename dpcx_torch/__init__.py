@@ -9,15 +9,21 @@ images and NHWC images at the model's input.
 
 This package never imports ``jax``.
 
-Ported so far (the serving path plus the forward renderer):
+Ported so far (serving, datagen and GT-pose training):
 
 - ``config``    — re-export of ``dpcx.config`` (plain Python + YAML).
-- ``geometry``  — quaternion math.
-- ``render``    — transform, scatter splat, Gaussian blur, DRC, and the
-  fused splat->blur->DRC CUDA kernel (``render/fused.py``).
-- ``nets`` / ``models`` — encoder, decoder, model, GT-pose loss forward.
-- ``convert``   — flax params -> torch ``state_dict``.
-- ``serve`` / ``cli`` — the HTTP predictor and the ``serve`` verb.
+- ``geometry``  — quaternion and camera math.
+- ``render``    — transform, scatter splat (with rgb and point dropout),
+  Gaussian blur, DRC, and the fused splat->blur->DRC renderer
+  (``render/fused.py``): CUDA kernels for its forward (K1) and backward
+  (K2) behind a ``torch.autograd.Function``.
+- ``nets`` / ``models`` — encoder, decoder, model, GT-pose loss.
+- ``data``      — synthetic datagen, npz shards, batching.
+- ``train``     — the GT-pose training loop, checkpoints, metrics.
+- ``convert``   — flax params and optax Adam state -> torch.
+- ``serve`` / ``cli`` — the HTTP predictor and the ``datagen``,
+  ``train`` and ``serve`` verbs.
+- ``utils``     — cloud renders and PNG grids for summaries.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

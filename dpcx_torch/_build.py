@@ -78,4 +78,9 @@ def load() -> ctypes.CDLL:
         ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
     ]
     lib.dpcx_fused_render.restype = i32
+    lib.dpcx_fused_render_bwd.argtypes = [
+        ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        ptr,
+    ]
+    lib.dpcx_fused_render_bwd.restype = i32
     return lib

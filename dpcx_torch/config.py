@@ -7,6 +7,6 @@ entry points refuse ``shard_points`` before calling ``validate``). PyYAML
 is installed on the GPU machine as well, so no YAML shim is needed.
 """
 
-from dpcx.config import Config, load_config
+from dpcx.config import Config, load_config, save_config
 
-__all__ = ["Config", "load_config"]
+__all__ = ["Config", "load_config", "save_config"]

@@ -7,6 +7,11 @@ without the top-level ``"params"`` key). Module paths map one to one
 ``decoder/fc_scale``); a Dense kernel ``[in, out]`` becomes a weight
 ``[out, in]`` and a Conv kernel HWIO becomes OIHW. The encoder flattens
 NHWC as flax does, so ``fc1`` needs no row permutation.
+
+``adam_state_from_optax`` carries optax's Adam state across the same way:
+``mu`` -> ``exp_avg``, ``nu`` -> ``exp_avg_sq`` (same layout transposes as
+the params) and ``count`` -> ``step``, so a dpcx ``TrainState`` continues
+as the port's ``torch.optim.Adam``.
 """
 
 from __future__ import annotations
@@ -45,3 +50,20 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def adam_state_from_optax(
+    mu: Mapping, nu: Mapping, count
+) -> dict[str, dict[str, torch.Tensor]]:
+    """optax ``ScaleByAdamState`` leaves -> per-parameter Adam state keyed
+    by ``state_dict`` name, as ``torch.optim.Adam`` keeps it."""
+    exp_avg, exp_avg_sq = params_from_flax(mu), params_from_flax(nu)
+    step = float(np.asarray(count))
+    return {
+        name: {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": exp_avg[name],
+            "exp_avg_sq": exp_avg_sq[name],
+        }
+        for name in exp_avg
+    }

@@ -28,7 +28,31 @@
 // (b) and (c) are bound by bytes: the grid is written once by (a) and (b)
 // and read twice, by (b) and (c); at D = 64 that is 1 MiB per render.
 //
-// The launcher runs on the caller's stream, allocates nothing, and returns
+// The backward (K2) replaces dpcx/render/pallas_kernel.py::_fused_bwd_kernel
+// (launched by _pallas_backward): the gradient of (sil, depth) with respect
+// to each point's (z, y, x, w) in grid units. The TPU kernel recomputes the
+// grid because a second D^3 buffer does not fit in VMEM; here the forward's
+// x/y-blurred grid stays in device memory as the residual (32 MiB at the
+// car_64_depth training shape), so the backward never re-splats:
+//   (d) z-blur + DRC backward + z-blur transpose: one thread per ray walks
+//       z up to form T_z, then down with the suffix
+//         S_{D-1} = ddepth * 1.0,  S_{z-1} = o_z phi_z + (1 - o_z) S_z,
+//         dL/do_z = T_z (phi_z - S_z),  phi_z = dsil + ddepth d_z,
+//       zero where the forward clipped (o_raw >= 1 - 1e-5). The reference
+//       forms the same quantity as T_z phi_z - (Total - prefix_z) / (1 - o_z);
+//       the suffix form needs no division by (1 - o) down to 1e-5 and no
+//       difference of two nearly equal f32 sums. The taps are symmetric,
+//       so the z-blur's transpose is the same z-blur.
+//   (e) y/x blur transpose: (b) again, in place on the cotangent grid (the
+//       two axes commute and each pass is its own transpose).
+//   (f) splat backward: one thread per point gathers the cotangent at its
+//       in-grid corners, no atomics: dw = sum h_z h_y h_x dG and
+//       d(g_a) = w sum dh_a (other hats) dG, dh = -1 / +1 on the low / high
+//       corner. At an exactly integer coordinate this floor-based form is
+//       one-sided where the reference's _dhat_t gives 0.
+// (d) and (f) are bound by bytes like (c) and the forward splat.
+//
+// The launchers run on the caller's stream, allocate nothing, and return
 // the first CUDA error (0 on success).
 
 #include <cuda_runtime.h>
@@ -149,6 +173,122 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   if (with_depth) depth[ray] = dep + 1.f * trans;
 }
 
+// (d) one thread per ray: z-blur of the saved y/x-blurred grid, DRC
+// backward, and the z-blur's transpose into dgrid. dsil, ddepth [R, D, D];
+// ddepth may be null (a zero cotangent).
+__global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
+                                     const float* __restrict__ taps,
+                                     int radius,
+                                     const float* __restrict__ dsil,
+                                     const float* __restrict__ ddepth,
+                                     float* __restrict__ dgrid, int renders,
+                                     int d, int with_depth) {
+  __shared__ float k[kMaxTaps];
+  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) k[i] = taps[i];
+  __syncthreads();
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (ray >= renders * dd) return;
+  const int64_t r = ray / dd;
+  const int64_t off = r * dd * d + (ray - r * dd);
+  const float* col = grid + off;
+  const float fd = static_cast<float>(d);
+  constexpr float kTop = 1.f - 1e-5f;
+  float o[kMaxVox];  // raw occupancy, then dL/do_raw
+  float tr[kMaxVox];  // transmittance before z
+  float trans = 1.f;
+  for (int z = 0; z < d; ++z) {
+    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
+    float s = 0.f;
+    for (int t = lo; t <= hi; ++t) s += col[(z + t) * dd] * k[t + radius];
+    o[z] = s;
+    tr[z] = trans;
+    trans *= 1.f - fminf(fmaxf(s, 0.f), kTop);
+  }
+  const float gs = dsil[ray];
+  const float gd = (with_depth && ddepth != nullptr) ? ddepth[ray] : 0.f;
+  float suffix = gd * 1.f;  // background depth 1.0 past the volume
+  for (int z = d - 1; z >= 0; --z) {
+    const float raw = o[z];
+    const float oc = fminf(fmaxf(raw, 0.f), kTop);
+    const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
+    o[z] = raw < kTop ? tr[z] * (phi - suffix) : 0.f;
+    suffix = oc * phi + (1.f - oc) * suffix;
+  }
+  float* dcol = dgrid + off;
+  for (int z = 0; z < d; ++z) {
+    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
+    float s = 0.f;
+    for (int t = lo; t <= hi; ++t) s += o[z + t] * k[t + radius];
+    dcol[z * dd] = s;
+  }
+}
+
+// (f) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
+// dweights is not null, dw into dweights [R, N].
+__global__ void splat_bwd_kernel(const float* __restrict__ coords,
+                                 const float* __restrict__ weights,
+                                 const float* __restrict__ dgrid,
+                                 float* __restrict__ dcoords,
+                                 float* __restrict__ dweights, int renders,
+                                 int n, int d) {
+  const int64_t total = static_cast<int64_t>(renders) * n;
+  const int64_t cells = static_cast<int64_t>(d) * d * d;
+  const float top = static_cast<float>(d - 1);
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t r = i / n;
+    const int64_t p = i - r * n;
+    const float* c = coords + r * 3 * n + p;
+    const float gz = c[0], gy = c[n], gx = c[2 * static_cast<int64_t>(n)];
+    const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
+    const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
+    const float* g = dgrid + r * cells;
+    float az = 0.f, ay = 0.f, ax = 0.f, aw = 0.f;
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz) {
+      const float cz = fz + dz;
+      if (!(cz >= 0.f && cz <= top)) continue;
+      const float hz = dz ? tz : 1.f - tz, sz = dz ? 1.f : -1.f;
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const float cy = fy + dy;
+        if (!(cy >= 0.f && cy <= top)) continue;
+        const float hy = dy ? ty : 1.f - ty, sy = dy ? 1.f : -1.f;
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          const float cx = fx + dx;
+          if (!(cx >= 0.f && cx <= top)) continue;
+          const float hx = dx ? tx : 1.f - tx, sx = dx ? 1.f : -1.f;
+          const int64_t cell =
+              (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
+              static_cast<int64_t>(cx);
+          const float v = g[cell];
+          aw += hz * hy * hx * v;
+          az += sz * hy * hx * v;
+          ay += hz * sy * hx * v;
+          ax += hz * hy * sx * v;
+        }
+      }
+    }
+    const float pw = weights != nullptr ? weights[i] : 1.f;
+    float* out = dcoords + r * 3 * n + p;
+    out[0] = az * pw;
+    out[n] = ay * pw;
+    out[2 * static_cast<int64_t>(n)] = ax * pw;
+    if (dweights != nullptr) dweights[i] = aw;
+  }
+}
+
+int64_t splat_blocks(int64_t points) {
+  const int64_t blocks = (points + kThreads - 1) / kThreads;
+  return blocks > 65535 * 16 ? 65535 * 16 : blocks;
+}
+
+size_t blur_smem(int d, int radius) {
+  return (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
+}
+
 }  // namespace
 
 // grid: scratch [R, D, D, D] f32; sil, depth: [R, D, D] f32 (depth may be
@@ -169,18 +309,14 @@ extern "C" int dpcx_fused_render(const float* coords, const float* weights,
 
   const int64_t points = static_cast<int64_t>(renders) * n;
   if (points > 0) {
-    int64_t blocks = (points + kThreads - 1) / kThreads;
-    if (blocks > 65535 * 16) blocks = 65535 * 16;
-    splat_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        coords, weights, grid, renders, n, d);
+    splat_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads, 0,
+                   s>>>(coords, weights, grid, renders, n, d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
-  const size_t smem = (2 * static_cast<size_t>(d) * d + 2 * radius + 1) *
-                      sizeof(float);
-  blur_yx_kernel<<<static_cast<unsigned>(renders * d), kThreads, smem, s>>>(
-      grid, taps, radius, d);
+  blur_yx_kernel<<<static_cast<unsigned>(renders * d), kThreads,
+                   blur_smem(d, radius), s>>>(grid, taps, radius, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -188,5 +324,45 @@ extern "C" int dpcx_fused_render(const float* coords, const float* weights,
   zblur_drc_kernel<<<static_cast<unsigned>((rays + kThreads - 1) / kThreads),
                      kThreads, 0, s>>>(grid, taps, radius, sil, depth, renders,
                                        d, with_depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2. grid: the forward's x/y-blurred grid [R, D, D, D] (read only);
+// dgrid: scratch [R, D, D, D]; dsil [R, D, D]; ddepth [R, D, D] or null
+// (zero); dcoords out [R, 3, N] (z, y, x); dweights out [R, N] or null
+// (not wanted). weights null means every point weighs 1. Returns a
+// cudaError_t as int.
+extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
+                                     const float* taps, int radius,
+                                     const float* grid, const float* dsil,
+                                     const float* ddepth, float* dgrid,
+                                     float* dcoords, float* dweights,
+                                     int renders, int n, int d, int with_depth,
+                                     void* stream) {
+  if (d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 || renders < 0 ||
+      n < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (renders == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t rays = static_cast<int64_t>(renders) * d * d;
+  zblur_drc_bwd_kernel<<<static_cast<unsigned>((rays + kThreads - 1) /
+                                               kThreads),
+                         kThreads, 0, s>>>(grid, taps, radius, dsil, ddepth,
+                                           dgrid, renders, d, with_depth);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  blur_yx_kernel<<<static_cast<unsigned>(renders * d), kThreads,
+                   blur_smem(d, radius), s>>>(dgrid, taps, radius, d);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int64_t points = static_cast<int64_t>(renders) * n;
+  if (points > 0) {
+    splat_bwd_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads,
+                       0, s>>>(coords, weights, dgrid, dcoords, dweights,
+                               renders, n, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,13 @@
 Every target view is rendered with its known camera; the loss is the
 squared-L2 silhouette error, plus the masked depth error when the config
 renders depth, plus the scale regulariser. With ``renderer: pallas`` the
-render goes through the fused CUDA kernel. Not ported yet, and refused:
-predicted pose, rgb and gauss splats, point dropout (``train=True``), and
-masks or depths stored at another resolution than ``vox_size`` (the
-reference resizes them with ``jax.image.resize``, which antialiases).
+render goes through the fused CUDA kernels (K1 forward, K2 backward).
+With ``train=True`` and ``pc_point_dropout < 1`` the points carry Bernoulli
+keep weights drawn from the ``generator`` passed in, where the reference
+takes a ``jax.random`` key. Not ported yet, and refused: predicted pose,
+rgb and gauss splats, and masks or depths stored at another resolution
+than ``vox_size`` (the reference resizes them with ``jax.image.resize``,
+which antialiases).
 """
 
 from __future__ import annotations
@@ -15,7 +18,12 @@ from __future__ import annotations
 import torch
 
 from dpcx_torch.config import Config
-from dpcx_torch.render.project import pointcloud_project_fn, sigma_schedule
+from dpcx_torch.render.project import (
+    keep_prob_schedule,
+    pointcloud_project_fn,
+    sigma_schedule,
+)
+from dpcx_torch.render.voxelize import pc_point_dropout_weights
 
 
 def _masked_depth_loss(
@@ -31,13 +39,15 @@ def compute_loss(
     preds: dict[str, torch.Tensor],
     batch: dict[str, torch.Tensor],
     step,
+    generator: torch.Generator | None = None,
     train: bool = True,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss + metrics dict.
 
     batch: masks [B, V, D, D], depths [B, V, D, D] (with depth), quats
-    [B, V, 4]. Point dropout is not ported yet, so ``train=True`` with
-    ``pc_point_dropout < 1`` raises.
+    [B, V, 4]. ``generator`` (on the points' device) draws the point
+    dropout weights; it is needed only when ``train`` and
+    ``pc_point_dropout < 1``.
     """
     if cfg.predict_pose:
         raise NotImplementedError("predicted-pose loss is not ported yet")
@@ -56,16 +66,23 @@ def compute_loss(
             f"masks/depths at another size than vox_size={D}: the "
             "loss-time resize is not ported yet"
         )
-    if train and cfg.pc_point_dropout < 1.0:
-        raise NotImplementedError("point dropout is not ported yet")
-
     sigma_rel = sigma_schedule(cfg, step).to(points.device)
+    point_weights = None
+    if train and cfg.pc_point_dropout < 1.0:
+        if generator is None:
+            raise ValueError("point dropout needs a torch.Generator")
+        keep = keep_prob_schedule(cfg, step)
+        point_weights = pc_point_dropout_weights(
+            generator, B, points.shape[1], keep
+        )
     metrics: dict[str, torch.Tensor] = {"sigma_rel": sigma_rel}
 
     # render B*V views in one batched call
     pts = points.repeat_interleave(V, dim=0)  # [B*V, N, 3]
+    pw = (None if point_weights is None
+          else point_weights.repeat_interleave(V, dim=0))
     quats = batch["quats"].reshape(B * V, 4)
-    out = pointcloud_project_fn(cfg, pts, quats, sigma_rel)
+    out = pointcloud_project_fn(cfg, pts, quats, sigma_rel, point_weights=pw)
     sil, depth = out.silhouette.reshape(B, V, D, D), out.depth
     proj_loss = torch.mean((sil - masks) ** 2)
     total = cfg.proj_weight * proj_loss

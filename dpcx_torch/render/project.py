@@ -5,7 +5,8 @@
 ops below; "pallas" runs the fused renderer (``render/fused.py``), which is
 the hand-written CUDA kernel for CUDA tensors and its plain version for CPU
 tensors. Configurations the fused kernel does not cover fall through to the
-eager ops, as the reference falls through to XLA.
+eager ops, as the reference falls through to XLA. Colour (``rgb``) always
+takes the eager ops, as in the reference.
 """
 
 from __future__ import annotations
@@ -16,7 +17,11 @@ import math
 import torch
 
 from dpcx_torch.config import Config
-from dpcx_torch.render.drc import drc_projection, sum_projection
+from dpcx_torch.render.drc import (
+    drc_event_probabilities,
+    drc_projection,
+    sum_projection,
+)
 from dpcx_torch.render.fused import MAX_FUSED_VOX, fused_project_t
 from dpcx_torch.render.gauss import kernel_radius, smoothen_voxels3d
 from dpcx_torch.render.transform import (
@@ -33,6 +38,7 @@ class RenderOut:
     silhouette: torch.Tensor
     depth: torch.Tensor | None = None
     voxels: torch.Tensor | None = None
+    rgb: torch.Tensor | None = None
 
 
 def _step_frac(step, total_steps: int) -> torch.Tensor:
@@ -64,9 +70,9 @@ def pointcloud_project_fn(
     translation: torch.Tensor | None = None,
     return_voxels: bool = False,
 ) -> RenderOut:
-    """Project world-frame clouds [B, N, 3] through cameras [B, 4]."""
-    if rgb is not None:
-        raise NotImplementedError("rgb rendering is not ported yet")
+    """Project world-frame clouds [B, N, 3] through cameras [B, 4]; with
+    ``rgb`` [B, N, 3], also the expected colour along each ray [B, Y, X, 3].
+    """
     dtype = getattr(torch, cfg.renderer_dtype)
     points = points.to(dtype)
     quat = quat.to(dtype)
@@ -83,6 +89,7 @@ def pointcloud_project_fn(
 
     if (
         cfg.renderer == "pallas"
+        and rgb is None  # colour never reaches the fused renderer
         and cfg.proj_type == "drc"
         and not cfg.drc_logsum
         and not return_voxels
@@ -119,7 +126,13 @@ def pointcloud_project_fn(
         camera_distance=cfg.camera_distance,
         translation=trans,
     )
-    grid = pointcloud2voxels_scatter(ndc, D, point_weights=point_weights)
+    rgb_grid = None
+    if rgb is None:
+        grid = pointcloud2voxels_scatter(ndc, D, point_weights=point_weights)
+    else:
+        grid, rgb_grid = pointcloud2voxels_scatter(
+            ndc, D, point_weights=point_weights, rgb=rgb.to(dtype)
+        )
     grid = smoothen_voxels3d(grid, sigma_vox, radius)
     if cfg.proj_type == "drc":
         sil, depth = drc_projection(
@@ -127,8 +140,18 @@ def pointcloud_project_fn(
         )
     else:
         sil, depth = sum_projection(grid)
+    rgb_proj = None
+    if rgb_grid is not None:
+        # expected colour along each ray, weighted by stop probabilities
+        p_stop, _ = drc_event_probabilities(grid, logsum=cfg.drc_logsum)
+        rgb_proj = torch.einsum("bzyx,bzyxc->byxc", p_stop, rgb_grid)
     return RenderOut(
         silhouette=sil,
         depth=depth,
         voxels=grid if return_voxels else None,
+        rgb=rgb_proj,
     )
+
+
+# dpcx's jitted convenience name; eager PyTorch needs no second function
+pointcloud_project = pointcloud_project_fn

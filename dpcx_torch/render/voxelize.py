@@ -1,5 +1,6 @@
 """Stage 2: trilinear scatter-splat into a D^3 grid (port of
-``dpcx/render/voxelize.py``, the scatter oracle; the rgb path comes later).
+``dpcx/render/voxelize.py``: the scatter oracle, its rgb path, and point
+dropout as per-point weights).
 
 Grid convention: ``grid[b, z, y, x]``. NDC p in [-0.5, 0.5] maps to grid
 units g = (p + 0.5) * D - 0.5; cell i is centred at g = i.
@@ -16,15 +17,29 @@ def ndc_to_grid(points_ndc: torch.Tensor, vox_size: int) -> torch.Tensor:
     return g.flip(-1)
 
 
+def pc_point_dropout_weights(
+    generator: torch.Generator, batch: int, num_points: int, keep_prob
+) -> torch.Tensor:
+    """Per-point Bernoulli keep weights [batch, num_points], rescaled by
+    1/keep_prob, drawn from ``generator`` on its device."""
+    keep_prob = float(keep_prob)
+    u = torch.rand((batch, num_points), generator=generator,
+                   device=generator.device)
+    return (u < keep_prob).float() / max(keep_prob, 1e-6)
+
+
 def pointcloud2voxels_scatter(
     points_ndc: torch.Tensor,
     vox_size: int,
     point_weights: torch.Tensor | None = None,
-) -> torch.Tensor:
+    rgb: torch.Tensor | None = None,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Scatter-add splat. points_ndc [B, N, 3] -> grid [B, D, D, D].
 
     Each point adds its 8 trilinear corner weights (times its point weight)
     with ``index_add_`` on a flattened grid; out-of-grid corners are dropped.
+    With ``rgb`` [B, N, 3], also returns rgb_grid [B, D, D, D, 3] holding
+    weight-normalised colours.
     """
     B, N, _ = points_ndc.shape
     D = vox_size
@@ -35,6 +50,10 @@ def pointcloud2voxels_scatter(
     base = torch.arange(B, device=g.device)[:, None] * D**3  # [B, 1]
 
     grid = torch.zeros(B * D**3, dtype=points_ndc.dtype, device=g.device)
+    rgb_grid = (
+        None if rgb is None
+        else torch.zeros(B * D**3, 3, dtype=points_ndc.dtype, device=g.device)
+    )
     for dz in (0, 1):
         for dy in (0, 1):
             for dx in (0, 1):
@@ -55,8 +74,16 @@ def pointcloud2voxels_scatter(
                     & (ix >= 0) & (ix < D)
                 )
                 w = torch.where(valid, w, torch.zeros_like(w))
-                flat = base + (
+                flat = (base + (
                     iz.clamp(0, D - 1) * D + iy.clamp(0, D - 1)
-                ) * D + ix.clamp(0, D - 1)
-                grid.index_add_(0, flat.reshape(-1), w.reshape(-1))
-    return grid.reshape(B, D, D, D)
+                ) * D + ix.clamp(0, D - 1)).reshape(-1)
+                grid.index_add_(0, flat, w.reshape(-1))
+                if rgb_grid is not None:
+                    rgb_grid.index_add_(
+                        0, flat, (w[..., None] * rgb).reshape(-1, 3)
+                    )
+    grid = grid.reshape(B, D, D, D)
+    if rgb_grid is None:
+        return grid
+    rgb_grid = rgb_grid.reshape(B, D, D, D, 3)
+    return grid, rgb_grid / grid[..., None].clamp_min(1e-6)

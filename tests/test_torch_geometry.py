@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from dpcx.geometry import camera as jc
 from dpcx.geometry import quaternion as jq
 from dpcx.render import transform as jt
+from dpcx_torch.geometry import camera as tc
 from dpcx_torch.geometry import quaternion as tq
 from dpcx_torch.render import transform as tt
 
@@ -100,3 +102,32 @@ def test_perspective_transform(with_translation, channel_major, rng):
     ).numpy()
     assert out_t.shape == ((3, 3, 64) if channel_major else (3, 64, 3))
     np.testing.assert_allclose(out_t, out_j, atol=ATOL)
+
+
+def test_camera_from_view_angles_matches_dpcx(rng):
+    """The datagen cameras: quaternion and position from the same angles
+    (azimuth over the full circle, elevation in dpcx's datagen range and
+    at the branch edges of matrix_to_quaternion)."""
+    azim = np.concatenate([rng.uniform(0, 2 * np.pi, 64),
+                           [0.0, np.pi / 2, np.pi, 1.5 * np.pi]])
+    elev = np.concatenate([rng.uniform(0.1, 0.6, 64),
+                           [0.0, 0.3, -0.4, 1.2]])
+    azim, elev = azim.astype(np.float32), elev.astype(np.float32)
+    q_j, p_j = jc.camera_from_view_angles(jnp.asarray(azim),
+                                          jnp.asarray(elev), 2.0)
+    q_t, p_t = tc.camera_from_view_angles(torch.from_numpy(azim),
+                                          torch.from_numpy(elev), 2.0)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=ATOL)
+    np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), atol=1e-5)
+    # scalar angles, as render_cloud_image passes them
+    q1, _ = tc.camera_from_view_angles(0.7, 0.4, 2.0)
+    q1_j, _ = jc.camera_from_view_angles(jnp.asarray(0.7), jnp.asarray(0.4))
+    np.testing.assert_allclose(q1.numpy(), np.asarray(q1_j), atol=1e-5)
+
+
+def test_matrix_to_quaternion_and_intrinsics_match_dpcx(rng):
+    m = np.asarray(jq.quaternion_to_matrix(jnp.asarray(_quats(rng, (50,)))))
+    out_j, out_t = _both(jc.matrix_to_quaternion, tc.matrix_to_quaternion, m)
+    np.testing.assert_allclose(out_t, out_j, atol=1e-5)
+    np.testing.assert_allclose(tc.intrinsics_matrix(1.875, 64).numpy(),
+                               np.asarray(jc.intrinsics_matrix(1.875, 64)))

@@ -7,11 +7,18 @@ Tolerances:
 - the fused renderer's plain version against the Pallas kernel
   (``pallas_project_t``, interpret mode on the CPU): atol 2e-5 on
   silhouette and depth;
-- ``pointcloud_project_fn`` on either path against dpcx's: atol 2e-5.
+- ``pointcloud_project_fn`` on either path against dpcx's: atol 2e-5;
+  its expected colour (rgb) and the colour grid atol 1e-4 (colour sums
+  divided by the occupancy);
+- the renderer's gradients against the Pallas backward kernel (interpret
+  mode): atol 1e-4, ROADMAP's gradient tolerance; the autograd.Function's
+  wiring against plain autograd: atol 1e-5 (the same plain ops, with an
+  NDC -> grid -> NDC round trip).
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,14 +158,175 @@ def test_fused_reference_matches_pallas_kernel(with_depth, weights, n, lim,
     assert fused.LAUNCHES == before
 
 
+def _linear_grads(render, ndc_t, pw, dsil, ddepth):
+    """Port: d/d(ndc) and d/d(weights) of <dsil, sil> + <ddepth, depth>."""
+    x = torch.from_numpy(ndc_t).requires_grad_()
+    w = None if pw is None else torch.from_numpy(pw).requires_grad_()
+    sil, depth = render(x, w)
+    loss = (sil * torch.from_numpy(dsil)).sum()
+    if depth is not None:
+        loss = loss + (depth * torch.from_numpy(ddepth)).sum()
+    loss.backward()
+    return [x.grad.numpy()] + ([] if w is None else [w.grad.numpy()])
+
+
+@pytest.mark.parametrize("vox", [8, 16])
+@pytest.mark.parametrize("with_depth", [False, True])
+@pytest.mark.parametrize("weights", [False, True])
+def test_fused_gradients_match_pallas_backward(vox, with_depth, weights,
+                                               rng):
+    """The renderer's gradients on the port (autograd through
+    fused_project_t) against dpcx's K2 (jax.grad through pallas_project_t,
+    the Pallas backward kernel in interpret mode): d/d(ndc) and
+    d/d(weights), atol 1e-4, with some points out of the grid."""
+    R, N, radius = 2, 300, 2
+    ndc_t = rng.uniform(-0.6, 0.6, (R, 3, N)).astype(np.float32)
+    pw = rng.uniform(0, 2, (R, N)).astype(np.float32) if weights else None
+    dsil = rng.normal(size=(R, vox, vox)).astype(np.float32)
+    ddepth = rng.normal(size=(R, vox, vox)).astype(np.float32)
+    sigma = 0.1 * vox
+
+    def j_loss(x, w):
+        sil, depth = pallas_project_t(x, vox, jnp.asarray(sigma), radius,
+                                      point_weights=w, with_depth=with_depth,
+                                      interpret=True)
+        loss = jnp.sum(sil * dsil)
+        return loss + jnp.sum(depth * ddepth) if with_depth else loss
+
+    argnums = (0, 1) if weights else 0
+    g_j = jax.grad(j_loss, argnums=argnums)(
+        jnp.asarray(ndc_t), None if pw is None else jnp.asarray(pw))
+    g_j = list(g_j) if weights else [g_j]
+    g_t = _linear_grads(
+        lambda x, w: fused.fused_project_t(
+            x, vox, torch.tensor(sigma), radius, point_weights=w,
+            with_depth=with_depth),
+        ndc_t, pw, dsil, ddepth,
+    )
+    for a, b in zip(g_t, g_j):
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
+
+
+@pytest.mark.parametrize("with_depth,weights,use_sil,use_depth", [
+    (True, True, True, True),
+    (True, True, True, False),  # depth rendered, never read: no cotangent
+    (True, False, False, True),  # only depth read: no sil cotangent
+    (False, False, True, False),
+])
+def test_fused_function_wiring(with_depth, weights, use_sil, use_depth, rng,
+                               monkeypatch):
+    """The autograd.Function around the kernels, run on the CPU with its
+    two launches replaced by the plain forward and the plain VJP: it gives
+    plain autograd's gradients (the chained NDC -> grid affine, no
+    gradient for sigma, an absent sil or depth cotangent)."""
+    R, N, radius = 2, 200, 2
+    sigma = torch.tensor(1.2, requires_grad=True)
+    seen = {}
+
+    def plain(coords, w):
+        ndc = ((coords + 0.5) / D - 0.5).flip(1)
+        return fused.fused_project_reference(ndc, D, sigma.detach(), radius,
+                                             w, with_depth)
+
+    def launch_forward(coords, w, taps, radius_, vox, wd):
+        sil, depth = plain(coords, w)
+        return sil, depth, torch.zeros(1)
+
+    def launch_backward(coords, w, taps, radius_, grid, dsil, ddepth, vox,
+                        wd, want_w):
+        seen["ddepth"] = ddepth
+        with torch.enable_grad():
+            c = coords.detach().requires_grad_()
+            ww = None if w is None else w.detach().requires_grad_()
+            sil, depth = plain(c, ww)
+            loss = (sil * dsil).sum()
+            if ddepth is not None:
+                loss = loss + (depth * ddepth).sum()
+            grads = torch.autograd.grad(loss, [c] + ([ww] if want_w else []))
+        return grads[0], (grads[1] if want_w else None)
+
+    monkeypatch.setattr(fused, "_launch_forward", launch_forward)
+    monkeypatch.setattr(fused, "_launch_backward", launch_backward)
+    ndc_t = torch.from_numpy(rng.uniform(-0.6, 0.6, (R, 3, N))
+                             .astype(np.float32))
+    pw = (torch.from_numpy(rng.uniform(0, 2, (R, N)).astype(np.float32))
+          if weights else None)
+
+    def grads(render):
+        x = ndc_t.clone().requires_grad_()
+        w = None if pw is None else pw.clone().requires_grad_()
+        sil, depth = render(x, w)
+        loss = (sil**2).sum() if use_sil else 0.0
+        if use_depth:
+            loss = loss + (depth**2).sum()
+        loss.backward()
+        return x.grad, None if w is None else w.grad
+
+    g_f = grads(lambda x, w: fused._kernel_project(x, D, sigma, radius, w,
+                                                   with_depth))
+    assert sigma.grad is None  # the taps get no gradient
+    assert (seen["ddepth"] is not None) == use_depth
+    g_p = grads(lambda x, w: fused.fused_project_reference(
+        x, D, sigma.detach(), radius, w, with_depth))
+    for a, b in zip(g_f, g_p):
+        if b is None:
+            assert a is None
+        else:
+            assert b.abs().max() > 0
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("weights", [False, True])
+def test_scatter_splat_rgb(weights, rng):
+    """The rgb path: weight-normalised colour grid, clamped at 1e-6."""
+    pts = _ndc(rng, 2, 300, 0.6)
+    rgb = rng.uniform(0, 1, (2, 300, 3)).astype(np.float32)
+    pw = rng.uniform(0, 1, (2, 300)).astype(np.float32) if weights else None
+    g_j, c_j = jvox.pointcloud2voxels_scatter(
+        jnp.asarray(pts), D, None if pw is None else jnp.asarray(pw),
+        rgb=jnp.asarray(rgb))
+    g_t, c_t = tvox.pointcloud2voxels_scatter(
+        torch.from_numpy(pts), D, None if pw is None else torch.from_numpy(pw),
+        rgb=torch.from_numpy(rgb))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=ATOL)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-4)
+
+
+def test_point_dropout_weights():
+    """Values in {0, 1/keep}, mean ~1, the same draws from the same seed."""
+    keep = 0.25
+    w = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(3), 64,
+                                      1000, torch.tensor(keep))
+    assert w.shape == (64, 1000) and w.dtype == torch.float32
+    assert set(torch.unique(w).tolist()) == {0.0, 1.0 / keep}
+    assert abs(w.mean().item() - 1.0) < 0.05
+    again = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(3),
+                                          64, 1000, keep)
+    assert torch.equal(w, again)
+    other = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(4),
+                                          64, 1000, keep)
+    assert not torch.equal(w, other)
+    ones = tvox.pc_point_dropout_weights(torch.Generator(), 2, 10, 1.0)
+    assert torch.equal(ones, torch.ones(2, 10))
+
+
 def test_fused_wrapper_refuses(rng):
     ndc_t = torch.from_numpy(rng.uniform(-0.4, 0.4, (2, 3, 64))
                              .astype(np.float32))
     sigma = torch.tensor(0.8)
     with pytest.raises(NotImplementedError, match="float32"):
         fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="K2"):
-        fused.fused_project_t(ndc_t.requires_grad_(), D, sigma, 2)
+    # a gradient asked for on a CPU tensor: autograd through the plain
+    # version, as fused_project_reference gives it
+    x = ndc_t.clone().requires_grad_()
+    sil, _ = fused.fused_project_t(x, D, sigma, 2)
+    (sil**2).sum().backward()
+    y = ndc_t.clone().requires_grad_()
+    sil_p, _ = fused.fused_project_reference(y, D, sigma, 2)
+    (sil_p**2).sum().backward()
+    assert x.grad.abs().max() > 0
+    torch.testing.assert_close(x.grad, y.grad, atol=0, rtol=0)
     with torch.no_grad():  # no gradient asked for: allowed
         fused.fused_project_t(ndc_t, D, sigma, 2)
     ndc_t = ndc_t.detach()
@@ -253,18 +421,34 @@ def test_project_return_voxels_falls_through(rng):
                                atol=ATOL)
 
 
-def test_project_refuses_unported_paths(rng):
-    pts = torch.from_numpy(rng.uniform(-0.4, 0.4, (1, 50, 3))
-                           .astype(np.float32))
-    q = torch.tensor([[1.0, 0.0, 0.0, 0.0]])
+def test_project_refuses_unported_paths(rng, monkeypatch):
+    """D > 64 with renderer: pallas raises (the blocked kernel, K3, is not
+    ported); rgb is no longer refused: it takes the eager ops even with
+    renderer: pallas (colour never reaches the fused renderer) and
+    matches dpcx's expected-colour render."""
+    pts = rng.uniform(-0.4, 0.4, (2, 50, 3)).astype(np.float32)
+    q = rng.normal(size=(2, 4)).astype(np.float32)
     cfg = Config(vox_size=72, renderer="pallas")  # the blocked kernel (K3)
     with pytest.raises(NotImplementedError, match="vox_size=72"):
-        tproject.pointcloud_project_fn(cfg, pts, q, torch.tensor(0.05))
-    with pytest.raises(NotImplementedError, match="rgb"):
-        tproject.pointcloud_project_fn(
-            dataclasses.replace(cfg, vox_size=D), pts, q, torch.tensor(0.05),
-            rgb=torch.zeros_like(pts),
-        )
+        tproject.pointcloud_project_fn(cfg, torch.from_numpy(pts),
+                                       torch.from_numpy(q),
+                                       torch.tensor(0.05))
+    rgb = rng.uniform(0, 1, (2, 50, 3)).astype(np.float32)
+    cfg = dataclasses.replace(cfg, vox_size=D, pc_relative_sigma=0.1,
+                              proj_depth=True)
+    monkeypatch.setattr(tproject, "fused_project_t",
+                        lambda *a, **k: pytest.fail("rgb reached the kernel"))
+    out_t = tproject.pointcloud_project(
+        cfg, torch.from_numpy(pts), torch.from_numpy(q), torch.tensor(0.08),
+        rgb=torch.from_numpy(rgb),
+    )
+    out_j = j_project(cfg, jnp.asarray(pts), jnp.asarray(q),
+                      jnp.asarray(0.08), rgb=jnp.asarray(rgb))
+    assert out_t.rgb.shape == (2, D, D, 3)
+    for k in ("silhouette", "depth", "rgb"):
+        np.testing.assert_allclose(getattr(out_t, k).numpy(),
+                                   np.asarray(getattr(out_j, k)), atol=1e-4,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("step", [0, 30_000, 200_000])

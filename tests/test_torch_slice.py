@@ -143,9 +143,16 @@ def test_compute_loss_refuses_unported(tiny_yaml):
     D = cfg.vox_size
     batch = {"masks": torch.zeros(2, 2, D, D), "depths": torch.zeros(2, 2, D, D),
              "quats": torch.tensor([1.0, 0, 0, 0]).repeat(2, 2, 1)}
-    with pytest.raises(NotImplementedError, match="dropout"):
-        compute_loss(cfg.replace(pc_point_dropout=0.5), preds, batch, 0,
-                     train=True)
+    # point dropout is ported: train=True draws the keep weights from the
+    # generator passed in, and needs one
+    drop = cfg.replace(pc_point_dropout=0.5)
+    with pytest.raises(ValueError, match="Generator"):
+        compute_loss(drop, preds, batch, 0, train=True)
+    totals = [compute_loss(drop, preds, batch, 0,
+                           torch.Generator().manual_seed(s), train=True)[0]
+              for s in (1, 1, 2)]
+    assert all(torch.isfinite(t) for t in totals)
+    assert totals[0] == totals[1]
     small = dict(batch, masks=torch.zeros(2, 2, D // 2, D // 2))
     with pytest.raises(NotImplementedError, match="resize"):
         compute_loss(cfg, preds, small, 0, train=False)
@@ -237,8 +244,10 @@ def test_serving_model_bf16_and_uint8(tiny_yaml):
 
 def test_cli_serve(tiny_yaml, monkeypatch, capsys):
     """The serve verb serves the seeded init when checkpoint_dir holds no
-    checkpoint, and refuses to start when it holds one, or when the config
-    asks for point-sharded rendering."""
+    checkpoint, and refuses to start when it holds an Orbax checkpoint
+    (dpcx's, which the port cannot read), or when the config asks for
+    point-sharded rendering. (Serving the port's own checkpoint:
+    tests/test_torch_train.py.)"""
     monkeypatch.setattr(http.server.ThreadingHTTPServer, "serve_forever",
                         lambda self, *a, **k: None)
     cli.main(["serve", "-f", tiny_yaml, "--port", "0", "--batch", "2",
@@ -254,12 +263,13 @@ def test_cli_serve(tiny_yaml, monkeypatch, capsys):
     cfg = load_config(tiny_yaml)
     ckpt = Path(cfg.checkpoint_dir) / "ckpt" / "100"
     ckpt.mkdir(parents=True)
-    with pytest.raises(SystemExit, match="cannot read"):
+    with pytest.raises(SystemExit, match="Orbax.*cannot read"):
         cli.main(["serve", "-f", tiny_yaml, "--device", "cpu"])
 
 
 def test_port_imports_no_jax():
-    """Importing every dpcx_torch module leaves jax (and flax) out."""
+    """Importing every dpcx_torch module (train, data, geometry.camera and
+    utils among them) leaves jax (and flax) out."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dpcx_torch\n"
@@ -269,6 +279,10 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "need = {'dpcx_torch.train', 'dpcx_torch.data.dataset',\n"
+        "        'dpcx_torch.data.synthetic', 'dpcx_torch.geometry.camera',\n"
+        "        'dpcx_torch.utils.visualise'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -276,7 +290,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20, proc.stdout
+    assert n_modules >= 27, proc.stdout
 
 
 def test_chip_smoke_fails_without_cuda():
