@@ -4,7 +4,9 @@ The sources in ``csrc/`` have a plain C interface. At first use they are
 compiled by ``nvcc`` for ``sm_90a`` into one shared library under
 ``build/`` at the repository root, named by a hash of the sources and the
 flags (so an edited source rebuilds and an unchanged one is reused), and
-loaded with ``ctypes``. Nothing here runs at import.
+loaded with ``ctypes``. The compiler's output, with ptxas's registers,
+stack frame and spills per kernel, is kept beside it (``build_log``).
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -51,6 +53,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdpcx_kernels_{h.hexdigest()[:16]}.so"
 
 
+def build_log() -> Path:
+    """The compiler's output for the library at ``library_path()``."""
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; -> its path."""
     out = library_path()
@@ -65,6 +72,7 @@ def build() -> Path:
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    build_log().write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
@@ -78,9 +86,11 @@ def load() -> ctypes.CDLL:
         ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
     ]
     lib.dpcx_fused_render.restype = i32
-    lib.dpcx_fused_render_bwd.argtypes = [
-        ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-        ptr,
-    ]
-    lib.dpcx_fused_render_bwd.restype = i32
+    # the saved-grid and the recompute backward take the same arguments
+    for fn in (lib.dpcx_fused_render_bwd, lib.dpcx_fused_render_bwd_recompute):
+        fn.argtypes = [
+            ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+            i32, ptr,
+        ]
+        fn.restype = i32
     return lib

@@ -23,7 +23,6 @@ def _load_cfg(args):
 
     cfg = load_config(args.config) if args.config else load_config()
     if cfg.shard_points:
-        # also keeps Config.validate() from importing jax for its warning
         raise SystemExit("shard_points (point-sharded rendering) is not "
                          "ported yet")
     return cfg.validate()

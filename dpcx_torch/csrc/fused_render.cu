@@ -1,55 +1,74 @@
 // Fused point-cloud renderer for NVIDIA Hopper (sm_90a):
-// trilinear splat -> separable Gaussian blur -> DRC projection.
+// trilinear splat -> separable Gaussian blur -> DRC projection, D <= 128.
 //
-// Replaces the TPU kernel dpcx/render/pallas_kernel.py::_fused_kernel (K1,
-// launched by _pallas_forward via pallas_project_t) for D <= 64. It computes
-// the same function: per render, points in grid units (z, y, x) with a
-// weight are splatted trilinearly into a D^3 occupancy grid (out-of-grid
-// corners dropped), the grid is blurred by three 1-D Gaussian passes (SAME
-// zero padding, x then y then z, taps computed from a runtime sigma), and
-// each ray along z is reduced with o clipped to [0, 1 - 1e-5]:
+// Forward. Replaces two TPU kernels that compute one function:
+// dpcx/render/pallas_kernel.py::_fused_kernel (K1, D <= 64, launched by
+// _pallas_forward) and dpcx/render/pallas_blocked.py::_blocked_fwd_kernel
+// (K3, D > 64, launched by blocked_forward). Per render, points in grid
+// units (z, y, x) with a weight are splatted trilinearly into a D^3
+// occupancy grid (out-of-grid corners dropped), the grid is blurred by three
+// 1-D Gaussian passes (SAME zero padding, x then y then z, taps computed from
+// a runtime sigma), and each ray along z is reduced with o clipped to
+// [0, 1 - 1e-5]:
 //   p_z = o_z T_z,  sil = sum_z p_z,
 //   depth = sum_z d_z p_z + 1.0 * T_D,  d_z = (z + 0.5) / D - 0.5.
 //
-// The TPU kernel z-sorts the points, builds per-chunk window metadata and
-// splats with dense matmuls because the TPU has no atomic scatter and the
-// whole grid must fit in VMEM. Hopper has fast atomics and 50 MB of L2, so
-// this design keeps none of that:
+// The TPU kernels z-sort the points, build per-chunk window metadata and
+// splat with dense matmuls because the TPU has no atomic scatter; K3 also
+// blocks z into slabs of 32 with a 2R halo and carries the transmittance
+// across grid steps, because a 128^3 f32 grid (8 MiB per render) does not
+// fit in VMEM. Hopper has fast atomics, and its 80 GB of device memory hold
+// the whole grid of every render (128 MiB at 16 renders of 128^3), so this
+// design keeps none of that, and one kernel family covers every D <= 128:
 //   (a) splat: one thread per point, 8 atomicAdds into a zeroed f32 grid
 //       [R, D, D, D] in device memory (R = renders). Bound by atomics:
 //       8 per point, contended where many points share a cell.
-//   (b) blur y and x: one block per (render, z-slab); the D x D slab
-//       (16 KB at D = 64) and the x-blurred copy sit in shared memory, and
-//       the y-blurred result is written back in place.
+//   (b) blur y and x: one block per (render, z-slab); the D x D slab and
+//       the x-blurred copy sit in shared memory, and the y-blurred result is
+//       written back in place. At D = 128 that is 128 KiB of shared memory
+//       (above the 48 KiB default, so the launcher raises the kernel's
+//       limit), one block per SM, run with 1024 threads; D <= 64 keeps
+//       256 threads and 32 KiB.
 //   (c) blur z fused with DRC: one thread per ray (render, y, x) walks z,
 //       forms each z-blurred occupancy from its 2R+1 neighbours (a warp
 //       reads 32 neighbouring x, so the reads coalesce and mostly hit L1),
-//       and carries T, sil and depth in registers.
+//       and carries T, sil and depth in registers. No z-blocking and no
+//       carried state between blocks: a ray is one thread's loop.
 // (b) and (c) are bound by bytes: the grid is written once by (a) and (b)
-// and read twice, by (b) and (c); at D = 64 that is 1 MiB per render.
+// and read twice, by (b) and (c); at D = 128 that is 8 MiB per render.
 //
-// The backward (K2) replaces dpcx/render/pallas_kernel.py::_fused_bwd_kernel
-// (launched by _pallas_backward): the gradient of (sil, depth) with respect
-// to each point's (z, y, x, w) in grid units. The TPU kernel recomputes the
-// grid because a second D^3 buffer does not fit in VMEM; here the forward's
-// x/y-blurred grid stays in device memory as the residual (32 MiB at the
-// car_64_depth training shape), so the backward never re-splats:
+// Backward. Replaces dpcx/render/pallas_kernel.py::_fused_bwd_kernel (K2,
+// D <= 64) and the two passes of the depth-blocked backward,
+// dpcx/render/pallas_blocked.py::_blocked_total_kernel (K4: per-ray Total)
+// and ::_blocked_bwd_kernel (K5: dL/do_z, the blur transposes, the splat
+// backward): the gradient of (sil, depth) with respect to each point's
+// (z, y, x, w) in grid units. The TPU kernels recompute the grid because a
+// second D^3 buffer does not fit in VMEM. Here the forward's x/y-blurred
+// grid may stay in device memory as the residual (dpcx_fused_render_bwd;
+// the saved-grid mode), or the backward re-splats and re-blurs into fresh
+// scratch first (dpcx_fused_render_bwd_recompute; the recompute mode that
+// remat selects). Then:
 //   (d) z-blur + DRC backward + z-blur transpose: one thread per ray walks
 //       z up to form T_z, then down with the suffix
 //         S_{D-1} = ddepth * 1.0,  S_{z-1} = o_z phi_z + (1 - o_z) S_z,
 //         dL/do_z = T_z (phi_z - S_z),  phi_z = dsil + ddepth d_z,
 //       zero where the forward clipped (o_raw >= 1 - 1e-5). The reference
-//       forms the same quantity as T_z phi_z - (Total - prefix_z) / (1 - o_z);
-//       the suffix form needs no division by (1 - o) down to 1e-5 and no
-//       difference of two nearly equal f32 sums. The taps are symmetric,
-//       so the z-blur's transpose is the same z-blur.
+//       forms the same quantity as T_z phi_z - (Total - prefix_z) / (1 - o_z),
+//       where K4's Total is a separate pass; here Total is the suffix S after
+//       the last step of the downward walk (S_{-1}), so K4 needs no pass of
+//       its own, and the suffix form needs no division by (1 - o) down to
+//       1e-5 and no difference of two nearly equal f32 sums. The taps are
+//       symmetric, so the z-blur's transpose is the same z-blur. The ray's
+//       o and T live in two per-thread arrays sized by a template bound:
+//       512 B at D <= 64, 1 KiB at D <= 128 (local memory, bound by bytes).
 //   (e) y/x blur transpose: (b) again, in place on the cotangent grid (the
 //       two axes commute and each pass is its own transpose).
 //   (f) splat backward: one thread per point gathers the cotangent at its
 //       in-grid corners, no atomics: dw = sum h_z h_y h_x dG and
 //       d(g_a) = w sum dh_a (other hats) dG, dh = -1 / +1 on the low / high
-//       corner. At an exactly integer coordinate this floor-based form is
-//       one-sided where the reference's _dhat_t gives 0.
+//       corner, and dh = 0 along an axis whose coordinate is an exact
+//       integer, as the reference's _dhat_t gives (a floor-based form would
+//       be one-sided there).
 // (d) and (f) are bound by bytes like (c) and the forward splat.
 //
 // The launchers run on the caller's stream, allocate nothing, and return
@@ -61,9 +80,11 @@
 
 namespace {
 
-constexpr int kMaxVox = 64;
+constexpr int kMaxVox = 128;
 constexpr int kMaxTaps = 2 * (kMaxVox - 1) + 1;  // radius <= D - 1
 constexpr int kThreads = 256;
+constexpr int kWideThreads = 1024;  // blur_yx at D > 64: one block per SM
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 // (a) coords [R, 3, N] rows (z, y, x) in grid units; weights [R, N] or null.
 __global__ void splat_kernel(const float* __restrict__ coords,
@@ -113,9 +134,9 @@ __global__ void splat_kernel(const float* __restrict__ coords,
 
 // (b) one block per (render, z): blur the slab along x, then along y, in
 // place. out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid.
-__global__ void blur_yx_kernel(float* __restrict__ grid,
-                               const float* __restrict__ taps, int radius,
-                               int d) {
+__global__ void __launch_bounds__(kWideThreads)
+    blur_yx_kernel(float* __restrict__ grid, const float* __restrict__ taps,
+                   int radius, int d) {
   extern __shared__ float smem[];
   float* a = smem;          // [D, D] the slab
   float* b = smem + d * d;  // [D, D] x-blurred
@@ -173,9 +194,11 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   if (with_depth) depth[ray] = dep + 1.f * trans;
 }
 
-// (d) one thread per ray: z-blur of the saved y/x-blurred grid, DRC
-// backward, and the z-blur's transpose into dgrid. dsil, ddepth [R, D, D];
-// ddepth may be null (a zero cotangent).
+// (d) one thread per ray: z-blur of the y/x-blurred grid, DRC backward, and
+// the z-blur's transpose into dgrid. dsil, ddepth [R, D, D]; ddepth may be
+// null (a zero cotangent). kMaxD bounds D and sizes the per-ray arrays, so
+// the D <= 64 instantiation keeps a 512 B frame.
+template <int kMaxD>
 __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      const float* __restrict__ taps,
                                      int radius,
@@ -183,7 +206,7 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      const float* __restrict__ ddepth,
                                      float* __restrict__ dgrid, int renders,
                                      int d, int with_depth) {
-  __shared__ float k[kMaxTaps];
+  __shared__ float k[2 * kMaxD - 1];
   for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) k[i] = taps[i];
   __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
@@ -194,8 +217,8 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
   const float* col = grid + off;
   const float fd = static_cast<float>(d);
   constexpr float kTop = 1.f - 1e-5f;
-  float o[kMaxVox];  // raw occupancy, then dL/do_raw
-  float tr[kMaxVox];  // transmittance before z
+  float o[kMaxD];  // raw occupancy, then dL/do_raw
+  float tr[kMaxD];  // transmittance before z
   float trans = 1.f;
   for (int z = 0; z < d; ++z) {
     const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
@@ -249,17 +272,20 @@ __global__ void splat_bwd_kernel(const float* __restrict__ coords,
     for (int dz = 0; dz < 2; ++dz) {
       const float cz = fz + dz;
       if (!(cz >= 0.f && cz <= top)) continue;
-      const float hz = dz ? tz : 1.f - tz, sz = dz ? 1.f : -1.f;
+      const float hz = dz ? tz : 1.f - tz;
+      const float sz = tz == 0.f ? 0.f : (dz ? 1.f : -1.f);
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
         const float cy = fy + dy;
         if (!(cy >= 0.f && cy <= top)) continue;
-        const float hy = dy ? ty : 1.f - ty, sy = dy ? 1.f : -1.f;
+        const float hy = dy ? ty : 1.f - ty;
+        const float sy = ty == 0.f ? 0.f : (dy ? 1.f : -1.f);
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const float cx = fx + dx;
           if (!(cx >= 0.f && cx <= top)) continue;
-          const float hx = dx ? tx : 1.f - tx, sx = dx ? 1.f : -1.f;
+          const float hx = dx ? tx : 1.f - tx;
+          const float sx = tx == 0.f ? 0.f : (dx ? 1.f : -1.f);
           const int64_t cell =
               (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
               static_cast<int64_t>(cx);
@@ -285,39 +311,93 @@ int64_t splat_blocks(int64_t points) {
   return blocks > 65535 * 16 ? 65535 * 16 : blocks;
 }
 
-size_t blur_smem(int d, int radius) {
-  return (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
+bool bad_args(int renders, int n, int d, int radius) {
+  return d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 ||
+         renders < 0 || n < 0;
 }
 
-}  // namespace
-
-// grid: scratch [R, D, D, D] f32; sil, depth: [R, D, D] f32 (depth may be
-// null when with_depth is 0). Returns a cudaError_t as int.
-extern "C" int dpcx_fused_render(const float* coords, const float* weights,
-                                 const float* taps, int radius, float* grid,
-                                 float* sil, float* depth, int renders, int n,
-                                 int d, int with_depth, void* stream) {
-  if (d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 || renders < 0 ||
-      n < 0 || (with_depth && depth == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// (b) on every slab of grid [R, D, D, D], in place.
+cudaError_t launch_blur_yx(float* grid, const float* taps, int radius,
+                           int renders, int d, cudaStream_t s) {
+  const size_t smem =
+      (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blur_yx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
-  if (renders == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = d > 64 ? kWideThreads : kThreads;
+  blur_yx_kernel<<<static_cast<unsigned>(renders * d), threads, smem, s>>>(
+      grid, taps, radius, d);
+  return cudaGetLastError();
+}
+
+// (a) + (b): the x/y-blurred grid of every render into the scratch grid.
+cudaError_t launch_grid(const float* coords, const float* weights,
+                        const float* taps, int radius, float* grid,
+                        int renders, int n, int d, cudaStream_t s) {
   const size_t cells = static_cast<size_t>(renders) * d * d * d;
   cudaError_t err = cudaMemsetAsync(grid, 0, cells * sizeof(float), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
+  if (err != cudaSuccess) return err;
   const int64_t points = static_cast<int64_t>(renders) * n;
   if (points > 0) {
     splat_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads, 0,
                    s>>>(coords, weights, grid, renders, n, d);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return err;
   }
+  return launch_blur_yx(grid, taps, radius, renders, d, s);
+}
 
-  blur_yx_kernel<<<static_cast<unsigned>(renders * d), kThreads,
-                   blur_smem(d, radius), s>>>(grid, taps, radius, d);
-  err = cudaGetLastError();
+// (d) + (e) + (f) on the x/y-blurred grid.
+cudaError_t launch_bwd_stages(const float* coords, const float* weights,
+                              const float* taps, int radius,
+                              const float* grid, const float* dsil,
+                              const float* ddepth, float* dgrid,
+                              float* dcoords, float* dweights, int renders,
+                              int n, int d, int with_depth, cudaStream_t s) {
+  const int64_t rays = static_cast<int64_t>(renders) * d * d;
+  const unsigned blocks = static_cast<unsigned>((rays + kThreads - 1) /
+                                                kThreads);
+  if (d <= 64) {
+    zblur_drc_bwd_kernel<64><<<blocks, kThreads, 0, s>>>(
+        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+  } else {
+    zblur_drc_bwd_kernel<kMaxVox><<<blocks, kThreads, 0, s>>>(
+        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = launch_blur_yx(dgrid, taps, radius, renders, d, s);
+  if (err != cudaSuccess) return err;
+
+  const int64_t points = static_cast<int64_t>(renders) * n;
+  if (points > 0) {
+    splat_bwd_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads,
+                       0, s>>>(coords, weights, dgrid, dcoords, dweights,
+                               renders, n, d);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Forward. grid: scratch [R, D, D, D] f32 that holds the x/y-blurred grid
+// afterwards; sil, depth: [R, D, D] f32 (depth may be null when with_depth
+// is 0). Returns a cudaError_t as int.
+extern "C" int dpcx_fused_render(const float* coords, const float* weights,
+                                 const float* taps, int radius, float* grid,
+                                 float* sil, float* depth, int renders, int n,
+                                 int d, int with_depth, void* stream) {
+  if (bad_args(renders, n, d, radius) || (with_depth && depth == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (renders == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_grid(coords, weights, taps, radius, grid, renders,
+                                n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int64_t rays = static_cast<int64_t>(renders) * d * d;
@@ -327,11 +407,11 @@ extern "C" int dpcx_fused_render(const float* coords, const float* weights,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2. grid: the forward's x/y-blurred grid [R, D, D, D] (read only);
-// dgrid: scratch [R, D, D, D]; dsil [R, D, D]; ddepth [R, D, D] or null
-// (zero); dcoords out [R, 3, N] (z, y, x); dweights out [R, N] or null
-// (not wanted). weights null means every point weighs 1. Returns a
-// cudaError_t as int.
+// Backward, saved-grid mode. grid: the forward's x/y-blurred grid
+// [R, D, D, D] (read only); dgrid: scratch [R, D, D, D]; dsil [R, D, D];
+// ddepth [R, D, D] or null (zero); dcoords out [R, 3, N] (z, y, x);
+// dweights out [R, N] or null (not wanted). weights null means every point
+// weighs 1. Returns a cudaError_t as int.
 extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
                                      const float* taps, int radius,
                                      const float* grid, const float* dsil,
@@ -339,30 +419,32 @@ extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
                                      float* dcoords, float* dweights,
                                      int renders, int n, int d, int with_depth,
                                      void* stream) {
-  if (d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 || renders < 0 ||
-      n < 0) {
+  if (bad_args(renders, n, d, radius)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (renders == 0) return 0;
+  return static_cast<int>(launch_bwd_stages(
+      coords, weights, taps, radius, grid, dsil, ddepth, dgrid, dcoords,
+      dweights, renders, n, d, with_depth, static_cast<cudaStream_t>(stream)));
+}
+
+// Backward, recompute mode: as dpcx_fused_render_bwd, but grid is scratch
+// [R, D, D, D] that is first re-splatted and re-blurred (y/x) from coords,
+// weights and taps, as the forward made it.
+extern "C" int dpcx_fused_render_bwd_recompute(
+    const float* coords, const float* weights, const float* taps, int radius,
+    float* grid, const float* dsil, const float* ddepth, float* dgrid,
+    float* dcoords, float* dweights, int renders, int n, int d,
+    int with_depth, void* stream) {
+  if (bad_args(renders, n, d, radius)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rays = static_cast<int64_t>(renders) * d * d;
-  zblur_drc_bwd_kernel<<<static_cast<unsigned>((rays + kThreads - 1) /
-                                               kThreads),
-                         kThreads, 0, s>>>(grid, taps, radius, dsil, ddepth,
-                                           dgrid, renders, d, with_depth);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_grid(coords, weights, taps, radius, grid,
+                                      renders, n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  blur_yx_kernel<<<static_cast<unsigned>(renders * d), kThreads,
-                   blur_smem(d, radius), s>>>(dgrid, taps, radius, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int64_t points = static_cast<int64_t>(renders) * n;
-  if (points > 0) {
-    splat_bwd_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads,
-                       0, s>>>(coords, weights, dgrid, dcoords, dweights,
-                               renders, n, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_bwd_stages(
+      coords, weights, taps, radius, grid, dsil, ddepth, dgrid, dcoords,
+      dweights, renders, n, d, with_depth, s));
 }

@@ -4,7 +4,8 @@
 Every target view is rendered with its known camera; the loss is the
 squared-L2 silhouette error, plus the masked depth error when the config
 renders depth, plus the scale regulariser. With ``renderer: pallas`` the
-render goes through the fused CUDA kernels (K1 forward, K2 backward).
+render goes through the fused CUDA kernels (forward and backward, at any
+D <= 128).
 With ``train=True`` and ``pc_point_dropout < 1`` the points carry Bernoulli
 keep weights drawn from the ``generator`` passed in, where the reference
 takes a ``jax.random`` key. Not ported yet, and refused: predicted pose,

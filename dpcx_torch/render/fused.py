@@ -1,13 +1,20 @@
 """Fused splat -> blur -> DRC renderer (port of
-``dpcx/render/pallas_kernel.py``: the K1 forward and the K2 backward for
-D <= 64).
+``dpcx/render/pallas_kernel.py::pallas_project_t``: the K1 forward and the
+K2 backward for D <= 64, and the depth-blocked K3 forward and K4/K5
+backward of ``dpcx/render/pallas_blocked.py`` for 64 < D <= 128).
 
 ``fused_project_t`` runs, for CUDA tensors, a ``torch.autograd.Function``
-whose forward launches the hand-written CUDA kernel K1 and whose backward
-launches K2 (both in ``csrc/fused_render.cu``); for CPU tensors it runs
-the plain version, ``fused_project_reference``, and autograd differentiates
-that. Any other device raises. The plain version is also the yardstick
-both kernels are checked against on the card.
+whose forward and backward launch the hand-written CUDA kernels of
+``csrc/fused_render.cu``; one kernel family covers every D <= 128. For CPU
+tensors it runs the plain version, ``fused_project_reference``, and
+autograd differentiates that. Any other device raises. The plain version
+is also the yardstick the kernels are checked against on the card.
+
+``save_grid`` mirrors ``pallas_project_t``'s: at D > 64 the forward keeps
+the x/y-blurred grid (8 MiB per render at 128^3) for the backward, or,
+when False (``cfg.remat``), keeps only coords, weights and taps, and the
+backward re-splats and re-blurs into fresh scratch first. At D <= 64 the
+grid is always kept, as ``save_grid`` has no effect there in dpcx.
 """
 
 from __future__ import annotations
@@ -19,10 +26,23 @@ from dpcx_torch.render.drc import drc_projection
 from dpcx_torch.render.gauss import gauss_kernel_1d, smoothen_voxels3d
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
 
-MAX_FUSED_VOX = 64  # the kernel's grid is D^3 f32 per render, D <= 64
+MAX_FUSED_VOX = 128  # the kernels' grid is D^3 f32 per render, D <= 128
+BLOCKED_VOX = 64  # above this, dpcx runs the depth-blocked kernels K3-K5
 
-# kernel launches by name; counted only where a launch happens
-LAUNCHES: dict[str, int] = {"fused_render": 0, "fused_render_bwd": 0}
+# kernel launches by name; counted only where a launch happens. D <= 64
+# counts as fused_*, D > 64 as blocked_* (the K3-K5 counterparts)
+LAUNCHES: dict[str, int] = {
+    "fused_render": 0,
+    "fused_render_bwd": 0,
+    "blocked_render": 0,
+    "blocked_render_bwd": 0,
+    "blocked_render_bwd_recompute": 0,
+}
+
+
+def launch_family(vox: int) -> str:
+    """The launch counters' prefix at grid size ``vox``."""
+    return "blocked" if vox > BLOCKED_VOX else "fused"
 
 
 def fused_project_reference(
@@ -34,7 +54,15 @@ def fused_project_reference(
     with_depth: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of the kernel: scatter splat + separable blur
-    + DRC. ndc_t [R, 3, N] (rows x, y, z_ndc) -> sil [R, D, D], depth."""
+    + DRC. ndc_t [R, 3, N] (rows x, y, z_ndc) -> sil [R, D, D], depth.
+
+    Its forward is the kernels' function. Its gradient, by autograd through
+    the floor-based trilinear weights, is that of dpcx's XLA scatter
+    (``dpcx/render/voxelize.py:72``), and so differs from the kernels' (and
+    from the Pallas kernels', whose hat derivative is ``_dhat_t``) only at
+    an exactly integer grid coordinate: there the floor-based derivative
+    along that axis is one-sided (-v(c) + v(c + 1)) where the kernels give
+    0."""
     grid = pointcloud2voxels_scatter(
         ndc_t.transpose(1, 2), vox_size, point_weights=point_weights
     )
@@ -67,9 +95,9 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _launch_forward(coords, weights, taps, radius, vox, with_depth):
-    """K1: coords [R, 3, N] (z, y, x grid units), weights [R, N] or None,
-    taps [2 radius + 1] -> (sil, depth or None, the x/y-blurred grid
-    [R, D, D, D] that K2 reads)."""
+    """Forward (K1, or K3 at D > 64): coords [R, 3, N] (z, y, x grid
+    units), weights [R, N] or None, taps [2 radius + 1] -> (sil, depth or
+    None, the x/y-blurred grid [R, D, D, D] that the backward may read)."""
     from dpcx_torch import _build
 
     R, _, N = coords.shape
@@ -85,19 +113,27 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth):
             int(with_depth),
             torch.cuda.current_stream(coords.device).cuda_stream,
         )
+    name = f"{launch_family(vox)}_render"
     if err != 0:
-        raise RuntimeError(f"fused_render kernel launch failed: cudaError {err}")
-    LAUNCHES["fused_render"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return sil, depth, grid
 
 
 def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
                      vox, with_depth, want_dweights):
-    """K2: cotangents dsil [R, D, D] and ddepth (or None: zero) ->
-    (d coords [R, 3, N], d weights [R, N] or None)."""
+    """Backward (K2, or K4 + K5 at D > 64): cotangents dsil [R, D, D] and
+    ddepth (or None: zero) -> (d coords [R, 3, N], d weights [R, N] or
+    None). ``grid`` is the forward's x/y-blurred grid, or None: then the
+    recompute launcher re-splats and re-blurs it into scratch first."""
     from dpcx_torch import _build
 
     R, _, N = coords.shape
+    D = vox
+    recompute = grid is None
+    if recompute:
+        grid = torch.empty((R, D, D, D), dtype=torch.float32,
+                           device=coords.device)
     dgrid = torch.empty_like(grid)
     dcoords = torch.empty_like(coords)
     dweights = (
@@ -105,23 +141,26 @@ def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
         if want_dweights else None
     )
     lib = _build.load()
+    launch = (lib.dpcx_fused_render_bwd_recompute if recompute
+              else lib.dpcx_fused_render_bwd)
     with torch.cuda.device(coords.device):
-        err = lib.dpcx_fused_render_bwd(
+        err = launch(
             coords.data_ptr(), _ptr(weights), taps.data_ptr(), radius,
             grid.data_ptr(), dsil.data_ptr(), _ptr(ddepth), dgrid.data_ptr(),
-            dcoords.data_ptr(), _ptr(dweights), R, N, vox, int(with_depth),
+            dcoords.data_ptr(), _ptr(dweights), R, N, D, int(with_depth),
             torch.cuda.current_stream(coords.device).cuda_stream,
         )
+    name = (f"{launch_family(vox)}_render_bwd"
+            + ("_recompute" if recompute else ""))
     if err != 0:
-        raise RuntimeError(
-            f"fused_render_bwd kernel launch failed: cudaError {err}"
-        )
-    LAUNCHES["fused_render_bwd"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
     return dcoords, dweights
 
 
 class _FusedRender(torch.autograd.Function):
-    """K1 forward, K2 backward. Returns sil, or (sil, depth) with depth.
+    """Kernel forward, kernel backward. Returns sil, or (sil, depth) with
+    depth.
 
     No gradient reaches the taps (the blur sigma is a schedule, not a
     learned parameter), as the zero ``dkmat`` of ``_fused_bwd`` in
@@ -129,11 +168,13 @@ class _FusedRender(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, coords, weights, taps, radius, vox, with_depth):
+    def forward(ctx, coords, weights, taps, radius, vox, with_depth,
+                save_grid):
         sil, depth, grid = _launch_forward(
             coords, weights, taps, radius, vox, with_depth
         )
-        ctx.save_for_backward(coords, weights, taps, grid)
+        keep = save_grid or vox <= BLOCKED_VOX
+        ctx.save_for_backward(coords, weights, taps, grid if keep else None)
         ctx.radius, ctx.vox, ctx.with_depth = radius, vox, with_depth
         # an output the loss never reads arrives as None, not as zeros
         ctx.set_materialize_grads(False)
@@ -152,11 +193,11 @@ class _FusedRender(torch.autograd.Function):
             ctx.vox, ctx.with_depth, want_weights,
         )
         return (dcoords if want_coords else None, dweights,
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
-                    with_depth):
+                    with_depth, save_grid=True):
     """The kernel path: the NDC -> grid affine stays outside the Function,
     so autograd chains d/d(ndc) = D d/d(coords), as pallas_project_t."""
     for name, t in (("ndc_t", ndc_t), ("point_weights", point_weights)):
@@ -174,7 +215,8 @@ def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
     sigma = torch.as_tensor(sigma_vox, dtype=torch.float32,
                             device=ndc_t.device)
     taps = gauss_kernel_1d(sigma, kernel_radius).contiguous()
-    out = _FusedRender.apply(coords, pw, taps, kernel_radius, D, with_depth)
+    out = _FusedRender.apply(coords, pw, taps, kernel_radius, D, with_depth,
+                             save_grid)
     return out if with_depth else (out, None)
 
 
@@ -186,13 +228,15 @@ def fused_project_t(
     point_weights: torch.Tensor | None = None,
     with_depth: bool = False,
     acc_dtype: str = "float32",
+    save_grid: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """CHANNEL-MAJOR fused projection: ndc_t [R, 3, N] (rows x, y, z_ndc,
     from pc_perspective_transform_t) -> (sil [R, D, D], depth or None).
 
-    Mirrors ``dpcx.render.pallas_kernel.pallas_project_t``, gradients
-    included. CUDA tensors go through the CUDA kernels, CPU tensors
-    through the plain version.
+    Mirrors ``dpcx.render.pallas_kernel.pallas_project_t``, gradients and
+    ``save_grid`` included. CUDA tensors go through the CUDA kernels, CPU
+    tensors through the plain version (where ``save_grid`` changes
+    nothing).
     """
     if acc_dtype != "float32":
         raise NotImplementedError(
@@ -211,5 +255,6 @@ def fused_project_t(
             f"not {ndc_t.device.type}"
         )
     return _kernel_project(
-        ndc_t, vox_size, sigma_vox, kernel_radius, point_weights, with_depth
+        ndc_t, vox_size, sigma_vox, kernel_radius, point_weights, with_depth,
+        save_grid,
     )

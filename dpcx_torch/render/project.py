@@ -94,13 +94,8 @@ def pointcloud_project_fn(
         and not cfg.drc_logsum
         and not return_voxels
         and D % 8 == 0
-        and D <= 128
+        and D <= MAX_FUSED_VOX  # 128, as dpcx; larger D takes the eager ops
     ):
-        if D > MAX_FUSED_VOX:
-            raise NotImplementedError(
-                f"renderer=pallas at vox_size={D}: the depth-blocked kernel "
-                f"for D > {MAX_FUSED_VOX} is not ported yet"
-            )
         ndc_t = pc_perspective_transform_t(
             points,
             quat,
@@ -116,6 +111,9 @@ def pointcloud_project_fn(
             point_weights=point_weights,
             with_depth=cfg.proj_depth,
             acc_dtype=cfg.pallas_acc_dtype,
+            # remat: at D > 64 the backward re-splats and re-blurs instead
+            # of keeping the blurred grid (8 MiB per render at 128^3)
+            save_grid=not cfg.remat,
         )
         return RenderOut(silhouette=sil, depth=depth)
 

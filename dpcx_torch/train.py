@@ -18,8 +18,9 @@ Differences from the reference, by design:
   ``max_to_keep``). An Orbax step directory there is refused, never read.
 
 Not ported yet, and refused: predicted pose and the gauge reseed (ROADMAP
-queue 1 item 4), periodic eval (item 3), block rotation and remat (item
-5), profiling (item 8), point sharding (item 9).
+queue 1 item 4), periodic eval (item 3), profiling (item 8), point
+sharding (item 9), block rotation (item 10: it rotates the records of
+dpcx's device-side batch stream, which this loop does not follow).
 """
 
 from __future__ import annotations
@@ -97,10 +98,30 @@ def train_step(
     generator: torch.Generator | None,
 ) -> dict[str, torch.Tensor]:
     """One step (forward, render, backward, Adam) on ``state`` in place;
-    returns the metrics as device tensors, ``grad_norm`` included."""
-    preds = apply_model(cfg, state.model, batch)
-    loss, metrics = compute_loss(cfg, preds, batch, state.step, generator,
-                                 train=True)
+    returns the metrics as device tensors, ``grad_norm`` included.
+
+    With ``cfg.remat`` model plus loss run under ``torch.utils.checkpoint``
+    (dpcx's ``jax.checkpoint`` of its ``loss_fn``): their activations are
+    recomputed in the backward instead of being kept. The recompute must
+    draw the same dropout weights, but checkpoint restores only the
+    default generators, not ``generator``: so its state is taken before
+    the forward and set again at the top of every run of the function.
+    """
+    gen_state = None if generator is None else generator.get_state()
+
+    def loss_fn():
+        if gen_state is not None:
+            generator.set_state(gen_state)
+        preds = apply_model(cfg, state.model, batch)
+        return compute_loss(cfg, preds, batch, state.step, generator,
+                            train=True)
+
+    if cfg.remat:
+        from torch.utils.checkpoint import checkpoint
+
+        loss, metrics = checkpoint(loss_fn, use_reentrant=False)
+    else:
+        loss, metrics = loss_fn()
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -291,8 +312,7 @@ def _refuse_unported(cfg: Config) -> None:
         (cfg.predict_pose or cfg.gauge_reseed_threshold_deg > 0,
          "predicted pose and the gauge reseed", 4),
         (cfg.eval_every > 0, "periodic eval (eval_every > 0)", 3),
-        (cfg.device_records_models > 0, "device_records_models > 0", 5),
-        (cfg.remat, "remat", 5),
+        (cfg.device_records_models > 0, "device_records_models > 0", 10),
         (bool(cfg.profile_dir), "profile_dir", 8),
         (cfg.shard_points, "shard_points", 9),
     ]

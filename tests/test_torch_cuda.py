@@ -7,7 +7,9 @@ card with:
 
 Tolerance: sil and depth atol 1e-4 — atomics reorder the f32 splat sums
 from run to run, so the kernel is not bitwise stable; gradients within
-1e-3 of the largest plain gradient, for the same reason.
+1e-3 of the largest plain gradient, for the same reason. D > 64 runs the
+counterparts of dpcx's depth-blocked kernels (K3-K5), in both backward
+modes (the saved grid, and the recompute that ``remat`` selects).
 """
 
 import numpy as np
@@ -39,6 +41,8 @@ def cuda():
         (8, 16000, 64, 8, True, True, 0.6),
         (2, 5000, 64, 63, True, False, 0.55),  # the widest radius
         (1, 1, 8, 1, True, False, 0.45),
+        (2, 4000, 72, 9, True, True, 0.6),  # D > 64, points past both ends
+        (4, 16000, 128, 16, False, True, 0.6),  # the multicat_128 step
     ],
 )
 def test_kernel_matches_plain(cuda, renders, n, vox, radius, with_depth,
@@ -49,11 +53,12 @@ def test_kernel_matches_plain(cuda, renders, n, vox, radius, with_depth,
     pw = (torch.tensor(rng.uniform(0, 1, (renders, n)), dtype=torch.float32,
                        device=cuda) if weights else None)
     sigma = torch.tensor(0.05 * vox, device=cuda)
-    before = fused.LAUNCHES["fused_render"]
+    key = "blocked_render" if vox > 64 else "fused_render"
+    before = fused.LAUNCHES[key]
     s_k, d_k = fused.fused_project_t(ndc, vox, sigma, radius,
                                      point_weights=pw, with_depth=with_depth)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES["fused_render"] == before + 1
+    assert fused.LAUNCHES[key] == before + 1
     s_p, d_p = fused.fused_project_reference(
         ndc, vox, sigma, radius, point_weights=pw, with_depth=with_depth
     )
@@ -95,6 +100,23 @@ def _grads(fn, ndc, pw, dsil, ddepth):
     return torch.autograd.grad(loss, inputs)
 
 
+def _assert_grads_close(got, plain, ndc, vox):
+    """Each kernel gradient within 1e-3 of the largest plain one. d ndc
+    along an axis whose grid coordinate is an exact integer (a few of a
+    million random f32 coordinates are) is 0 from the kernels, as dpcx's
+    _dhat_t gives, and one-sided from the plain version's floor-based
+    derivative: there it must be 0, and is not compared."""
+    coords = (ndc.flip(1) + 0.5) * vox - 0.5  # as fused._kernel_project
+    on_int = (coords == coords.floor()).flip(1)
+    for i, (a, b) in enumerate(zip(got, plain)):
+        bound = 1e-3 * b.abs().max().item()
+        assert bound > 0
+        if i == 0:
+            assert (a[on_int] == 0).all()
+            a, b = a[~on_int], b[~on_int]
+        assert (a - b).abs().max().item() <= bound
+
+
 @pytest.mark.parametrize(
     "renders,n,vox,radius,with_depth,weights,lim",
     [
@@ -133,26 +155,123 @@ def test_backward_kernel_matches_plain(cuda, renders, n, vox, radius,
             x, vox, sigma, radius, point_weights=w, with_depth=with_depth),
         ndc, pw, dsil, ddepth,
     )
-    for a, b in zip(g_k, g_p):
-        bound = 1e-3 * b.abs().max().item()
-        assert bound > 0
-        assert (a - b).abs().max().item() <= bound
+    _assert_grads_close(g_k, g_p, ndc, vox)
 
 
 def test_pallas_renderer_on_card(cuda):
-    """renderer: pallas reaches the kernel at D <= 64 and raises above
-    (the blocked kernel is not ported) instead of running plain ops."""
+    """renderer: pallas reaches the fused kernel at D <= 64 and the
+    blocked counterparts at 64 < D <= 128 (save_grid = not remat), and
+    falls through to the plain ops above 128, as dpcx does."""
     pts = torch.rand(2, 500, 3, device=cuda) - 0.5
     q = torch.tensor([[1.0, 0, 0, 0]] * 2, device=cuda)
     cfg = Config(vox_size=32, renderer="pallas", proj_depth=True)
-    before = fused.LAUNCHES["fused_render"]
-    out = pointcloud_project_fn(cfg, pts, q, torch.tensor(0.05))
-    assert fused.LAUNCHES["fused_render"] == before + 1
-    ref = pointcloud_project_fn(cfg.replace(renderer="xla"), pts, q,
+    for vox, key in ((32, "fused_render"), (128, "blocked_render")):
+        c = cfg.replace(vox_size=vox)
+        before = fused.LAUNCHES[key]
+        out = pointcloud_project_fn(c, pts, q, torch.tensor(0.05))
+        assert fused.LAUNCHES[key] == before + 1
+        ref = pointcloud_project_fn(c.replace(renderer="xla"), pts, q,
+                                    torch.tensor(0.05))
+        torch.testing.assert_close(out.silhouette, ref.silhouette,
+                                   atol=ATOL, rtol=0)
+        torch.testing.assert_close(out.depth, ref.depth, atol=ATOL, rtol=0)
+    before = dict(fused.LAUNCHES)
+    out = pointcloud_project_fn(cfg.replace(vox_size=136), pts, q,
                                 torch.tensor(0.05))
-    torch.testing.assert_close(out.silhouette, ref.silhouette, atol=ATOL,
-                               rtol=0)
-    torch.testing.assert_close(out.depth, ref.depth, atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="vox_size=128"):
-        pointcloud_project_fn(cfg.replace(vox_size=128), pts, q,
-                              torch.tensor(0.05))
+    assert fused.LAUNCHES == before and out.silhouette.shape == (2, 136, 136)
+
+
+@pytest.mark.parametrize("save_grid", [True, False])
+@pytest.mark.parametrize(
+    "renders,n,vox,radius,with_depth,lim",
+    [
+        (16, 16000, 128, 16, False, 0.6),  # the multicat_128 step
+        (4, 16000, 128, 16, True, 0.6),
+        (3, 3000, 72, 9, True, 0.7),  # points past both z ends
+        (2, 2000, 72, 71, False, 0.55),  # the widest radius
+    ],
+)
+def test_blocked_backward_matches_plain(cuda, save_grid, renders, n, vox,
+                                        radius, with_depth, lim):
+    """The D > 64 backward (the counterparts of K4 + K5), with the saved
+    grid and with the recompute, against autograd through the plain
+    version, with dropout weights; the two modes against each other."""
+    rng = np.random.default_rng(vox + n + radius)
+    ndc = torch.tensor(rng.uniform(-lim, lim, (renders, 3, n)),
+                       dtype=torch.float32, device=cuda)
+    pw = torch.tensor((rng.random((renders, n)) < 0.5) / 0.5,
+                      dtype=torch.float32, device=cuda)
+    dsil = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                        dtype=torch.float32, device=cuda)
+    ddepth = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                          dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(0.05 * vox, device=cuda)
+    key = "blocked_render_bwd" + ("" if save_grid else "_recompute")
+    before = dict(fused.LAUNCHES)
+
+    def kernel(save):
+        return _grads(
+            lambda x, w: fused.fused_project_t(
+                x, vox, sigma, radius, point_weights=w,
+                with_depth=with_depth, save_grid=save),
+            ndc, pw, dsil, ddepth,
+        )
+
+    g_k = kernel(save_grid)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before[key] + 1
+    assert fused.LAUNCHES["blocked_render"] == before["blocked_render"] + 1
+    g_p = _grads(
+        lambda x, w: fused.fused_project_reference(
+            x, vox, sigma, radius, point_weights=w, with_depth=with_depth),
+        ndc, pw, dsil, ddepth,
+    )
+    _assert_grads_close(g_k, g_p, ndc, vox)
+    g_o = kernel(not save_grid)
+    for a, b, o in zip(g_k, g_p, g_o):
+        assert (a - o).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+def test_blur_yx_launch_at_d128(cuda):
+    """At D 128 blur_yx_kernel needs 128 KiB of shared memory and more
+    with the widest radius (above the 48 KiB default): the launch is
+    accepted and the result right."""
+    rng = np.random.default_rng(128)
+    ndc = torch.tensor(rng.uniform(-0.5, 0.5, (2, 3, 3000)),
+                       dtype=torch.float32, device=cuda)
+    for radius in (16, 127):
+        sigma = torch.tensor(0.02 * 128 * (1 + radius / 16), device=cuda)
+        s_k, d_k = fused.fused_project_t(ndc, 128, sigma, radius,
+                                         with_depth=True)
+        torch.cuda.synchronize()
+        s_p, d_p = fused.fused_project_reference(ndc, 128, sigma, radius,
+                                                 with_depth=True)
+        torch.testing.assert_close(s_k, s_p, atol=ATOL, rtol=0)
+        torch.testing.assert_close(d_k, d_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("vox,save_grid", [(32, True), (72, True),
+                                           (72, False)])
+def test_integer_coordinate_gradient_is_zero(cuda, vox, save_grid):
+    """Along an axis whose grid coordinate is an exact integer the hat's
+    derivative is 0, as dpcx's _dhat_t gives (the plain version's
+    floor-based derivative is one-sided there): K2's backward and the
+    D > 64 backward in both modes."""
+    from dpcx_torch.render.gauss import gauss_kernel_1d
+
+    rng = np.random.default_rng(vox)
+    R, N, radius = 2, 400, 3
+    g = rng.uniform(2, vox - 3, (R, 3, N)).astype(np.float32)
+    g[:, 0, : N // 2] = np.round(g[:, 0, : N // 2])  # integer z
+    g[:, 2, N // 2 :] = np.round(g[:, 2, N // 2 :])  # integer x
+    coords = torch.tensor(g, device=cuda, requires_grad=True)
+    taps = gauss_kernel_1d(torch.tensor(1.5, device=cuda), radius)
+    sil = fused._FusedRender.apply(coords, None, taps.contiguous(), radius,
+                                   vox, False, save_grid)
+    dsil = torch.tensor(rng.normal(size=(R, vox, vox)), dtype=torch.float32,
+                        device=cuda)
+    (d,) = torch.autograd.grad((sil * dsil).sum(), coords)
+    d = d.cpu().numpy()
+    assert (d[:, 0, : N // 2] == 0).all() and (d[:, 2, N // 2 :] == 0).all()
+    assert (d[:, 1] != 0).mean() > 0.99  # y is never an integer here
+    assert (d[:, 0, N // 2 :] != 0).mean() > 0.99

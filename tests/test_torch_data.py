@@ -11,6 +11,8 @@
   whole datasets are compared on their properties, not against dpcx.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,12 +23,18 @@ from dpcx.config import Config
 from dpcx.data import dataset as jds
 from dpcx.data import synthetic as jsyn
 from dpcx.render.project import pointcloud_project as j_project
+from dpcx_torch.config import Config as TConfig
 from dpcx_torch.data import dataset as tds
 from dpcx_torch.data import synthetic as tsyn
 from dpcx_torch.geometry.camera import camera_from_view_angles
 
 SMALL = dict(vox_size=8, pc_num_points=64, num_views=3, views_per_step=2,
              renderer="pallas", pc_relative_sigma=0.1)
+
+
+def _t(cfg: Config) -> TConfig:
+    """The port's Config with the same fields as dpcx's."""
+    return TConfig(**dataclasses.asdict(cfg))
 
 
 def _records(rng, models=5, views=4, size=8, D=8):
@@ -48,11 +56,11 @@ def test_batch_matches_dpcx_bit_for_bit(overrides, rng):
     cfg = Config(**overrides)
     recs = _records(rng)
     b_j = jds.Dataset(recs, cfg).batch(np.random.default_rng(7), 6)
-    b_t = tds.Dataset(recs, cfg).batch(np.random.default_rng(7), 6)
+    b_t = tds.Dataset(recs, _t(cfg)).batch(np.random.default_rng(7), 6)
     assert b_t.keys() == b_j.keys()
     for k in b_t:
         np.testing.assert_array_equal(b_t[k], b_j[k], err_msg=k)
-    ds = tds.Dataset(recs, cfg)
+    ds = tds.Dataset(recs, _t(cfg))
     np.testing.assert_array_equal(ds.eval_batch(np.arange(3))["image"],
                                   jds.Dataset(recs, cfg).eval_batch(
                                       np.arange(3))["image"])
@@ -66,7 +74,7 @@ def test_shards_cross_load(tmp_path, rng):
     recs = _records(rng)
     name = "car_m5_v4_d8_s3.npz"
     jds.save_shards(recs, tmp_path / "a" / name)
-    got = tds.load_or_make(cfg, 5, seed=3)  # must load, not generate
+    got = tds.load_or_make(_t(cfg), 5, seed=3)  # must load, not generate
     for k, v in recs.items():
         np.testing.assert_array_equal(got.records[k], v)
 
@@ -79,8 +87,8 @@ def test_shards_cross_load(tmp_path, rng):
     ext = {k: v for k, v in recs.items() if k not in ("depths", "gt_points")}
     tds.save_shards(ext, tmp_path / "ext" / "s0.npz")
     jds.save_shards(ext, tmp_path / "ext" / "s1.npz")
-    for load in (tds.load_external, jds.load_external):
-        ds = load(tmp_path / "ext" / "*.npz", cfg, limit=7)
+    for load, c in ((tds.load_external, _t(cfg)), (jds.load_external, cfg)):
+        ds = load(tmp_path / "ext" / "*.npz", c, limit=7)
         assert ds.num_models == 7
         assert ds.records["depths"].shape == (7, 4, 8, 8)
 
@@ -117,7 +125,7 @@ def test_gt_views_and_images_match_dpcx(image_size, rng):
     pts, quats, colors = _scene(rng, cfg)
     m_j, d_j = jsyn._render_gt_views(cfg, jnp.asarray(pts),
                                      jnp.asarray(quats))
-    m_t, d_t = tsyn._render_gt_views(cfg, torch.from_numpy(pts),
+    m_t, d_t = tsyn._render_gt_views(_t(cfg), torch.from_numpy(pts),
                                      torch.from_numpy(quats))
     flips = np.abs(m_t.numpy() - np.asarray(m_j)) > 0
     assert flips.mean() <= 0.005
@@ -135,7 +143,7 @@ def test_gt_views_and_images_match_dpcx(image_size, rng):
     img = out.rgb + (1.0 - out.silhouette[..., None])
     img_j = jnp.clip(jax.image.resize(img, (V, image_size, image_size, 3),
                                       method="bilinear"), 0.0, 1.0)
-    img_t = tsyn._render_images(cfg, torch.from_numpy(pts),
+    img_t = tsyn._render_images(_t(cfg), torch.from_numpy(pts),
                                 torch.from_numpy(quats),
                                 torch.from_numpy(colors))
     assert img_t.shape == (V, image_size, image_size, 3)
@@ -159,7 +167,7 @@ def test_surface_samples_lie_on_the_boxes():
 
 
 def test_make_dataset_seeded_and_sliced():
-    cfg = Config(**SMALL, image_size=16, category="multi")
+    cfg = TConfig(**SMALL, image_size=16, category="multi")
     full = tsyn.make_dataset(cfg, 3, seed=5, gt_points=128)
     assert full["images"].shape == (3, 3, 16, 16, 3)
     assert full["masks"].shape == full["depths"].shape == (3, 3, 8, 8)

@@ -7,6 +7,8 @@ matmuls summed in another order); at bfloat16 a mean abs error of at most
 round bf16 at different places).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,12 +19,18 @@ from dpcx.config import Config
 from dpcx.models.model_pc import ModelPointCloud as JModel
 from dpcx.nets.img_encoder import ImageEncoder as JEncoder
 from dpcx.nets.pc_decoder import PointCloudDecoder as JDecoder
+from dpcx_torch.config import Config as TConfig
 from dpcx_torch.convert import params_from_flax
 from dpcx_torch.models.model_pc import ModelPointCloud
 from dpcx_torch.nets import net_factory
 from dpcx_torch.nets.layers import same_pads
 
 ATOL = 1e-5
+
+
+def _t(cfg: Config) -> TConfig:
+    """The port's Config with the same fields as dpcx's."""
+    return TConfig(**dataclasses.asdict(cfg))
 
 
 def _cfg(image_size=16, dtype="float32", **kw):
@@ -40,7 +48,7 @@ def _flax_params(cfg):
 
 
 def _torch_model(cfg, flax_params):
-    model = ModelPointCloud(cfg)
+    model = ModelPointCloud(_t(cfg))
     model.load_state_dict(params_from_flax(flax_params))  # strict
     return model.eval()
 
@@ -52,7 +60,7 @@ def _images(rng, cfg, b=3):
 def test_converter_covers_every_parameter():
     cfg = _cfg()
     sd = params_from_flax(_flax_params(cfg))
-    model_sd = ModelPointCloud(cfg).state_dict()
+    model_sd = ModelPointCloud(_t(cfg)).state_dict()
     assert sd.keys() == model_sd.keys()
     for k, v in sd.items():
         assert v.shape == model_sd[k].shape, k
@@ -123,10 +131,11 @@ def test_seeded_init_follows_flax_defaults():
     biases; the same seed gives the same parameters."""
     cfg = Config(image_size=32, encoder_filters=(8,), latent_dim=256,
                  fc_hidden=512, pc_decoder_hidden=(256,), pc_num_points=64)
-    m1 = ModelPointCloud(cfg, generator=torch.Generator().manual_seed(5))
-    m2 = ModelPointCloud(cfg, generator=torch.Generator().manual_seed(5))
-    m3 = ModelPointCloud(cfg)  # seeded from cfg.seed
-    m4 = ModelPointCloud(cfg)
+    tcfg = _t(cfg)
+    m1 = ModelPointCloud(tcfg, generator=torch.Generator().manual_seed(5))
+    m2 = ModelPointCloud(tcfg, generator=torch.Generator().manual_seed(5))
+    m3 = ModelPointCloud(tcfg)  # seeded from cfg.seed
+    m4 = ModelPointCloud(tcfg)
     for (k, a), b in zip(m1.state_dict().items(), m2.state_dict().values()):
         assert torch.equal(a, b), k
     for a, b in zip(m3.state_dict().values(), m4.state_dict().values()):
@@ -162,6 +171,6 @@ def test_registry_and_unported_heads():
     with pytest.raises(KeyError, match="pose_head"):
         net_factory.get_network("pose_head")
     with pytest.raises(NotImplementedError, match="pose"):
-        ModelPointCloud(_cfg(predict_pose=True))
+        ModelPointCloud(_t(_cfg(predict_pose=True)))
     with pytest.raises(NotImplementedError, match="pc_rgb"):
-        ModelPointCloud(_cfg(pc_rgb=True))
+        ModelPointCloud(_t(_cfg(pc_rgb=True)))

@@ -30,6 +30,7 @@ from dpcx.render import gauss as jgauss
 from dpcx.render import voxelize as jvox
 from dpcx.render.pallas_kernel import pallas_project_t
 from dpcx.render.project import pointcloud_project_fn as j_project
+from dpcx_torch.config import Config as TConfig
 from dpcx_torch.render import drc as tdrc
 from dpcx_torch.render import fused
 from dpcx_torch.render import gauss as tgauss
@@ -38,6 +39,11 @@ from dpcx_torch.render import voxelize as tvox
 
 ATOL = 2e-5
 D = 16
+
+
+def _t(cfg: Config) -> TConfig:
+    """The port's Config with the same fields as dpcx's."""
+    return TConfig(**dataclasses.asdict(cfg))
 
 
 def _ndc(rng, b, n, lim=0.45):
@@ -333,7 +339,7 @@ def test_fused_wrapper_refuses(rng):
     with pytest.raises(ValueError, match=r"\[R, 3, N\]"):
         fused.fused_project_t(ndc_t.transpose(1, 2), D, sigma, 2)
     with pytest.raises(ValueError, match="vox_size"):
-        fused.fused_project_t(ndc_t, 72, sigma, 2)
+        fused.fused_project_t(ndc_t, 136, sigma, 2)  # above 128
     with pytest.raises(ValueError, match="kernel_radius"):
         fused.fused_project_t(ndc_t, D, sigma, D)
     with pytest.raises(ValueError, match="point_weights"):
@@ -373,7 +379,7 @@ def test_project_dispatch_matches_dpcx(overrides, takes_fused, rng,
 
     monkeypatch.setattr(tproject, "fused_project_t", spy)
     out_t = tproject.pointcloud_project_fn(
-        cfg, torch.from_numpy(pts), torch.from_numpy(q),
+        _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
         torch.tensor(sigma_rel),
     )
     out_j = j_project(cfg, jnp.asarray(pts), jnp.asarray(q),
@@ -396,8 +402,8 @@ def test_project_translation_matches_dpcx(renderer, rng):
     q = rng.normal(size=(2, 4)).astype(np.float32)
     tr = rng.normal(scale=0.05, size=(2, 3)).astype(np.float32)
     out_t = tproject.pointcloud_project_fn(
-        cfg, torch.from_numpy(pts), torch.from_numpy(q), torch.tensor(0.08),
-        translation=torch.from_numpy(tr),
+        _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
+        torch.tensor(0.08), translation=torch.from_numpy(tr),
     )
     out_j = j_project(cfg, jnp.asarray(pts), jnp.asarray(q),
                       jnp.asarray(0.08), translation=jnp.asarray(tr))
@@ -412,8 +418,8 @@ def test_project_return_voxels_falls_through(rng):
     pts = rng.uniform(-0.4, 0.4, (1, 100, 3)).astype(np.float32)
     q = np.asarray([[1.0, 0.0, 0.0, 0.0]], np.float32)
     out_t = tproject.pointcloud_project_fn(
-        cfg, torch.from_numpy(pts), torch.from_numpy(q), torch.tensor(0.1),
-        return_voxels=True,
+        _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
+        torch.tensor(0.1), return_voxels=True,
     )
     out_j = j_project(cfg, jnp.asarray(pts), jnp.asarray(q),
                       jnp.asarray(0.1), return_voxels=True, splat="scatter")
@@ -422,25 +428,37 @@ def test_project_return_voxels_falls_through(rng):
 
 
 def test_project_refuses_unported_paths(rng, monkeypatch):
-    """D > 64 with renderer: pallas raises (the blocked kernel, K3, is not
-    ported); rgb is no longer refused: it takes the eager ops even with
-    renderer: pallas (colour never reaches the fused renderer) and
-    matches dpcx's expected-colour render."""
+    """Nothing here is refused any more. D > 64 with renderer: pallas
+    takes the fused renderer (dpcx: the depth-blocked kernel, K3, held to
+    the port in tests/test_torch_blocked.py) and matches dpcx's renderer
+    at D 72; rgb takes the eager ops even with renderer: pallas (colour
+    never reaches the fused renderer) and matches dpcx's expected-colour
+    render."""
     pts = rng.uniform(-0.4, 0.4, (2, 50, 3)).astype(np.float32)
     q = rng.normal(size=(2, 4)).astype(np.float32)
     cfg = Config(vox_size=72, renderer="pallas")  # the blocked kernel (K3)
-    with pytest.raises(NotImplementedError, match="vox_size=72"):
-        tproject.pointcloud_project_fn(cfg, torch.from_numpy(pts),
-                                       torch.from_numpy(q),
-                                       torch.tensor(0.05))
+    calls = []
+    real = tproject.fused_project_t
+    monkeypatch.setattr(tproject, "fused_project_t",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    out_t = tproject.pointcloud_project_fn(_t(cfg), torch.from_numpy(pts),
+                                           torch.from_numpy(q),
+                                           torch.tensor(0.05))
+    assert calls == [1]
+    monkeypatch.undo()
+    out_j = j_project(cfg.replace(renderer="xla", xla_splat="scatter"),
+                      jnp.asarray(pts), jnp.asarray(q), jnp.asarray(0.05))
+    assert float(out_t.silhouette.max()) > 0
+    np.testing.assert_allclose(out_t.silhouette.numpy(),
+                               np.asarray(out_j.silhouette), atol=3e-5)
     rgb = rng.uniform(0, 1, (2, 50, 3)).astype(np.float32)
     cfg = dataclasses.replace(cfg, vox_size=D, pc_relative_sigma=0.1,
                               proj_depth=True)
     monkeypatch.setattr(tproject, "fused_project_t",
                         lambda *a, **k: pytest.fail("rgb reached the kernel"))
     out_t = tproject.pointcloud_project(
-        cfg, torch.from_numpy(pts), torch.from_numpy(q), torch.tensor(0.08),
-        rgb=torch.from_numpy(rgb),
+        _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
+        torch.tensor(0.08), rgb=torch.from_numpy(rgb),
     )
     out_j = j_project(cfg, jnp.asarray(pts), jnp.asarray(q),
                       jnp.asarray(0.08), rgb=jnp.asarray(rgb))
@@ -457,10 +475,10 @@ def test_schedules(step):
 
     cfg = Config()
     np.testing.assert_allclose(
-        tproject.sigma_schedule(cfg, step).numpy(),
+        tproject.sigma_schedule(_t(cfg), step).numpy(),
         np.asarray(sigma_schedule(cfg, jnp.asarray(step))), rtol=1e-6,
     )
     np.testing.assert_allclose(
-        tproject.keep_prob_schedule(cfg, step).numpy(),
+        tproject.keep_prob_schedule(_t(cfg), step).numpy(),
         np.asarray(keep_prob_schedule(cfg, jnp.asarray(step))), rtol=1e-6,
     )
