@@ -20,6 +20,12 @@ Phases, each of which raises on failure (exit code non-zero):
               at D > 64 the counterpart of K4 + K5 with the saved grid and
               with the recompute (remat), each against plain and against
               each other.
+3b. splats  — the anisotropic splat forward (the counterpart of K6)
+              against its plain version at the rgb_splats training render
+              (32 renders x 4096 points, D 32, rgb), density only, and at
+              N 1000 (pads); the backward (K7) against autograd through the
+              plain version, all 32 renders, for a random linear functional
+              of the density and colour grids, with dropout weights.
 4. serve    — experiments/car_64_depth.yaml at full width, seeded random
               weights, behind the HTTP server: 3 requests of 1, 16 and 20
               images (padding, chunking, uint8), checked against a direct
@@ -48,25 +54,33 @@ Phases, each of which raises on failure (exit code non-zero):
               launch), and 3 steps with remat: true (two forward launches
               and one recompute backward per step) whose losses equal the
               first run's.
+9b. splats  — experiments/rgb_splats.yaml at full width (N 4096 with rgb
+              and gauss heads, D 32, B 8 x 4 views, gsplat_impl pallas, GT
+              pose): `cli datagen` (32 models, plain ops: renderer xla), 3
+              float32 training steps through K6 + K7 against 3 through the
+              plain version, `cli train` for 200 steps (finite losses,
+              loss_rgb logged, the last 20 below the first 20, exactly one
+              K6 and one K7 launch per step and no other kernel's), and a
+              ServingModel call on the trained model (rgb and gauss heads).
 10. time    — CUDA-event medians: each forward and backward kernel
-              against its plain version at the shapes of phase 2 (the
-              recompute backward too); host-clock serve latency at batch
-              16 and the median car_64_depth and multicat_128 training
-              steps.
+              against its plain version at the shapes of phases 2 and 3b
+              (the recompute backward too); host-clock serve latency at
+              batch 16 and the median car_64_depth, multicat_128 and
+              rgb_splats training steps.
 11. profile — torch.profiler device time per kernel, per call, of K1, K2,
-              the D > 64 forward and backward, the scoring forward, the
-              batch-16 ServingModel call and one training step of each of
-              car_64_depth and multicat_128 (with its time by layer),
-              beside the host time per call and the share of it in which
-              the card is idle.
+              the D > 64 forward and backward, K6 and K7, the scoring
+              forward, the batch-16 ServingModel call and one training step
+              of each of car_64_depth, multicat_128 and rgb_splats (with
+              its time by layer), beside the host time per call and the
+              share of it in which the card is idle.
 
 Data and checkpoints go to a temporary directory that is removed at the
-end; the car_64_depth and multicat_128 runs' metrics.jsonl are copied to
-chiprun_out/. The last lines are the run's seconds, the card's name and
-power limit (nvidia-smi), a JSON line describing each kernel (its launches
-on the main path, its largest error against its plain version, its time,
-its plain version's time, and the least time the card could take for the
-same work), and {"ok": true, "device": {...}}.
+end; the car_64_depth, multicat_128 and rgb_splats runs' metrics.jsonl
+are copied to OUT_DIR. The last lines are the run's seconds, the card's
+name and power limit (nvidia-smi), a JSON line describing each kernel (its
+launches on the main path, its largest error against its plain version,
+its time, its plain version's time, and the least time the card could take
+for the same work), and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,6 +105,7 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "experiments" / "car_64_depth.yaml"
 CHAIR = REPO / "experiments" / "chair_gt_pose.yaml"
 MULTICAT = REPO / "experiments" / "multicat_128_fused.yaml"
+RGB_SPLATS = REPO / "experiments" / "rgb_splats.yaml"
 OUT_DIR = REPO / "chiprun_out"
 KERNEL_ATOL = 1e-4  # atomics reorder the f32 splat sums from run to run
 GRAD_RTOL = 1e-3  # backward vs plain: of the largest plain gradient, same
@@ -102,13 +117,16 @@ TRAIN_RTOL = 1e-3  # kernel vs plain training: gradient L2 and losses
 SEED = 0
 DEVICE = "cuda"
 TRAIN_STEPS, RESUME_STEPS, CHAIR_STEPS, MODELS = 200, 10, 20, 32
-MULTICAT_STEPS, REMAT_STEPS = 100, 3
+MULTICAT_STEPS, REMAT_STEPS, SPLAT_STEPS = 100, 3, 200
+SPLAT_GRAD_RTOL = 2e-4  # K7 vs plain: relative L2, dpcx's own bound for
+# its Pallas backward against the dense oracle
 # the kernels of csrc/fused_render.cu, as torch.profiler names them
 K1_STAGES = ("splat_kernel", "blur_yx_kernel", "zblur_drc_kernel")
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores,
 # and device memory; the renderer runs no tensor-core instruction
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 # f32 operations per item, counted from csrc/fused_render.cu: the splat
 # per point (floors, fractions, 1 - t, 8 corners x (3 mults + 1 add)); the
 # splat backward per point (the same hats, 8 corners x 4 sums x 3); DRC per
@@ -116,6 +134,24 @@ PEAK_BYTES_PER_S = 3.35e12
 # backward (the forward walk's T, phi, the suffix, dL/do); a blur pass costs
 # a multiply and an add per in-range tap
 SPLAT_OPS, SPLAT_BWD_OPS, DRC_OPS, DRC_BWD_OPS, DEPTH_OPS = 40, 108, 6, 14, 3
+# The least f32 operations the anisotropic splat function needs (an FMA
+# counts 2, as the peak rate does; exp2 1, log2(e) folded into the
+# coefficients), per point and cell in its z-range, per row of D cells and
+# per z-plane, with rgb / density only. Forward: the exponent is a
+# quadratic in x with per-row coefficients (2 FMAs), exp2, the density sum
+# (1) and three colour FMAs (6); a row forms its coefficients from dy and
+# the plane's terms (12), a plane its dz terms (6). Backward: e again (5),
+# the colour sums of e ct_c (6), u = e (ct_d + r ct_r + g ct_g + b ct_b)
+# (7; density only e ct_d, 1), and three sums per cell, u, u x, u x^2 (5);
+# a row forms its coefficients (12) and folds its three sums into the
+# plane's six moments with dy (10), a plane its dz terms (6) and folds
+# those into the point's ten moments (15); per-point work is left out
+ANISO_FWD_OPS = {True: (12, 12, 6), False: (6, 12, 6)}
+ANISO_BWD_OPS = {True: (23, 22, 21), False: (11, 22, 21)}
+# what csrc/aniso_splat.cu itself spends per point-cell (expf as 2), printed
+# beside the bound: K6 24 / 18, K7 55 / 43 (it recomputes per-row terms in
+# every cell and sums ten moments per cell)
+ANISO_KERNEL_OPS = {False: {True: 24, False: 18}, True: {True: 55, False: 43}}
 
 
 def card_line() -> str:
@@ -135,9 +171,12 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([^' ]+)", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            k = re.search(r"([a-z_]+_kernel)((?:I?L[ib]\d+E)*)", m.group(1))
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([ib])(\d+)E",
+                                           k.group(2) if k else "")]
             name = (m.group(1) if k is None else
-                    k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""))
+                    k.group(1) + (f"<{', '.join(args)}>" if args else ""))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -176,11 +215,12 @@ def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, label: str, runs: int = 20,
-                   top: int = 8) -> list[tuple[str, float]]:
+def device_profile(fn, label: str, runs: int = 20, top: int = 8,
+                   host_top: int = 0) -> list[tuple[str, float]]:
     """Print torch.profiler's device microseconds per call of fn(), summed
     and per kernel (memsets and copies included), beside the host
-    microseconds per call measured without the profiler; return the
+    microseconds per call measured without the profiler, and with
+    ``host_top`` the host ops of the most self CPU time; return the
     per-kernel list, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -211,6 +251,13 @@ def device_profile(fn, label: str, runs: int = 20,
           f"{max(0.0, 1 - busy_us / host_us):.1%}", flush=True)
     for name, us in kernels[:top]:
         print(f"  {us:9.1f} us {us / busy_us:6.1%}  {name[:90]}", flush=True)
+    cpu = sorted(((e.key, e.self_cpu_time_total / runs, e.count // runs)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU),
+                 key=lambda kv: -kv[1])
+    for name, us, calls in cpu[:host_top]:
+        print(f"  host {us:9.1f} us self CPU per call, {calls} calls  "
+              f"{name[:70]}", flush=True)
     return kernels
 
 
@@ -399,12 +446,15 @@ def blur_taps(d: int, r: int) -> int:
 
 
 def render_bound(renders, n, vox, radius, with_depth, weights, backward,
-                 saved_grid) -> tuple[float, str]:
+                 saved_grid, bf16=False) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") for one forward or backward
     call: the larger of its f32 operations over PEAK_F32_FLOPS and its
     bytes (each input read once, each output written once; the saved grid
     is an output of the forward and an input of the backward) over
-    PEAK_BYTES_PER_S."""
+    PEAK_BYTES_PER_S. ``bf16``: K1's bfloat16 mode (not ported), whose
+    Pallas kernel runs the splat and the blur as bf16 matmuls: those
+    operations over PEAK_BF16_FLOPS, DRC's in f32; inputs and outputs stay
+    f32."""
     cells = renders * vox**3
     blur_pass = 2 * renders * vox * vox * blur_taps(vox, radius)
     pts = renders * n
@@ -416,6 +466,12 @@ def render_bound(renders, n, vox, radius, with_depth, weights, backward,
     if not backward:  # splat, 3 blur passes, DRC
         ops = SPLAT_OPS * pts + 3 * blur_pass + (DRC_OPS + depth_ops) * cells
         nbytes = point_bytes + taps_bytes + image_bytes + grid_bytes
+        if bf16:
+            t_ops = ((SPLAT_OPS * pts + 3 * blur_pass) / PEAK_BF16_FLOPS
+                     + (DRC_OPS + depth_ops) * cells / PEAK_F32_FLOPS) * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            return ((t_ops, "operations") if t_ops >= t_bytes
+                    else (t_bytes, "bytes"))
     else:  # z-blur again, its transpose, the y and x transposes, DRC
         # backward, splat backward (+ the splat and y/x blur recomputed)
         ops = (4 * blur_pass + (DRC_BWD_OPS + depth_ops) * cells
@@ -498,6 +554,8 @@ def training_step_fn(cfg, ds):
 RENDER_FWD, RENDER_BWD = ("renderer forward (K1 / K3)",
                           "renderer backward (K2 / K4 + K5)")
 STEP_LAYERS = (
+    ("splat renderer backward (K7)", ("aniso_bwd_kernel",)),
+    ("splat renderer forward (K6)", ("aniso_fwd_kernel",)),
     (RENDER_BWD, ("zblur_drc_bwd_kernel", "splat_bwd_kernel")),
     (RENDER_FWD, ("zblur_drc_kernel", "splat_kernel")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
@@ -527,14 +585,27 @@ def print_step_breakdown(kernels: list[tuple[str, float]],
               f"{us / total:6.1%}  {name}", flush=True)
 
 
-def reset_counts(fused) -> None:
-    for name in fused.LAUNCHES:
-        fused.LAUNCHES[name] = 0
+def counters() -> tuple[dict, ...]:
+    """Every kernel wrapper's launch counts: the fused renderer's (K1-K5)
+    and the anisotropic splats' (K6, K7)."""
+    from dpcx_torch.render import aniso, fused
+
+    return fused.LAUNCHES, aniso.LAUNCHES
 
 
-def only(fused, **counts) -> dict:
+def reset_counts() -> None:
+    for c in counters():
+        for name in c:
+            c[name] = 0
+
+
+def launch_counts() -> dict:
+    return {k: v for c in counters() for k, v in c.items()}
+
+
+def only(**counts) -> dict:
     """Every launch count 0 but the ones named."""
-    return {name: counts.get(name, 0) for name in fused.LAUNCHES}
+    return {name: counts.get(name, 0) for name in launch_counts()}
 
 
 def read_losses(checkpoint_dir: Path) -> list[tuple[int, float]]:
@@ -544,21 +615,23 @@ def read_losses(checkpoint_dir: Path) -> list[tuple[int, float]]:
 
 
 def phase_datagen(cli, fused, cfg_path: str, num_models: int, label: str):
-    """`cli datagen` with the launch counts set to 0 just before; every
-    model's V GT views go through one forward launch (K1, or the
-    counterpart of K3 at D > 64)."""
+    """`cli datagen` with the launch counts set to 0 just before; with
+    renderer: pallas every model's V GT views go through one forward launch
+    (K1, or the counterpart of K3 at D > 64), with renderer: xla through
+    the plain ops."""
     from dpcx_torch.config import load_config
     from dpcx_torch.data.dataset import load_or_make
 
     cfg = load_config(cfg_path)
-    reset_counts(fused)
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(["datagen", "-f", cfg_path, "-n", str(num_models)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
-    assert launches == only(fused, **{
-        f"{fused.launch_family(cfg.vox_size)}_render": num_models}), launches
+    launches = launch_counts()
+    want = ({f"{fused.launch_family(cfg.vox_size)}_render": num_models}
+            if cfg.renderer == "pallas" else {})
+    assert launches == only(**want), launches
     ds = load_or_make(cfg, num_models, seed=cfg.seed)  # the cached shard
     rec = ds.records
     V, D, size = cfg.num_views, cfg.vox_size, cfg.image_size
@@ -646,8 +719,9 @@ def phase_parity(cfg, ds) -> None:
 
 
 def parity_run(cfg, ds, batch_at, create_state, step_generator,
-               train_step):
-    """3 float32 steps from the seeded init: (losses, first-step grads)."""
+               train_step, density_fn=None):
+    """3 float32 steps from the seeded init: (losses, first-step grads).
+    ``density_fn`` goes to train_step (the anisotropic splats' density)."""
     c = cfg.replace(compute_dtype="float32")
     state = create_state(
         c, DEVICE, torch.Generator(device=DEVICE).manual_seed(c.seed))
@@ -655,7 +729,8 @@ def parity_run(cfg, ds, batch_at, create_state, step_generator,
     for step in range(3):
         batch = batch_at(c, ds, step, DEVICE)
         m = train_step(c, state, batch,
-                       step_generator(c.seed + 1, step, DEVICE))
+                       step_generator(c.seed + 1, step, DEVICE),
+                       density_fn=density_fn)
         losses.append(m["loss_total"].item())
         if grads is None:
             grads = {n: p.grad.detach().clone()
@@ -668,13 +743,13 @@ def phase_train(cli, fused, cfg_path: str, cfg) -> dict:
     finite, falling losses and one K1 and one K2 launch per step; then a
     resumed run of RESUME_STEPS."""
     run_dir = Path(cfg.checkpoint_dir)
-    reset_counts(fused)
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(["train", "-f", cfg_path, "-n", str(MODELS), "--steps",
               str(TRAIN_STEPS)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts()
     losses = read_losses(run_dir)
     assert [s for s, _ in losses] == list(range(1, TRAIN_STEPS + 1))
     vals = np.array([v for _, v in losses])
@@ -686,7 +761,7 @@ def phase_train(cli, fused, cfg_path: str, cfg) -> dict:
           "(image summaries render with renderer xla, as dpcx's do, so "
           "they launch no K1)", flush=True)
     assert last < first, (first, last)
-    assert launches == only(fused, fused_render=TRAIN_STEPS,
+    assert launches == only(fused_render=TRAIN_STEPS,
                             fused_render_bwd=TRAIN_STEPS), launches
     pngs = sorted(p.name for p in (run_dir / "summaries").glob("*.png"))
     assert pngs == ["proj_0000100.png", "proj_0000200.png"], pngs
@@ -695,17 +770,17 @@ def phase_train(cli, fused, cfg_path: str, cfg) -> dict:
     shutil.copy(run_dir / "metrics.jsonl",
                 OUT_DIR / "chip_smoke_car_64_depth_metrics.jsonl")
 
-    reset_counts(fused)
+    reset_counts()
     cli.main(["train", "-f", cfg_path, "-n", str(MODELS), "--steps",
               str(TRAIN_STEPS + RESUME_STEPS)])
     torch.cuda.synchronize()
     resumed = [s for s, _ in read_losses(run_dir)][TRAIN_STEPS:]
     assert resumed == list(range(TRAIN_STEPS + 1,
                                  TRAIN_STEPS + RESUME_STEPS + 1)), resumed
-    assert dict(fused.LAUNCHES) == only(fused, fused_render=RESUME_STEPS,
+    assert launch_counts() == only(fused_render=RESUME_STEPS,
                                         fused_render_bwd=RESUME_STEPS)
     print(f"train resume: steps {resumed[0]}..{resumed[-1]} after the "
-          f"step-{TRAIN_STEPS} checkpoint, launches {fused.LAUNCHES}",
+          f"step-{TRAIN_STEPS} checkpoint, launches {launch_counts()}",
           flush=True)
     return launches
 
@@ -720,17 +795,17 @@ def phase_chair(cli, fused, tmp: Path) -> None:
     path = tmp / "chair.yaml"
     save_config(cfg, path)
     phase_datagen(cli, fused, str(path), MODELS, "chair_gt_pose")
-    reset_counts(fused)
+    reset_counts()
     cli.main(["train", "-f", str(path), "-n", str(MODELS), "--steps",
               str(CHAIR_STEPS)])
     torch.cuda.synchronize()
     vals = [v for _, v in read_losses(Path(cfg.checkpoint_dir))]
     assert len(vals) == CHAIR_STEPS and np.isfinite(vals).all(), vals
-    assert dict(fused.LAUNCHES) == only(fused, fused_render=CHAIR_STEPS,
+    assert launch_counts() == only(fused_render=CHAIR_STEPS,
                                         fused_render_bwd=CHAIR_STEPS)
     print(f"train chair_gt_pose (renderer pallas): {CHAIR_STEPS} steps, "
           f"loss_total {vals[0]:.6f} -> {vals[-1]:.6f}, launches "
-          f"{fused.LAUNCHES}", flush=True)
+          f"{launch_counts()}", flush=True)
 
 
 def phase_multicat(cli, fused, tmp: Path):
@@ -751,13 +826,13 @@ def phase_multicat(cli, fused, tmp: Path):
     phase_parity(cfg, ds)
 
     run_dir = Path(cfg.checkpoint_dir)
-    reset_counts(fused)
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(["train", "-f", path, "-n", str(MODELS), "--steps",
               str(MULTICAT_STEPS)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(fused.LAUNCHES)
+    launches = launch_counts()
     losses = read_losses(run_dir)
     assert [s for s, _ in losses] == list(range(1, MULTICAT_STEPS + 1))
     vals = np.array([v for _, v in losses])
@@ -768,7 +843,7 @@ def phase_multicat(cli, fused, tmp: Path):
           f"{first:.6f}, of the last 20 {last:.6f}; launches {launches}",
           flush=True)
     assert last < first, (first, last)
-    assert launches == only(fused, blocked_render=MULTICAT_STEPS,
+    assert launches == only(blocked_render=MULTICAT_STEPS,
                             blocked_render_bwd=MULTICAT_STEPS), launches
     assert (run_dir / "ckpt" / f"{MULTICAT_STEPS}.pt").exists()
     OUT_DIR.mkdir(exist_ok=True)
@@ -780,11 +855,11 @@ def phase_multicat(cli, fused, tmp: Path):
     remat = cfg.replace(remat=True, checkpoint_dir=str(tmp / "remat"))
     remat_path = str(tmp / "remat.yaml")
     save_config(remat, remat_path)
-    reset_counts(fused)
+    reset_counts()
     cli.main(["train", "-f", remat_path, "-n", str(MODELS), "--steps",
               str(REMAT_STEPS)])
     torch.cuda.synchronize()
-    remat_launches = dict(fused.LAUNCHES)
+    remat_launches = launch_counts()
     got = [v for _, v in read_losses(Path(remat.checkpoint_dir))]
     want = list(vals[:REMAT_STEPS])
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -793,8 +868,284 @@ def phase_multicat(cli, fused, tmp: Path):
           f"{TRAIN_RTOL}); launches {remat_launches}", flush=True)
     assert len(got) == REMAT_STEPS and rel <= TRAIN_RTOL, (got, want)
     assert remat_launches == only(
-        fused, blocked_render=2 * REMAT_STEPS,
+        blocked_render=2 * REMAT_STEPS,
         blocked_render_bwd_recompute=REMAT_STEPS), remat_launches
+    return cfg, ds, launches
+
+
+def splat_inputs(renders: int, n: int, vox: int, seed: int, with_rgb: bool,
+                 keep: float = 0.1):
+    """Seeded K6/K7 inputs as the gsplat renderer makes them
+    (gsplat.splat_params, truncate 3): points in [-0.45, 0.45], scales in
+    rgb_splats' bounds [0.005, 0.06], random local rotations, opacity times
+    dropout weights at keep-prob ``keep`` (0 or 1 / keep) -> dict of mu,
+    A6, w, rgb (or None) and rz on the card."""
+    from dpcx_torch.render.gsplat import splat_params
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(renders, n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pw = rng.uniform(size=(renders, n)) * (
+        rng.random((renders, n)) < keep) / keep
+    pts, scales, rot, pw, rgb = (
+        torch.tensor(a, dtype=torch.float32, device=DEVICE) for a in (
+            rng.uniform(-0.45, 0.45, (renders, n, 3)),
+            rng.uniform(0.005, 0.06, (renders, n, 3)), q, pw,
+            rng.uniform(size=(renders, n, 3))))
+    mu, A6, w, rz = splat_params(pts, scales, rot, vox, pw)
+    return dict(mu=mu, A6=A6, w=w, rgb=rgb if with_rgb else None, rz=rz,
+                vox=vox)
+
+
+def aniso_args(case: dict) -> tuple:
+    return tuple(case[k] for k in ("mu", "A6", "w", "rgb", "rz", "vox"))
+
+
+def phase_aniso_kernel(aniso) -> list[dict]:
+    """K6 against its plain version: the rgb_splats training render (32
+    renders x 4096 points, D 32, rgb, f32), its density-only variant, and
+    an N that is not a multiple of 128 (pads in the last chunk). Bound:
+    KERNEL_ATOL of the largest plain value (at least KERNEL_ATOL): the
+    density of thin Gaussians at keep-prob 0.1 (weights 10x) peaks near
+    1e2, where one f32 ulp is ~1e-5, and the two sum in other orders."""
+    shapes = [("rgb_splats", 32, 4096, 32, True),
+              ("rgb_splats_density", 32, 4096, 32, False),
+              ("pads", 8, 1000, 32, True)]
+    cases = []
+    for i, (name, renders, n, vox, with_rgb) in enumerate(shapes):
+        case = splat_inputs(renders, n, vox, SEED + 10 + i, with_rgb)
+        before = aniso.LAUNCHES["aniso_render"]
+        got = aniso.aniso_density(*aniso_args(case))
+        torch.cuda.synchronize()
+        assert aniso.LAUNCHES["aniso_render"] == before + 1, aniso.LAUNCHES
+        want = aniso.aniso_density_reference(*aniso_args(case))
+        got, want = (got, want) if with_rgb else ((got,), (want,))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        peak = max(b.abs().max().item() for b in want)
+        bound = KERNEL_ATOL * max(1.0, peak)
+        z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], vox)
+        cells = int((z_hi - z_lo).sum()) * vox * vox
+        print(f"kernel check K6 {name}: {renders} renders x {n} points, D "
+              f"{vox}, rgb {with_rgb}: max abs err {err:.3e}, largest plain "
+              f"value {peak:.3e} (bound {bound:.3e}); {cells} point-cells in "
+              f"range ({cells / (renders * n * vox**3):.3f} of all)",
+              flush=True)
+        assert np.isfinite(err) and err <= bound, (name, err, bound)
+        case.update(name=name, err=err, point_cells=cells, renders=renders,
+                    n=n)
+        cases.append(case)
+    return cases
+
+
+def phase_aniso_backward(aniso, cases) -> list[dict]:
+    """K7 against autograd through the plain version (every z-slab
+    checkpointed, so all 32 renders fit), for a random linear functional
+    of the density and colour grids, with opacity and dropout weights, at
+    the two rgb_splats shapes of phase_aniso_kernel: relative L2 of each
+    gradient (mu, A6, w, rgb) within SPLAT_GRAD_RTOL."""
+    rng = np.random.default_rng(SEED + 20)
+    out = []
+    for case in cases[:2]:
+        vox, with_rgb = case["vox"], case["rgb"] is not None
+        ct = torch.tensor(rng.normal(size=(
+            case["renders"], 4 if with_rgb else 1, vox, vox, vox)),
+            dtype=torch.float32, device=DEVICE)
+        before = aniso.LAUNCHES["aniso_render_bwd"]
+        g_k = splat_grads(aniso.aniso_density, case, ct)
+        torch.cuda.synchronize()
+        assert aniso.LAUNCHES["aniso_render_bwd"] == before + 1
+        g_p = splat_grads(aniso.aniso_density_reference, case, ct)
+        worst, err = 0.0, 0.0
+        for name, a, b in zip(("mu", "A6", "w", "rgb"), g_k, g_p):
+            rel = (torch.linalg.vector_norm(a - b)
+                   / torch.linalg.vector_norm(b)).item()
+            err = max(err, (a - b).abs().max().item())
+            print(f"backward check K7 {case['name']} d {name}: relative L2 "
+                  f"{rel:.3e} (bound {SPLAT_GRAD_RTOL}), max abs err "
+                  f"{(a - b).abs().max().item():.3e}, max |plain| "
+                  f"{b.abs().max().item():.3e}", flush=True)
+            assert np.isfinite(rel) and rel <= SPLAT_GRAD_RTOL, (name, rel)
+            worst = max(worst, rel)
+        out.append(dict(case, ct=ct, err=err, rel=worst))
+    return out
+
+
+def splat_grads(render, case, ct):
+    """d/d(mu, A6, w[, rgb]) of <ct, render output> (density and, with
+    rgb, the colour accumulators stacked as the kernel's channels)."""
+    ins = [case[k].detach().requires_grad_() for k in ("mu", "A6", "w")]
+    if case["rgb"] is not None:
+        ins.append(case["rgb"].detach().requires_grad_())
+    out = render(*ins[:3], ins[3] if len(ins) == 4 else None, case["rz"],
+                 case["vox"])
+    out = (torch.cat([out[0][:, None], out[1]], 1) if len(ins) == 4
+           else out[:, None])
+    return torch.autograd.grad((out * ct).sum(), ins)
+
+
+def time_aniso(aniso, case):
+    """CUDA-event ms of K6 (the wrapper, z-ranges included), K7 alone (the
+    launch on the saved inputs), the plain forward, and the plain forward
+    plus backward; and the K7 launch itself for the profiler."""
+    args = aniso_args(case)
+    with_rgb = case["rgb"] is not None
+    fwd_ms = cuda_ms(lambda: aniso.aniso_density(*args))
+    pk = aniso.pack(case["mu"], case["A6"], case["w"], case["rgb"])
+    z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], case["vox"])
+
+    def bwd():
+        aniso._launch_backward(pk, z_lo, z_hi, case["ct"], case["vox"],
+                               with_rgb)
+
+    bwd_ms = cuda_ms(bwd)
+    plain_ms = cuda_ms(lambda: aniso.aniso_density_reference(*args), runs=5,
+                       warmup=1)
+    plain_fb_ms = cuda_ms(
+        lambda: splat_grads(aniso.aniso_density_reference, case, case["ct"]),
+        runs=5, warmup=1)
+    return fwd_ms, bwd_ms, plain_ms, plain_fb_ms, bwd
+
+
+def aniso_bound(case, backward: bool) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of one K6 or K7 call on this
+    case's data: the function's least f32 operations (ANISO_*_OPS, on the
+    point-cells, rows and planes in range for the z-ranges these inputs
+    give) over PEAK_F32_FLOPS, against the bytes (packed points and
+    z-ranges in, the grids out; backward: the cotangent grids in, the
+    packed gradient out) over PEAK_BYTES_PER_S."""
+    with_rgb = case["rgb"] is not None
+    per_cell, per_row, per_plane = (
+        ANISO_BWD_OPS if backward else ANISO_FWD_OPS)[with_rgb]
+    cells, vox = case["point_cells"], case["vox"]
+    ops = (per_cell * cells + per_row * cells // vox
+           + per_plane * cells // vox**2)
+    points = case["renders"] * case["n"]
+    grids = case["renders"] * (4 if with_rgb else 1) * case["vox"] ** 3
+    nbytes = 4 * (15 * points + grids + (13 * points if backward else 0))
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def aniso_own_ms(case, backward: bool) -> float:
+    """ms of the f32 operations csrc/aniso_splat.cu spends on this case's
+    point-cells, at PEAK_F32_FLOPS (not a bound: the kernel's own count)."""
+    own = ANISO_KERNEL_OPS[backward][case["rgb"] is not None]
+    return own * case["point_cells"] / PEAK_F32_FLOPS * 1e3
+
+
+def phase_splat_parity(cfg, ds) -> None:
+    """3 float32 rgb_splats steps through the kernels (K6 + K7) against 3
+    through the plain version, same init, batches and dropout generator.
+    The plain side is chosen here, by the density function handed to
+    parity_run, which passes it down to gsplat_project."""
+    from dpcx_torch.render import aniso
+    from dpcx_torch.train import batch_at, create_state, step_generator
+    from dpcx_torch.train import train_step
+
+    def plain(mu, A6, w, rgb, rz, vox, acc_dtype="float32"):
+        assert acc_dtype == "float32", acc_dtype
+        return aniso.aniso_density_reference(mu, A6, w, rgb, rz, vox)
+
+    runs = {}
+    for label, render in (("kernel", aniso.aniso_density), ("plain", plain)):
+        before = launch_counts()
+        runs[label] = parity_run(cfg, ds, batch_at, create_state,
+                                 step_generator, train_step,
+                                 density_fn=render)
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in launch_counts().items()}
+        want = (only(aniso_render=3, aniso_render_bwd=3)
+                if label == "kernel" else only())
+        assert made == want, (label, made)
+    (l_k, g_k), (l_p, g_p) = runs["kernel"], runs["plain"]
+    worst_name, worst = "", 0.0
+    for name, gp in g_p.items():
+        norm = torch.linalg.vector_norm(gp).item()
+        if norm == 0.0:  # the unused pose branch
+            assert torch.equal(g_k[name], gp), name
+            continue
+        rel = torch.linalg.vector_norm(g_k[name] - gp).item() / norm
+        if rel > worst:
+            worst_name, worst = name, rel
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_k, l_p))
+    print(f"parity {cfg.name}: first-step gradients, worst relative L2 "
+          f"{worst:.3e} ({worst_name}; bound {TRAIN_RTOL}); losses kernel "
+          f"{l_k} vs plain {l_p}, worst rel {loss_rel:.3e} (bound "
+          f"{TRAIN_RTOL})", flush=True)
+    assert worst <= TRAIN_RTOL, (worst_name, worst)
+    assert loss_rel <= TRAIN_RTOL, loss_rel
+
+
+def phase_splats(cli, fused, tmp: Path):
+    """experiments/rgb_splats.yaml at full width (N 4096, D 32, B 8 x 4
+    views, rgb and gauss heads, gsplat_impl pallas, GT pose): `cli
+    datagen` (32 models, rendered by the plain ops: renderer xla),
+    kernel-vs-plain training steps, `cli train` for SPLAT_STEPS with the
+    counts set to 0 just before and read just after (one K6 and one K7
+    launch a step, nothing else), and one ServingModel call on the trained
+    model."""
+    from dpcx_torch.config import load_config, save_config
+    from dpcx_torch.serve import ServingModel
+    from dpcx_torch.train import load_checkpoint
+
+    cfg = load_config(RGB_SPLATS).validate().replace(
+        data_dir=str(tmp / "splats_data"),
+        checkpoint_dir=str(tmp / "splats"), log_every=1,
+        save_every=SPLAT_STEPS)
+    assert (cfg.pc_rgb, cfg.pc_gauss, cfg.gsplat_impl, cfg.vox_size,
+            cfg.pc_num_points, cfg.batch_size, cfg.views_per_step,
+            cfg.pallas_acc_dtype, cfg.predict_pose) == (
+        True, True, "pallas", 32, 4096, 8, 4, "float32", False)
+    path = str(tmp / "rgb_splats.yaml")
+    save_config(cfg, path)
+    ds = phase_datagen(cli, fused, path, MODELS, "rgb_splats")
+    phase_splat_parity(cfg, ds)
+
+    run_dir = Path(cfg.checkpoint_dir)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "-f", path, "-n", str(MODELS), "--steps",
+              str(SPLAT_STEPS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    recs = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == list(range(1, SPLAT_STEPS + 1))
+    vals = np.array([r["loss_total"] for r in recs])
+    rgb_vals = np.array([r["loss_rgb"] for r in recs])
+    assert np.isfinite(vals).all() and np.isfinite(rgb_vals).all()
+    first, last = vals[:20].mean(), vals[-20:].mean()
+    print(f"train rgb_splats: {SPLAT_STEPS} steps in {secs:.1f} s (datagen "
+          f"cached; log_every 1), loss_total mean of the first 20 "
+          f"{first:.6f}, of the last 20 {last:.6f}; loss_rgb "
+          f"{rgb_vals[:20].mean():.6f} -> {rgb_vals[-20:].mean():.6f}; "
+          f"launches {launches}", flush=True)
+    assert last < first, (first, last)
+    assert launches == only(aniso_render=SPLAT_STEPS,
+                            aniso_render_bwd=SPLAT_STEPS), launches
+    OUT_DIR.mkdir(exist_ok=True)
+    shutil.copy(run_dir / "metrics.jsonl",
+                OUT_DIR / "chip_smoke_rgb_splats_metrics.jsonl")
+
+    params = load_checkpoint(cfg, DEVICE)["params"]
+    model = ServingModel(cfg, params, batch_size=cfg.batch_size)
+    imgs = ds.records["images"][:cfg.batch_size, 0]
+    served = model(imgs)
+    N = cfg.pc_num_points
+    shapes = {"points": (N, 3), "scale": (1,), "rgb": (N, 3),
+              "gauss_scales": (N, 3), "gauss_rot": (N, 4),
+              "gauss_opacity": (N,)}
+    assert {k: v.shape[1:] for k, v in served.items()} == shapes, \
+        {k: v.shape for k, v in served.items()}
+    assert all(np.isfinite(v).all() for v in served.values())
+    s = served["gauss_scales"]
+    assert (s >= cfg.gauss_scale_min).all() and (s <= cfg.gauss_scale_max
+                                                 ).all()
+    print(f"serve rgb_splats: {len(imgs)} images -> "
+          f"{sorted(served)} of the step-{SPLAT_STEPS} model, finite, scales "
+          f"in [{s.min():.4f}, {s.max():.4f}]", flush=True)
     return cfg, ds, launches
 
 
@@ -808,7 +1159,7 @@ def main() -> int:
     from dpcx_torch.config import load_config, save_config
     from dpcx_torch.models.losses import compute_loss
     from dpcx_torch.models.model_pc import ModelPointCloud
-    from dpcx_torch.render import fused, gauss
+    from dpcx_torch.render import aniso, fused, gauss
     from dpcx_torch.serve import serve
 
     t_start = time.perf_counter()
@@ -835,9 +1186,12 @@ def main() -> int:
     cases = phase_kernel(cfg, fused, gauss)
     # 3. each backward kernel vs autograd through the plain version
     bwd_cases = phase_backward(cases, fused)
+    # 3b. K6 and K7 vs their plain version
+    aniso_cases = phase_aniso_kernel(aniso)
+    aniso_bwd = phase_aniso_backward(aniso, aniso_cases)
 
     # 4. serve: the first path starts here, with every launch count at 0
-    reset_counts(fused)
+    reset_counts()
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     params = ModelPointCloud(cfg, device="cuda", generator=gen).state_dict()
     srv = serve(cfg, params, port=0, batch_size=16)
@@ -882,12 +1236,12 @@ def main() -> int:
             total, metrics = compute_loss(cfg, preds, batch, step=0,
                                           train=False)
             torch.cuda.synchronize()
-            launches = dict(fused.LAUNCHES)
+            launches = launch_counts()
             total_plain, metrics_plain = compute_loss(
                 cfg.replace(renderer="xla"), preds, batch, step=0,
                 train=False,
             )
-        assert launches == only(fused, fused_render=1), launches
+        assert launches == only(fused_render=1), launches
         for k in ("loss_proj", "loss_depth", "loss_total"):
             v = metrics[k].item()
             assert np.isfinite(v), (k, v)
@@ -916,6 +1270,8 @@ def main() -> int:
             phase_chair(cli, fused, tmp)
             # 9. multicat_128_fused: datagen, parity, train, remat
             mc_cfg, mc_ds, mc_launches = phase_multicat(cli, fused, tmp)
+            # 9b. rgb_splats: datagen, parity, train, serve
+            sp_cfg, sp_ds, sp_launches = phase_splats(cli, fused, tmp)
 
             # 10. time
             timings = {}
@@ -960,6 +1316,26 @@ def main() -> int:
             print(f"time train step multicat_128 (B 4 x 4 views, N 16000, "
                   f"D 128, bf16 compute): median {mc_step_ms:.3f} ms per "
                   f"step | {card}", flush=True)
+            aniso_timings, aniso_launch = {}, {}
+            for case in aniso_bwd:
+                f_ms, b_ms, p_ms, pfb_ms, bwd = time_aniso(aniso, case)
+                aniso_timings[case["name"]] = f_ms, b_ms, p_ms, pfb_ms
+                aniso_launch[case["name"]] = bwd
+                print(f"time K6/K7 {case['name']} ({case['renders']} renders "
+                      f"x {case['n']} points, D {case['vox']}, "
+                      f"{case['point_cells']} point-cells): K6 {f_ms:.4f} ms "
+                      f"(bound {aniso_bound(case, False)[0]:.4f}), K7 "
+                      f"{b_ms:.4f} ms (bound {aniso_bound(case, True)[0]:.4f}"
+                      f"); the kernels' own f32 operations at peak: K6 "
+                      f"{aniso_own_ms(case, False):.4f} ms, K7 "
+                      f"{aniso_own_ms(case, True):.4f} ms; plain forward "
+                      f"{p_ms:.4f} ms, plain forward + backward "
+                      f"{pfb_ms:.4f} ms | {card}", flush=True)
+            sp_step_fn = training_step_fn(sp_cfg, sp_ds)
+            sp_step_ms = host_ms(sp_step_fn)
+            print(f"time train step rgb_splats (B 8 x 4 views, N 4096, D 32, "
+                  f"rgb + gauss, bf16 compute): median {sp_step_ms:.3f} ms "
+                  f"per step | {card}", flush=True)
 
         # 11. profile
         print(f"profile on {card}", flush=True)
@@ -990,11 +1366,24 @@ def main() -> int:
         step = device_profile(mc_step_fn, "train step multicat_128", runs=10,
                               top=16)
         print_step_breakdown(step, "multicat_128")
+        sp_case = aniso_bwd[0]
+        device_profile(lambda: aniso.aniso_density(*aniso_args(sp_case)),
+                       "K6 rgb_splats (with the z-ranges)")
+        device_profile(aniso_launch[sp_case["name"]],
+                       "K7 rgb_splats (launch on the saved inputs)")
+        step = device_profile(sp_step_fn, "train step rgb_splats", runs=10,
+                              top=16, host_top=12)
+        print_step_breakdown(step, "rgb_splats")
     finally:
         srv.shutdown()
         srv.server_close()
         thread.join(timeout=60)
 
+    bf16_ms, bf16_by = render_bound(
+        32, cfg.pc_num_points, cfg.vox_size, cases[0]["args"][3], True, True,
+        False, True, bf16=True)
+    print(f"bound K1 bfloat16 mode (not ported) at the car_64_depth render: "
+          f"{bf16_ms:.4f} ms ({bf16_by}) | {card}", flush=True)
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s, build included",
           flush=True)
     print(card)
@@ -1021,6 +1410,24 @@ def main() -> int:
             out["note"] = note
         return out
 
+    def splat_entry(name, replaces, backward):
+        case = aniso_bwd[0]
+        f_ms, b_ms, p_ms, pfb_ms = aniso_timings[case["name"]]
+        bound_ms, bound_by = aniso_bound(case, backward)
+        errs = ([c["err"] for c in aniso_bwd] if backward
+                else [c["err"] for c in aniso_cases])
+        out = {"name": name, "route": "cuda",
+               "source": "dpcx_torch/csrc/aniso_splat.cu",
+               "replaces": replaces, "launches": sp_launches[name],
+               "max_abs_err": max(errs), "ms": b_ms if backward else f_ms,
+               "plain_ms": pfb_ms - p_ms if backward else p_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        if backward:
+            out["note"] = ("plain_ms: the plain forward + backward less its "
+                           "forward, CUDA events")
+        return out
+
     shared = ("K4 and K5 are one launch, dpcx_fused_render_bwd (the suffix "
               "form makes K4's Total the suffix after the downward walk); "
               "ms and bound_ms are that launch's")
@@ -1039,6 +1446,9 @@ def main() -> int:
               "dpcx/render/pallas_blocked.py:451",
               mc_launches["blocked_render_bwd"], by_name["multicat_128"],
               True, shared),
+        splat_entry("aniso_render", "dpcx/render/pallas_gsplat.py:88", False),
+        splat_entry("aniso_render_bwd", "dpcx/render/pallas_gsplat.py:187",
+                    True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` have a plain C interface. At first use they are
-compiled by ``nvcc`` for ``sm_90a`` into one shared library under
+compiled by ``nvcc`` for ``sm_90a`` (one process per source, in parallel)
+and linked into one shared library under
 ``build/`` at the repository root, named by a hash of the sources and the
 flags (so an edited source rebuilds and an unchanged one is reused), and
 loaded with ``ctypes``. The compiler's output, with ptxas's registers,
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -59,20 +60,42 @@ def build_log() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless this exact build exists; -> its path."""
+    """Compile the kernels unless this exact build exists; -> its path.
+    Each source compiles to an object in its own nvcc process, all started
+    together; one more nvcc links them."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    build_log().write_text(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{text}")
+    tmp = out.with_name(f"{stem}.tmp.so")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+    build_log().write_text("".join(log))
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
@@ -93,4 +116,11 @@ def load() -> ctypes.CDLL:
             i32, ptr,
         ]
         fn.restype = i32
+    # csrc/aniso_splat.cu: the anisotropic splat forward (K6) and backward
+    lib.dpcx_aniso_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                      ptr]
+    lib.dpcx_aniso_render.restype = i32
+    lib.dpcx_aniso_render_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
+                                          i32, i32, ptr]
+    lib.dpcx_aniso_render_bwd.restype = i32
     return lib

@@ -1,6 +1,6 @@
-"""Model assembly: encoder -> points + scale (port of
-``dpcx/models/model_pc.py``; the pose head and ``pose_only`` come with
-predicted pose)."""
+"""Model assembly: encoder -> points, scale, rgb and the gauss splat heads
+(port of ``dpcx/models/model_pc.py``; the pose head and ``pose_only`` come
+with predicted pose)."""
 
 from __future__ import annotations
 
@@ -40,14 +40,18 @@ class ModelPointCloud(nn.Module):
             predict_rgb=cfg.pc_rgb,
             predict_scale=cfg.predict_scale,
             predict_gauss=cfg.pc_gauss,
+            gauss_scale_min=cfg.gauss_scale_min,
+            gauss_scale_max=cfg.gauss_scale_max,
             compute_dtype=dtype,
             generator=generator,
             device=device,
         )
 
     def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
-        """images [B, H, W, 3] -> {"points": [B, N, 3], "scale"?: [B, 1]}
-        (points already scaled when the config predicts a scale)."""
+        """images [B, H, W, 3] -> {"points": [B, N, 3], "scale"?: [B, 1],
+        "rgb"?: [B, N, 3], "gauss_scales"?: [B, N, 3], "gauss_rot"?:
+        [B, N, 4], "gauss_opacity"?: [B, N]} (points already scaled when the
+        config predicts a scale)."""
         dec = self.decoder(self.encoder(images)["latent"])
         points = dec["points"]
         out: dict[str, torch.Tensor] = {}
@@ -57,4 +61,7 @@ class ModelPointCloud(nn.Module):
             points = points * scale[..., None]
             out["scale"] = scale
         out["points"] = points
+        for k in ("rgb", "gauss_scales", "gauss_rot", "gauss_opacity"):
+            if k in dec:
+                out[k] = dec[k]
         return out

@@ -10,7 +10,9 @@
 Protocol (npz over HTTP):
 
     POST /predict   body = npz{"images": [B, H, W, 3] float32/uint8}
-                    -> npz{"points": [B, N, 3], "scale": [B, 1]}
+                    -> npz{"points": [B, N, 3], "scale": [B, 1]} (and
+                       "rgb", "gauss_scales", "gauss_rot", "gauss_opacity"
+                       when the config predicts them)
     GET  /healthz   -> {"status": "ok", "requests": ..., "batch": ...}
 
 Run it:

@@ -96,9 +96,12 @@ def train_step(
     state: TrainState,
     batch: dict[str, torch.Tensor],
     generator: torch.Generator | None,
+    density_fn=None,
 ) -> dict[str, torch.Tensor]:
     """One step (forward, render, backward, Adam) on ``state`` in place;
     returns the metrics as device tensors, ``grad_norm`` included.
+    ``density_fn`` goes to ``compute_loss`` (the anisotropic splats'
+    density; None: the kernels' dispatcher).
 
     With ``cfg.remat`` model plus loss run under ``torch.utils.checkpoint``
     (dpcx's ``jax.checkpoint`` of its ``loss_fn``): their activations are
@@ -114,7 +117,7 @@ def train_step(
             generator.set_state(gen_state)
         preds = apply_model(cfg, state.model, batch)
         return compute_loss(cfg, preds, batch, state.step, generator,
-                            train=True)
+                            train=True, density_fn=density_fn)
 
     if cfg.remat:
         from torch.utils.checkpoint import checkpoint
@@ -154,10 +157,12 @@ def device_records(dataset: Dataset, device) -> dict[str, torch.Tensor]:
     }
 
 
-def _prep_batch(batch: dict, device) -> dict[str, torch.Tensor]:
+def _prep_batch(batch: dict, device,
+                pc_rgb: bool = False) -> dict[str, torch.Tensor]:
     """numpy batch -> float32 tensors on ``device``, the fields the loss
-    reads."""
-    keys = ("image", "masks", "quats", "depths")
+    reads (the target views' images with ``pc_rgb``)."""
+    keys = ("image", "masks", "quats", "depths") + (
+        ("images_tgt",) if pc_rgb else ())
     return {
         k: torch.as_tensor(batch[k], dtype=torch.float32).to(device)
         for k in keys if k in batch
@@ -170,17 +175,21 @@ def batch_at(cfg: Config, dataset: Dataset, step: int, device,
     step))``, gathered from device-resident ``records`` when given."""
     rng = np.random.default_rng((cfg.seed, step))
     if records is None:
-        return _prep_batch(dataset.batch(rng, cfg.batch_size), device)
+        return _prep_batch(dataset.batch(rng, cfg.batch_size), device,
+                           cfg.pc_rgb)
     m, v_in, v_tgt = (
         torch.from_numpy(a).to(device)
         for a in dataset.batch_indices(rng, cfg.batch_size)
     )
-    return {
+    batch = {
         "image": records["images"][m, v_in],
         "masks": records["masks"][m[:, None], v_tgt],
         "depths": records["depths"][m[:, None], v_tgt],
         "quats": records["quats"][m[:, None], v_tgt],
     }
+    if cfg.pc_rgb:
+        batch["images_tgt"] = records["images"][m[:, None], v_tgt]
+    return batch
 
 
 class MetricWriter:

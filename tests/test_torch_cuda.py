@@ -10,6 +10,12 @@ from run to run, so the kernel is not bitwise stable; gradients within
 1e-3 of the largest plain gradient, for the same reason. D > 64 runs the
 counterparts of dpcx's depth-blocked kernels (K3-K5), in both backward
 modes (the saved grid, and the recompute that ``remat`` selects).
+
+The anisotropic splat kernels (K6/K7 counterparts, ``render/aniso.py``)
+sum without atomics but in another order than the plain version, and the
+density peaks at ~1e2 where one f32 ulp is ~1e-5: their grids are held to
+1e-4 of the largest plain value (at least 1e-4 absolute), their gradients
+to 2e-4 relative L2 (dpcx's own kernel-vs-oracle bound).
 """
 
 import numpy as np
@@ -17,7 +23,7 @@ import pytest
 import torch
 
 from dpcx_torch.config import Config
-from dpcx_torch.render import fused
+from dpcx_torch.render import aniso, fused, gsplat
 from dpcx_torch.render.project import pointcloud_project_fn
 
 pytestmark = pytest.mark.cuda
@@ -275,3 +281,116 @@ def test_integer_coordinate_gradient_is_zero(cuda, vox, save_grid):
     assert (d[:, 0, : N // 2] == 0).all() and (d[:, 2, N // 2 :] == 0).all()
     assert (d[:, 1] != 0).mean() > 0.99  # y is never an integer here
     assert (d[:, 0, N // 2 :] != 0).mean() > 0.99
+
+
+def _splat_inputs(cuda, renders, n, vox, seed, keep=None):
+    """Seeded kernel inputs as the renderer makes them (splat_params):
+    points in [-0.45, 0.45], scales in rgb_splats' bounds, random local
+    rotations, opacity times dropout weights (0 or 1 / keep) when keep."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(renders, n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pw = rng.uniform(size=(renders, n))
+    if keep is not None:
+        pw = pw * (rng.random((renders, n)) < keep) / keep
+    arrs = [rng.uniform(-0.45, 0.45, (renders, n, 3)),
+            rng.uniform(0.005, 0.06, (renders, n, 3)), q, pw,
+            rng.uniform(size=(renders, n, 3))]
+    pts, scales, rot, pw, rgb = (
+        torch.tensor(a, dtype=torch.float32, device=cuda) for a in arrs)
+    mu, A6, w, rz = gsplat.splat_params(pts, scales, rot, vox, pw)
+    return mu, A6, w, rgb, rz
+
+
+@pytest.mark.parametrize(
+    "renders,n,vox,with_rgb",
+    [
+        (32, 4096, 32, True),  # the rgb_splats training render
+        (8, 4096, 32, False),  # density only
+        (3, 1000, 16, True),  # N % 128 != 0: pads in the last chunk
+        (2, 2000, 64, True),  # D 64: 16 cells a thread
+        (4, 300, 8, False),  # D 8: 1 cell a thread
+    ],
+)
+def test_aniso_kernel_matches_plain(cuda, renders, n, vox, with_rgb):
+    mu, A6, w, rgb, rz = _splat_inputs(cuda, renders, n, vox, vox + n,
+                                       keep=0.1)
+    rgb = rgb if with_rgb else None
+    before = aniso.LAUNCHES["aniso_render"]
+    got = aniso.aniso_density(mu, A6, w, rgb, rz, vox)
+    torch.cuda.synchronize()
+    assert aniso.LAUNCHES["aniso_render"] == before + 1
+    want = aniso.aniso_density_reference(mu, A6, w, rgb, rz, vox)
+    got, want = (got, want) if with_rgb else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.device.type == "cuda"
+        bound = 1e-4 * max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= bound
+    assert want[0].max() > 0
+
+
+@pytest.mark.parametrize("renders,n,vox,with_rgb", [
+    (32, 4096, 32, True),  # the rgb_splats training render
+    (4, 1000, 16, False),
+    (2, 700, 64, True),
+])
+def test_aniso_backward_matches_plain(cuda, renders, n, vox, with_rgb):
+    """K7's gradients to (mu, A6, w, rgb) against autograd through the
+    plain version, for a random linear functional of the density and
+    colour grids, with opacity and dropout weights (keep 0.1)."""
+    mu, A6, w, rgb, rz = _splat_inputs(cuda, renders, n, vox, vox + n + 1,
+                                       keep=0.1)
+    rng = np.random.default_rng(vox)
+    ct = torch.tensor(rng.normal(size=(renders, 4 if with_rgb else 1, vox,
+                                       vox, vox)),
+                      dtype=torch.float32, device=cuda)
+
+    def grads(fn):
+        ins = [t.detach().requires_grad_()
+               for t in (mu, A6, w, rgb if with_rgb else None)
+               if t is not None]
+        out = fn(*ins[:3], ins[3] if with_rgb else None, rz, vox)
+        out = torch.cat([out[0][:, None], out[1]], 1) if with_rgb \
+            else out[:, None]
+        return torch.autograd.grad((out * ct).sum(), ins)
+
+    before = aniso.LAUNCHES["aniso_render_bwd"]
+    g_k = grads(aniso.aniso_density)
+    torch.cuda.synchronize()
+    assert aniso.LAUNCHES["aniso_render_bwd"] == before + 1
+    g_p = grads(aniso.aniso_density_reference)
+    for a, b in zip(g_k, g_p):
+        assert b.abs().max() > 0
+        rel = (torch.linalg.vector_norm(a - b)
+               / torch.linalg.vector_norm(b)).item()
+        assert rel <= 2e-4
+
+
+def test_gsplat_project_on_card(cuda):
+    """gsplat_impl: pallas reaches K6 and, backward, K7 once each; dense
+    and the bfloat16 mode launch nothing (bfloat16 raises)."""
+    cfg = Config(vox_size=32, pc_rgb=True, pc_gauss=True,
+                 gsplat_impl="pallas")
+    rng = np.random.default_rng(5)
+    pts = torch.tensor(rng.uniform(-0.3, 0.3, (2, 500, 3)),
+                       dtype=torch.float32, device=cuda, requires_grad=True)
+    scales = torch.full((2, 500, 3), 0.03, device=cuda)
+    rot = torch.tensor([1.0, 0, 0, 0], device=cuda).repeat(2, 500, 1)
+    opac = torch.rand(2, 500, device=cuda)
+    rgb = torch.rand(2, 500, 3, device=cuda)
+    q = torch.tensor([[1.0, 0, 0, 0]] * 2, device=cuda)
+    before = dict(aniso.LAUNCHES)
+    out = gsplat.gsplat_project(cfg, pts, q, scales, rot, opac, rgb)
+    (out.silhouette.sum() + out.rgb.sum()).backward()
+    torch.cuda.synchronize()
+    assert aniso.LAUNCHES["aniso_render"] == before["aniso_render"] + 1
+    assert aniso.LAUNCHES["aniso_render_bwd"] == \
+        before["aniso_render_bwd"] + 1
+    assert pts.grad.abs().max() > 0
+    ref = gsplat.gsplat_project(cfg.replace(gsplat_impl="dense"), pts, q,
+                                scales, rot, opac, rgb)
+    assert (ref.silhouette - out.silhouette).abs().max() < 0.02
+    with pytest.raises(NotImplementedError, match="item 8"):
+        gsplat.gsplat_project(cfg.replace(pallas_acc_dtype="bfloat16"), pts,
+                              q, scales, rot, opac, rgb)
+    assert aniso.LAUNCHES["aniso_render"] == before["aniso_render"] + 1

@@ -172,5 +172,39 @@ def test_registry_and_unported_heads():
         net_factory.get_network("pose_head")
     with pytest.raises(NotImplementedError, match="pose"):
         ModelPointCloud(_t(_cfg(predict_pose=True)))
-    with pytest.raises(NotImplementedError, match="pc_rgb"):
-        ModelPointCloud(_t(_cfg(pc_rgb=True)))
+
+
+@pytest.mark.parametrize("heads", [{"pc_rgb": True}, {"pc_gauss": True},
+                                   {"pc_rgb": True, "pc_gauss": True,
+                                    "gauss_scale_min": 0.01,
+                                    "gauss_scale_max": 0.05}])
+def test_rgb_and_gauss_heads_match_flax(heads, rng):
+    """The decoder's rgb (sigmoid) and gauss heads (bounded scales,
+    identity-biased unit quaternion, sigmoid opacity) through
+    params_from_flax, whose strict load maps decoder/fc_rgb and
+    decoder/fc_gauss."""
+    cfg = _cfg(**heads)
+    fp = _flax_params(cfg)
+    sd = params_from_flax(fp)
+    for name in (["decoder.fc_rgb.weight"] if cfg.pc_rgb else []) + (
+            ["decoder.fc_gauss.weight"] if cfg.pc_gauss else []):
+        width = 3 if "rgb" in name else 8
+        assert sd[name].shape == (width * cfg.pc_num_points,
+                                  cfg.pc_decoder_hidden[-1]), name
+    model = _torch_model(cfg, fp)  # strict load_state_dict
+    imgs = _images(rng, cfg, b=4)
+    out_j = JModel(cfg).apply(fp, jnp.asarray(imgs))
+    with torch.no_grad():
+        out_t = model(torch.from_numpy(imgs))
+    assert out_t.keys() == set(out_j)
+    assert ("rgb" in out_t) == cfg.pc_rgb
+    assert ("gauss_rot" in out_t) == cfg.pc_gauss
+    for k in out_t:
+        np.testing.assert_allclose(out_t[k].numpy(), np.asarray(out_j[k]),
+                                   atol=ATOL, err_msg=k)
+    if cfg.pc_gauss:
+        s = out_t["gauss_scales"]
+        assert ((s > cfg.gauss_scale_min) & (s < cfg.gauss_scale_max)).all()
+        torch.testing.assert_close(
+            torch.linalg.vector_norm(out_t["gauss_rot"], dim=-1),
+            torch.ones(4, cfg.pc_num_points))

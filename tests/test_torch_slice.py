@@ -158,9 +158,6 @@ def test_compute_loss_refuses_unported(tiny_yaml):
               for s in (1, 1, 2)]
     assert all(torch.isfinite(t) for t in totals)
     assert totals[0] == totals[1]
-    small = dict(batch, masks=torch.zeros(2, 2, D // 2, D // 2))
-    with pytest.raises(NotImplementedError, match="resize"):
-        compute_loss(cfg, preds, small, 0, train=False)
     with pytest.raises(NotImplementedError, match="predicted-pose"):
         compute_loss(cfg.replace(predict_pose=True), preds, batch, 0,
                      train=False)
@@ -168,6 +165,67 @@ def test_compute_loss_refuses_unported(tiny_yaml):
     total, _ = compute_loss(cfg.replace(pc_point_dropout=1.0), preds, batch,
                             0, train=True)
     assert torch.isfinite(total)
+
+
+@pytest.mark.parametrize("overrides", [
+    # rgb_splats' renderer: anisotropic splats through gsplat_impl pallas
+    {"pc_rgb": True, "pc_gauss": True, "gsplat_impl": "pallas"},
+    {"pc_rgb": True, "pc_gauss": True, "gsplat_impl": "dense",
+     "proj_depth": True, "drc_weight": 0.1},
+    # the isotropic colour path and the depth resize
+    {"pc_rgb": True, "renderer": "xla", "xla_splat": "scatter",
+     "proj_depth": True, "drc_weight": 0.1},
+])
+def test_rgb_loss_and_resize_match_dpcx(overrides):
+    """The GT-pose loss with masks, depths and target images stored at 2x
+    the grid (resized at loss time: bilinear with antialiasing, depths to
+    the nearest sample), the colour term with the background composite,
+    and the gauss-splat branch, against dpcx's compute_loss (its gsplat
+    runs in interpret mode off-TPU), dropout off: every metric to 1e-5
+    relative."""
+    D, S, B, V, N = 8, 16, 2, 2, 64
+    cfg = j_load_config(None, vox_size=D, mask_size=2 * D, image_size=S,
+                        pc_num_points=N, pc_point_dropout=1.0,
+                        **overrides)
+    tcfg = Config(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(7)
+    lo, hi = cfg.gauss_scale_min, cfg.gauss_scale_max
+    rot = rng.normal(size=(B, N, 4))
+    preds = {
+        "points": rng.uniform(-0.35, 0.35, (B, N, 3)),
+        "rgb": rng.uniform(size=(B, N, 3)),
+        "gauss_scales": lo + (hi - lo) * rng.uniform(size=(B, N, 3)),
+        "gauss_rot": rot / np.linalg.norm(rot, axis=-1, keepdims=True),
+        "gauss_opacity": rng.uniform(size=(B, N)),
+    }
+    if not cfg.pc_gauss:
+        preds = {k: preds[k] for k in ("points", "rgb")}
+    masks = (rng.uniform(size=(B, V, 2 * D, 2 * D)) < 0.5)
+    q = rng.normal(size=(B, V, 4))
+    batch = {
+        "masks": masks,
+        "depths": np.where(masks, rng.uniform(-0.3, 0.3, masks.shape), 1.0),
+        "quats": q / np.linalg.norm(q, axis=-1, keepdims=True),
+        "images_tgt": rng.uniform(size=(B, V, S, S, 3)),
+    }
+    preds, batch = (
+        {k: np.asarray(v, np.float32) for k, v in d.items()}
+        for d in (preds, batch))
+    total_j, m_j = j_compute_loss(
+        cfg, {k: jnp.asarray(v) for k, v in preds.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(0),
+        jax.random.PRNGKey(0), train=True)
+    total_t, m_t = compute_loss(
+        tcfg, {k: torch.from_numpy(v) for k, v in preds.items()},
+        {k: torch.from_numpy(v) for k, v in batch.items()}, 0, train=True)
+    assert m_t.keys() == set(m_j)
+    assert {"loss_rgb", "loss_proj", "loss_total"} <= m_t.keys()
+    assert ("loss_depth" in m_t) == cfg.proj_depth
+    for k, v in m_t.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(m_j[k]), rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(total_t.numpy(), np.asarray(total_j),
+                               rtol=1e-5)
 
 
 def _post(port, data):
@@ -273,8 +331,9 @@ def test_cli_serve(tiny_yaml, monkeypatch, capsys):
 
 
 def test_port_imports_no_jax():
-    """Importing every dpcx_torch module (train, data, geometry.camera and
-    utils among them) leaves jax, flax and dpcx out."""
+    """Importing every dpcx_torch module (train, data, geometry.camera,
+    utils and the splat renderer among them) leaves jax, flax and dpcx
+    out."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dpcx_torch\n"
@@ -286,7 +345,8 @@ def test_port_imports_no_jax():
         " if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'dpcx'))\n"
         "need = {'dpcx_torch.train', 'dpcx_torch.data.dataset',\n"
         "        'dpcx_torch.data.synthetic', 'dpcx_torch.geometry.camera',\n"
-        "        'dpcx_torch.utils.visualise'}\n"
+        "        'dpcx_torch.utils.visualise', 'dpcx_torch.render.gsplat',\n"
+        "        'dpcx_torch.render.aniso'}\n"
         "assert need <= set(names), need - set(names)\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -295,7 +355,7 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 27, proc.stdout
+    assert n_modules >= 29, proc.stdout
 
 
 FORBIDDEN = ("dpcx", "jax", "jaxlib", "flax")

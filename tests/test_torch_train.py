@@ -194,6 +194,91 @@ def test_train_steps_match_dpcx(dropout, rng, monkeypatch):
         _assert_params_equal(state, jstate, atol=1e-6)
 
 
+def test_rgb_splats_train_step_matches_dpcx(rng, monkeypatch):
+    """rgb_splats' loss (pc_rgb + pc_gauss, gsplat_impl pallas: dpcx's
+    Pallas kernels in interpret mode, the port's plain version) with point
+    dropout on the same injected weights, target images at twice the grid:
+    after one dpcx step the port continues from the carried-over params and
+    Adam state, and one more step agrees with dpcx's."""
+    cfg = SMALL.replace(renderer="xla", proj_depth=False, drc_weight=0.0,
+                        pc_rgb=True, pc_gauss=True, gsplat_impl="pallas",
+                        pc_point_dropout=0.5)
+    w = ((rng.random((cfg.batch_size, cfg.pc_num_points)) < 0.5) / 0.5
+         ).astype(np.float32)
+    monkeypatch.setattr(jlosses, "pc_point_dropout_weights",
+                        lambda *a: jnp.asarray(w))
+    monkeypatch.setattr(tlosses, "pc_point_dropout_weights",
+                        lambda *a: torch.from_numpy(w))
+    ds = JDataset(_records(rng, cfg), cfg)
+    batches = [ds.batch(np.random.default_rng((0, s)), cfg.batch_size)
+               for s in range(2)]
+    assert batches[1]["images_tgt"].shape[-2] == 2 * cfg.vox_size
+    key = jax.random.PRNGKey(1)
+    jstate = j_create_state(cfg, jax.random.PRNGKey(0))
+    jstate, _ = j_train_step(cfg, jstate, _prep_batch(batches[0], cfg), key)
+    state = _carried_state(cfg, jstate)
+    jstate, m_j = j_train_step(cfg, jstate, _prep_batch(batches[1], cfg), key)
+    tbatch = ttrain._prep_batch(batches[1], "cpu", cfg.pc_rgb)
+    assert "images_tgt" in tbatch
+    m_t = ttrain.train_step(_t(cfg), state, tbatch, torch.Generator())
+    assert "loss_rgb" in m_t
+    for k in ("loss_total", "loss_rgb", "grad_norm"):
+        np.testing.assert_allclose(m_t[k].item(), float(m_j[k]), rtol=1e-4,
+                                   err_msg=k)
+    _assert_params_equal(state, jstate, atol=1e-6)
+
+
+def test_train_step_takes_the_density_fn_it_is_handed(rng):
+    """train_step's density_fn reaches the splat renderer: a step from the
+    same init and batch through a recording wrapper of the plain version
+    calls it once and equals the step through the default dispatcher (the
+    plain version too, on CPU tensors)."""
+    from dpcx_torch.render import aniso
+
+    cfg = _t(SMALL).replace(renderer="xla", proj_depth=False, drc_weight=0.0,
+                            pc_rgb=True, pc_gauss=True, gsplat_impl="pallas",
+                            pc_point_dropout=1.0)
+    batch = ttrain.batch_at(cfg, Dataset(_records(rng, cfg), cfg), 0, "cpu")
+    calls = []
+
+    def plain(mu, A6, w, rgb, rz, vox, acc_dtype="float32"):
+        calls.append(acc_dtype)
+        return aniso.aniso_density_reference(mu, A6, w, rgb, rz, vox)
+
+    runs = []
+    for fn in (None, plain):
+        state = ttrain.create_state(cfg, "cpu", torch.Generator().manual_seed(0))
+        m = ttrain.train_step(cfg, state, batch, None, density_fn=fn)
+        runs.append((m, state.model.state_dict()))
+    assert calls == ["float32"]
+    (m_a, p_a), (m_b, p_b) = runs
+    for k in ("loss_total", "loss_rgb", "grad_norm"):
+        assert torch.equal(m_a[k], m_b[k]), k
+    for k in p_a:
+        assert torch.equal(p_a[k], p_b[k]), k
+
+
+@pytest.mark.parametrize("pc_rgb", [True, False])
+def test_batch_at_device_records_match_host_batch(pc_rgb, rng):
+    """The batch gathered from device-resident records equals the host
+    batch of the same step, the target views' images included with
+    pc_rgb (the colour loss reads them) and left out without."""
+    cfg = _t(SMALL).replace(pc_rgb=pc_rgb)
+    ds = Dataset(_records(rng, cfg), cfg)
+    records = ttrain.device_records(ds, "cpu")
+    for step in (0, 5):
+        host = ttrain.batch_at(cfg, ds, step, "cpu")
+        dev = ttrain.batch_at(cfg, ds, step, "cpu", records)
+        assert host.keys() == dev.keys()
+        assert ("images_tgt" in host) == pc_rgb
+        for k in host:
+            assert torch.equal(host[k], dev[k]), k
+    if pc_rgb:
+        V = min(cfg.views_per_step, cfg.num_views)
+        assert host["images_tgt"].shape == (cfg.batch_size, V,
+                                            cfg.image_size, cfg.image_size, 3)
+
+
 def test_train_end_to_end_follows_dpcx(tmp_path):
     """The port's train() on the TINY config (test_train_e2e.py's) for 30
     steps: the loss falls by at least 10%, and a dpcx run from the same
