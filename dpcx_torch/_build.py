@@ -105,15 +105,16 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C symbols."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # the last int before the stream: the operand mode (1: bfloat16)
     lib.dpcx_fused_render.argtypes = [
-        ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+        ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
     ]
     lib.dpcx_fused_render.restype = i32
     # the saved-grid and the recompute backward take the same arguments
     for fn in (lib.dpcx_fused_render_bwd, lib.dpcx_fused_render_bwd_recompute):
         fn.argtypes = [
             ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            i32, ptr,
+            i32, i32, ptr,
         ]
         fn.restype = i32
     # csrc/aniso_splat.cu: the anisotropic splat forward (K6) and backward

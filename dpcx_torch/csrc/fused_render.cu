@@ -65,15 +65,38 @@
 //       two axes commute and each pass is its own transpose).
 //   (f) splat backward: one thread per point gathers the cotangent at its
 //       in-grid corners, no atomics: dw = sum h_z h_y h_x dG and
-//       d(g_a) = w sum dh_a (other hats) dG, dh = -1 / +1 on the low / high
-//       corner, and dh = 0 along an axis whose coordinate is an exact
-//       integer, as the reference's _dhat_t gives (a floor-based form would
-//       be one-sided there).
+//       d(g_a) = w sum dh_a (other hats) dG, summed in the Pallas kernel's
+//       grouping (below), dh = -1 / +1 on the low / high corner, and dh = 0
+//       along an axis whose coordinate is an exact integer, as the
+//       reference's _dhat_t gives (a floor-based form would be one-sided
+//       there).
 // (d) and (f) are bound by bytes like (c) and the forward splat.
+//
+// Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16", D <= 64
+// only). Each kernel is a template on kBf16. The Pallas kernels cast their
+// matmul operands to bfloat16 and accumulate in f32; here every value they
+// type bfloat16 is rounded to nearest-even (__float2bfloat16_rn) where they
+// round it, products of two rounded values are exact in f32, and every sum
+// stays f32, as does the grid in device memory (dpcx's f32 scratch):
+//   taps        rounded (kmat, kronA, kronB are cast);
+//   splat       a corner adds f32(rnd(rnd(h_z pw) rnd(h_y))) rnd(h_x), with
+//               dpcx's hats relu(1 - |g - c|);
+//   blur        y, then x, then z (kronA @ x, then @ kmat, then kronB @ x),
+//               each pass's input rounded: blur_yx_kernel<true> blurs y
+//               first (the f32 mode keeps x first: there the order does not
+//               change the result);
+//   DRC         f32; zblur_drc_kernel rounds each tap input;
+//   backward    the DRC cotangent in f32 (the suffix form), rounded before
+//               the z transpose, then blur_yx_kernel<true> (y, x, inputs
+//               rounded); splat_bwd_kernel<true> rounds dG, h_y, h_x and
+//               a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)) (not the forward's
+//               rnd(h_z pw)); h_z, dh_z and pw enter unrounded.
+// Bound: as the f32 mode (CUDA cores; the tensor cores are later work).
 //
 // The launchers run on the caller's stream, allocate nothing, and return
 // the first CUDA error (0 on success).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,8 +108,33 @@ constexpr int kMaxTaps = 2 * (kMaxVox - 1) + 1;  // radius <= D - 1
 constexpr int kThreads = 256;
 constexpr int kWideThreads = 1024;  // blur_yx at D > 64: one block per SM
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kBf16MaxVox = 64;  // the bf16 mode is K1/K2's: D <= 64
+
+// round to the nearest bfloat16 (ties to even), back to f32
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// an operand as the mode types it: rounded in the bf16 mode
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (kBf16) {
+    return rnd(v);
+  } else {
+    return v;
+  }
+}
+
+// dpcx's trilinear hat relu(1 - |g - c|) at the low (c = floor g, t = g - c)
+// and the high (c + 1) corner; in f32 1 - |t - 1| is not always t
+__device__ __forceinline__ float hat(float t, int hi) {
+  return hi ? 1.f - fabsf(t - 1.f) : 1.f - t;
+}
 
 // (a) coords [R, 3, N] rows (z, y, x) in grid units; weights [R, N] or null.
+// A corner adds a h_x with a = (h_z pw) h_y, each operand rounded in the
+// bf16 mode as the Pallas kernel's matmul operands are.
+template <bool kBf16>
 __global__ void splat_kernel(const float* __restrict__ coords,
                              const float* __restrict__ weights,
                              float* __restrict__ grid, int renders, int n,
@@ -109,69 +157,81 @@ __global__ void splat_kernel(const float* __restrict__ coords,
       const float cz = fz + dz;
       // compare as floats: far-away points must not overflow an int cast
       if (!(cz >= 0.f && cz <= top)) continue;
-      const float wz = dz ? tz : 1.f - tz;
+      const float wzp = operand<kBf16>(hat(tz, dz) * pw);
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
         const float cy = fy + dy;
         if (!(cy >= 0.f && cy <= top)) continue;
-        const float wy = dy ? ty : 1.f - ty;
+        const float a = operand<kBf16>(wzp * operand<kBf16>(hat(ty, dy)));
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const float cx = fx + dx;
           if (!(cx >= 0.f && cx <= top)) continue;
-          const float wx = dx ? tx : 1.f - tx;
-          float w = wz * wy * wx;
-          if (weights != nullptr) w *= pw;
           const int64_t cell =
               (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
               static_cast<int64_t>(cx);
-          atomicAdd(g + cell, w);
+          atomicAdd(g + cell, a * operand<kBf16>(hat(tx, dx)));
         }
       }
     }
   }
 }
 
-// (b) one block per (render, z): blur the slab along x, then along y, in
-// place. out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid.
+// (b) one block per (render, z): blur the slab along two axes, in place.
+// out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid. The
+// f32 mode blurs x, then y; the bf16 mode y, then x (dpcx's kronA @ x, then
+// @ kmat), with each pass's input and the taps rounded.
+template <bool kBf16>
 __global__ void __launch_bounds__(kWideThreads)
     blur_yx_kernel(float* __restrict__ grid, const float* __restrict__ taps,
                    int radius, int d) {
   extern __shared__ float smem[];
   float* a = smem;          // [D, D] the slab
-  float* b = smem + d * d;  // [D, D] x-blurred
+  float* b = smem + d * d;  // [D, D] after the first pass
   float* k = b + d * d;     // [2R + 1] taps
   const int ntaps = 2 * radius + 1;
   const int dd = d * d;
+  // the first pass runs along x (stride 1) in f32, along y (stride D) in bf16
+  const int s1 = kBf16 ? d : 1, s2 = kBf16 ? 1 : d;
   float* slab = grid + static_cast<int64_t>(blockIdx.x) * dd;
-  for (int i = threadIdx.x; i < ntaps; i += blockDim.x) k[i] = taps[i];
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) a[i] = slab[i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < ntaps; i += blockDim.x) {
+    k[i] = operand<kBf16>(taps[i]);
+  }
   for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const int y = i / d, x = i - y * d;
-    const int lo = max(-radius, -x), hi = min(radius, d - 1 - x);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += a[i + t] * k[t + radius];
-    b[i] = s;
+    a[i] = operand<kBf16>(slab[i]);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const int y = i / d;
-    const int lo = max(-radius, -y), hi = min(radius, d - 1 - y);
+    const int y = i / d, x = i - y * d;
+    const int c = kBf16 ? y : x;
+    const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
     float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += b[i + t * d] * k[t + radius];
+    for (int t = lo; t <= hi; ++t) s += a[i + t * s1] * k[t + radius];
+    b[i] = operand<kBf16>(s);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
+    const int y = i / d, x = i - y * d;
+    const int c = kBf16 ? x : y;
+    const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
+    float s = 0.f;
+    for (int t = lo; t <= hi; ++t) s += b[i + t * s2] * k[t + radius];
     slab[i] = s;
   }
 }
 
-// (c) one thread per ray (render, y, x): z-blur on the fly, then DRC.
+// (c) one thread per ray (render, y, x): z-blur on the fly (bf16: each tap
+// input rounded), then DRC in f32.
+template <bool kBf16>
 __global__ void zblur_drc_kernel(const float* __restrict__ grid,
                                  const float* __restrict__ taps, int radius,
                                  float* __restrict__ sil,
                                  float* __restrict__ depth, int renders,
                                  int d, int with_depth) {
   __shared__ float k[kMaxTaps];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) k[i] = taps[i];
+  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
+    k[i] = operand<kBf16>(taps[i]);
+  }
   __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
@@ -183,7 +243,9 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   for (int z = 0; z < d; ++z) {
     const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
     float o = 0.f;
-    for (int t = lo; t <= hi; ++t) o += col[(z + t) * dd] * k[t + radius];
+    for (int t = lo; t <= hi; ++t) {
+      o += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
+    }
     o = fminf(fmaxf(o, 0.f), 1.f - 1e-5f);
     const float p = o * trans;
     s += p;
@@ -197,8 +259,9 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
 // (d) one thread per ray: z-blur of the y/x-blurred grid, DRC backward, and
 // the z-blur's transpose into dgrid. dsil, ddepth [R, D, D]; ddepth may be
 // null (a zero cotangent). kMaxD bounds D and sizes the per-ray arrays, so
-// the D <= 64 instantiation keeps a 512 B frame.
-template <int kMaxD>
+// the D <= 64 instantiation keeps a 512 B frame. bf16: the z-blur's inputs
+// and taps are rounded as in (c), and dL/do before its transpose.
+template <int kMaxD, bool kBf16>
 __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      const float* __restrict__ taps,
                                      int radius,
@@ -207,7 +270,9 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      float* __restrict__ dgrid, int renders,
                                      int d, int with_depth) {
   __shared__ float k[2 * kMaxD - 1];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) k[i] = taps[i];
+  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
+    k[i] = operand<kBf16>(taps[i]);
+  }
   __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
@@ -223,7 +288,9 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
   for (int z = 0; z < d; ++z) {
     const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
     float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += col[(z + t) * dd] * k[t + radius];
+    for (int t = lo; t <= hi; ++t) {
+      s += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
+    }
     o[z] = s;
     tr[z] = trans;
     trans *= 1.f - fminf(fmaxf(s, 0.f), kTop);
@@ -235,7 +302,7 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
     const float raw = o[z];
     const float oc = fminf(fmaxf(raw, 0.f), kTop);
     const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
-    o[z] = raw < kTop ? tr[z] * (phi - suffix) : 0.f;
+    o[z] = operand<kBf16>(raw < kTop ? tr[z] * (phi - suffix) : 0.f);
     suffix = oc * phi + (1.f - oc) * suffix;
   }
   float* dcol = dgrid + off;
@@ -248,7 +315,14 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
 }
 
 // (f) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
-// dweights is not null, dw into dweights [R, N].
+// dweights is not null, dw into dweights [R, N]. Reduced as the Pallas
+// kernel does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
+// v = sum_x dG h_x, per x corner t1 = sum_zy dG a with a = (h_z pw) h_y;
+// then d z = pw sum dh_z P, d y = pw sum h_z Q, d x = sum dh_x t1 and
+// dw = sum h_z P. The bf16 mode rounds dG, h_y, h_x and a's operands
+// (rnd(rnd(h_z) rnd(pw)), not the forward's rnd(h_z pw)); h_z, dh_z, pw
+// enter the sums unrounded.
+template <bool kBf16>
 __global__ void splat_bwd_kernel(const float* __restrict__ coords,
                                  const float* __restrict__ weights,
                                  const float* __restrict__ dgrid,
@@ -267,41 +341,50 @@ __global__ void splat_bwd_kernel(const float* __restrict__ coords,
     const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
     const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
     const float* g = dgrid + r * cells;
-    float az = 0.f, ay = 0.f, ax = 0.f, aw = 0.f;
+    const float pw = weights != nullptr ? weights[i] : 1.f;
+    float az = 0.f, ay = 0.f, aw = 0.f;
+    float t1[2] = {0.f, 0.f};
 #pragma unroll
     for (int dz = 0; dz < 2; ++dz) {
       const float cz = fz + dz;
       if (!(cz >= 0.f && cz <= top)) continue;
-      const float hz = dz ? tz : 1.f - tz;
+      const float hz = hat(tz, dz);
+      // dh = -1 / +1 on the low / high corner, 0 at an integer coordinate
       const float sz = tz == 0.f ? 0.f : (dz ? 1.f : -1.f);
+      const float hzp = operand<kBf16>(operand<kBf16>(hz) *
+                                       operand<kBf16>(pw));
+      float pz = 0.f, qz = 0.f;
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
         const float cy = fy + dy;
         if (!(cy >= 0.f && cy <= top)) continue;
-        const float hy = dy ? ty : 1.f - ty;
+        const float hy = operand<kBf16>(hat(ty, dy));
         const float sy = ty == 0.f ? 0.f : (dy ? 1.f : -1.f);
+        const float a = operand<kBf16>(hzp * hy);
+        float v = 0.f;
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
           const float cx = fx + dx;
           if (!(cx >= 0.f && cx <= top)) continue;
-          const float hx = dx ? tx : 1.f - tx;
-          const float sx = tx == 0.f ? 0.f : (dx ? 1.f : -1.f);
           const int64_t cell =
               (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
               static_cast<int64_t>(cx);
-          const float v = g[cell];
-          aw += hz * hy * hx * v;
-          az += sz * hy * hx * v;
-          ay += hz * sy * hx * v;
-          ax += hz * hy * sx * v;
+          const float dg = operand<kBf16>(g[cell]);
+          v += dg * operand<kBf16>(hat(tx, dx));
+          t1[dx] += dg * a;
         }
+        pz += v * hy;
+        qz += v * sy;
       }
+      az += sz * pz;
+      ay += hz * qz;
+      aw += hz * pz;
     }
-    const float pw = weights != nullptr ? weights[i] : 1.f;
+    const float sx = tx == 0.f ? 0.f : 1.f;
     float* out = dcoords + r * 3 * n + p;
     out[0] = az * pw;
     out[n] = ay * pw;
-    out[2 * static_cast<int64_t>(n)] = ax * pw;
+    out[2 * static_cast<int64_t>(n)] = (t1[1] - t1[0]) * sx;
     if (dweights != nullptr) dweights[i] = aw;
   }
 }
@@ -311,29 +394,31 @@ int64_t splat_blocks(int64_t points) {
   return blocks > 65535 * 16 ? 65535 * 16 : blocks;
 }
 
-bool bad_args(int renders, int n, int d, int radius) {
-  return d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 ||
-         renders < 0 || n < 0;
+bool bad_args(int renders, int n, int d, int radius, int bf16) {
+  return d < 1 || d > (bf16 ? kBf16MaxVox : kMaxVox) || radius < 0 ||
+         radius > d - 1 || renders < 0 || n < 0;
 }
 
 // (b) on every slab of grid [R, D, D, D], in place.
+template <bool kBf16>
 cudaError_t launch_blur_yx(float* grid, const float* taps, int radius,
                            int renders, int d, cudaStream_t s) {
   const size_t smem =
       (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blur_yx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        blur_yx_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int threads = d > 64 ? kWideThreads : kThreads;
-  blur_yx_kernel<<<static_cast<unsigned>(renders * d), threads, smem, s>>>(
-      grid, taps, radius, d);
+  blur_yx_kernel<kBf16><<<static_cast<unsigned>(renders * d), threads, smem,
+                          s>>>(grid, taps, radius, d);
   return cudaGetLastError();
 }
 
 // (a) + (b): the x/y-blurred grid of every render into the scratch grid.
+template <bool kBf16>
 cudaError_t launch_grid(const float* coords, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
@@ -342,15 +427,30 @@ cudaError_t launch_grid(const float* coords, const float* weights,
   if (err != cudaSuccess) return err;
   const int64_t points = static_cast<int64_t>(renders) * n;
   if (points > 0) {
-    splat_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads, 0,
-                   s>>>(coords, weights, grid, renders, n, d);
+    splat_kernel<kBf16><<<static_cast<unsigned>(splat_blocks(points)),
+                          kThreads, 0, s>>>(coords, weights, grid, renders,
+                                            n, d);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_blur_yx(grid, taps, radius, renders, d, s);
+  return launch_blur_yx<kBf16>(grid, taps, radius, renders, d, s);
+}
+
+// (c): the z-blur and DRC of the x/y-blurred grid.
+template <bool kBf16>
+cudaError_t launch_drc(const float* grid, const float* taps, int radius,
+                       float* sil, float* depth, int renders, int d,
+                       int with_depth, cudaStream_t s) {
+  const int64_t rays = static_cast<int64_t>(renders) * d * d;
+  zblur_drc_kernel<kBf16><<<static_cast<unsigned>((rays + kThreads - 1) /
+                                                  kThreads),
+                            kThreads, 0, s>>>(grid, taps, radius, sil, depth,
+                                              renders, d, with_depth);
+  return cudaGetLastError();
 }
 
 // (d) + (e) + (f) on the x/y-blurred grid.
+template <bool kBf16>
 cudaError_t launch_bwd_stages(const float* coords, const float* weights,
                               const float* taps, int radius,
                               const float* grid, const float* dsil,
@@ -361,23 +461,26 @@ cudaError_t launch_bwd_stages(const float* coords, const float* weights,
   const unsigned blocks = static_cast<unsigned>((rays + kThreads - 1) /
                                                 kThreads);
   if (d <= 64) {
-    zblur_drc_bwd_kernel<64><<<blocks, kThreads, 0, s>>>(
+    zblur_drc_bwd_kernel<64, kBf16><<<blocks, kThreads, 0, s>>>(
+        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+  } else if constexpr (!kBf16) {
+    zblur_drc_bwd_kernel<kMaxVox, false><<<blocks, kThreads, 0, s>>>(
         grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
   } else {
-    zblur_drc_bwd_kernel<kMaxVox><<<blocks, kThreads, 0, s>>>(
-        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+    return cudaErrorInvalidValue;  // bad_args refuses bf16 above D 64
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = launch_blur_yx(dgrid, taps, radius, renders, d, s);
+  err = launch_blur_yx<kBf16>(dgrid, taps, radius, renders, d, s);
   if (err != cudaSuccess) return err;
 
   const int64_t points = static_cast<int64_t>(renders) * n;
   if (points > 0) {
-    splat_bwd_kernel<<<static_cast<unsigned>(splat_blocks(points)), kThreads,
-                       0, s>>>(coords, weights, dgrid, dcoords, dweights,
-                               renders, n, d);
+    splat_bwd_kernel<kBf16><<<static_cast<unsigned>(splat_blocks(points)),
+                              kThreads, 0, s>>>(coords, weights, dgrid,
+                                                dcoords, dweights, renders, n,
+                                                d);
   }
   return cudaGetLastError();
 }
@@ -386,46 +489,56 @@ cudaError_t launch_bwd_stages(const float* coords, const float* weights,
 
 // Forward. grid: scratch [R, D, D, D] f32 that holds the x/y-blurred grid
 // afterwards; sil, depth: [R, D, D] f32 (depth may be null when with_depth
-// is 0). Returns a cudaError_t as int.
+// is 0); bf16: the operand mode (1: bfloat16, D <= 64). Returns a
+// cudaError_t as int.
 extern "C" int dpcx_fused_render(const float* coords, const float* weights,
                                  const float* taps, int radius, float* grid,
                                  float* sil, float* depth, int renders, int n,
-                                 int d, int with_depth, void* stream) {
-  if (bad_args(renders, n, d, radius) || (with_depth && depth == nullptr)) {
+                                 int d, int with_depth, int bf16,
+                                 void* stream) {
+  if (bad_args(renders, n, d, radius, bf16) ||
+      (with_depth && depth == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_grid(coords, weights, taps, radius, grid, renders,
+  cudaError_t err =
+      bf16 ? launch_grid<true>(coords, weights, taps, radius, grid, renders,
+                               n, d, s)
+           : launch_grid<false>(coords, weights, taps, radius, grid, renders,
                                 n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int64_t rays = static_cast<int64_t>(renders) * d * d;
-  zblur_drc_kernel<<<static_cast<unsigned>((rays + kThreads - 1) / kThreads),
-                     kThreads, 0, s>>>(grid, taps, radius, sil, depth, renders,
-                                       d, with_depth);
-  return static_cast<int>(cudaGetLastError());
+  err = bf16 ? launch_drc<true>(grid, taps, radius, sil, depth, renders, d,
+                                with_depth, s)
+             : launch_drc<false>(grid, taps, radius, sil, depth, renders, d,
+                                 with_depth, s);
+  return static_cast<int>(err);
 }
 
 // Backward, saved-grid mode. grid: the forward's x/y-blurred grid
 // [R, D, D, D] (read only); dgrid: scratch [R, D, D, D]; dsil [R, D, D];
 // ddepth [R, D, D] or null (zero); dcoords out [R, 3, N] (z, y, x);
 // dweights out [R, N] or null (not wanted). weights null means every point
-// weighs 1. Returns a cudaError_t as int.
+// weighs 1; bf16 as the forward's. Returns a cudaError_t as int.
 extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
                                      const float* taps, int radius,
                                      const float* grid, const float* dsil,
                                      const float* ddepth, float* dgrid,
                                      float* dcoords, float* dweights,
                                      int renders, int n, int d, int with_depth,
-                                     void* stream) {
-  if (bad_args(renders, n, d, radius)) {
+                                     int bf16, void* stream) {
+  if (bad_args(renders, n, d, radius, bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
-  return static_cast<int>(launch_bwd_stages(
-      coords, weights, taps, radius, grid, dsil, ddepth, dgrid, dcoords,
-      dweights, renders, n, d, with_depth, static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      bf16 ? launch_bwd_stages<true>(coords, weights, taps, radius, grid,
+                                     dsil, ddepth, dgrid, dcoords, dweights,
+                                     renders, n, d, with_depth, s)
+           : launch_bwd_stages<false>(coords, weights, taps, radius, grid,
+                                      dsil, ddepth, dgrid, dcoords, dweights,
+                                      renders, n, d, with_depth, s));
 }
 
 // Backward, recompute mode: as dpcx_fused_render_bwd, but grid is scratch
@@ -435,16 +548,19 @@ extern "C" int dpcx_fused_render_bwd_recompute(
     const float* coords, const float* weights, const float* taps, int radius,
     float* grid, const float* dsil, const float* ddepth, float* dgrid,
     float* dcoords, float* dweights, int renders, int n, int d,
-    int with_depth, void* stream) {
-  if (bad_args(renders, n, d, radius)) {
+    int with_depth, int bf16, void* stream) {
+  if (bad_args(renders, n, d, radius, bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_grid(coords, weights, taps, radius, grid,
-                                      renders, n, d, s);
+  cudaError_t err =
+      bf16 ? launch_grid<true>(coords, weights, taps, radius, grid, renders,
+                               n, d, s)
+           : launch_grid<false>(coords, weights, taps, radius, grid, renders,
+                                n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_bwd_stages(
-      coords, weights, taps, radius, grid, dsil, ddepth, dgrid, dcoords,
-      dweights, renders, n, d, with_depth, s));
+  return dpcx_fused_render_bwd(coords, weights, taps, radius, grid, dsil,
+                               ddepth, dgrid, dcoords, dweights, renders, n,
+                               d, with_depth, bf16, stream);
 }

@@ -32,8 +32,10 @@ class Dataset:
         self.num_views = self.records["images"].shape[1]
 
     def batch_indices(self, rng: np.random.Generator, batch_size: int):
-        """The draws of one batch: model ids [B], input views [B], target
-        views [B, V_use] (without replacement per model), in dpcx's order."""
+        """The draws of one batch, in dpcx's order: model ids [B], input
+        views [B], target views [B, V_use] (without replacement per model),
+        and the second input view [B] (another view of the same model) of
+        the consistency loss, or None when it draws none."""
         V_use = min(self.cfg.views_per_step, self.num_views)
         m = rng.integers(0, self.num_models, size=batch_size)
         v_in = rng.integers(0, self.num_views, size=batch_size)
@@ -43,12 +45,19 @@ class Dataset:
                 for _ in range(batch_size)
             ]
         )
-        return m, v_in, v_tgt
+        v_in2 = None
+        if self.cfg.pose_consistency_weight > 0 and self.num_views >= 2:
+            v_in2 = (
+                v_in
+                + 1
+                + rng.integers(0, self.num_views - 1, size=batch_size)
+            ) % self.num_views
+        return m, v_in, v_tgt, v_in2
 
     def batch(self, rng: np.random.Generator, batch_size: int) -> dict:
         """Sample a batch: one random input view per model + views_per_step
         random target views (with replacement across models)."""
-        m, v_in, v_tgt = self.batch_indices(rng, batch_size)
+        m, v_in, v_tgt, v_in2 = self.batch_indices(rng, batch_size)
         rec = self.records
         batch = {
             "image": rec["images"][m, v_in],
@@ -62,12 +71,7 @@ class Dataset:
             batch["images_tgt"] = rec["images"][m[:, None], v_tgt]
         if self.cfg.pose_from_views:
             batch["images_v"] = rec["images"][m[:, None], v_tgt]
-        if self.cfg.pose_consistency_weight > 0 and self.num_views >= 2:
-            v_in2 = (
-                v_in
-                + 1
-                + rng.integers(0, self.num_views - 1, size=batch_size)
-            ) % self.num_views
+        if v_in2 is not None:
             batch["image_in2"] = rec["images"][m, v_in2]
         return batch
 

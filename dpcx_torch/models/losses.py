@@ -1,23 +1,34 @@
-"""GT-pose loss forward (port of the ``not cfg.predict_pose`` branch of
-``dpcx/models/losses.py::compute_loss``).
+"""Loss assembly (port of ``dpcx/models/losses.py::compute_loss``).
 
-Every target view is rendered with its known camera; the loss is the
-squared-L2 silhouette error, plus the masked colour error with rgb, plus
-the masked depth error when the config renders depth, plus the scale
-regulariser. With ``renderer: pallas`` the render goes through the fused
-CUDA kernels (forward and backward, at any D <= 128); with ``pc_gauss`` it
-is the anisotropic splat renderer (``render/gsplat.py``), whose
-``gsplat_impl: pallas`` runs the CUDA kernels of ``render/aniso.py``.
-With ``train=True`` and ``pc_point_dropout < 1`` the points carry Bernoulli
-keep weights drawn from the ``generator`` passed in, where the reference
-takes a ``jax.random`` key.
+GT pose: every target view is rendered with its known camera; the loss is
+the squared-L2 silhouette error, plus the masked colour error with rgb,
+plus the masked depth error when the config renders depth, plus the scale
+regulariser. Predicted pose: each of K candidate poses renders every
+target view (B x K x V renders in one call); a per-sample hard min over
+the candidates (``torch.argmin``: the first minimum, as ``jnp.argmin``)
+picks the winner, and only the winner's renders receive projection
+gradient; the student quaternion distils the detached winner; with
+``pose_from_views`` each target view's candidates come from that view's
+own image (``train.apply_model``) and each view picks its own winner, and
+the live ``gauge_spread_deg`` metric watches the winners' cross-view
+coherence. Softmin annealing, candidate re-anchoring, cross-view shape
+consistency, translations, rgb in the selection and the gauss splats under
+predicted pose follow dpcx. Where dpcx stops a gradient, the port detaches.
+
+With ``renderer: pallas`` the render goes through the fused CUDA kernels
+(forward and backward, at any D <= 128); with ``pc_gauss`` it is the
+anisotropic splat renderer (``render/gsplat.py``), whose ``gsplat_impl:
+pallas`` runs the CUDA kernels of ``render/aniso.py``. With ``train=True``
+and ``pc_point_dropout < 1`` the points carry Bernoulli keep weights drawn
+from the ``generator`` passed in, where the reference takes a
+``jax.random`` key.
 
 Masks, depths and target images stored at another resolution than
 ``vox_size`` are resized at loss time as the reference resizes them with
 ``jax.image.resize``: masks and images bilinearly with antialiasing
 (``F.interpolate(mode="bilinear", antialias=True)``), depths to the
 nearest sample (``mode="nearest-exact"``; plain "nearest" picks other
-samples). Not ported yet, and refused: predicted pose.
+samples).
 """
 
 from __future__ import annotations
@@ -26,6 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from dpcx_torch.config import Config
+from dpcx_torch.eval.chamfer import chamfer_distance
+from dpcx_torch.eval.pose_metrics import gauge_spread_deg
+from dpcx_torch.geometry.quaternion import (
+    quaternion_conjugate,
+    quaternion_multiply,
+)
 from dpcx_torch.render.gsplat import gsplat_project
 from dpcx_torch.render.project import (
     keep_prob_schedule,
@@ -54,6 +71,43 @@ def _resize(x: torch.Tensor, size: int, mode: str) -> torch.Tensor:
     return out.reshape(*lead, size, size)
 
 
+def _clip01(x: float) -> float:
+    return min(max(x, 0.0), 1.0)
+
+
+def rgb_ramp(cfg: Config, step) -> float:
+    """Linear warmup factor of the colour loss (``cfg.rgb_warmup_steps``)
+    under predicted pose."""
+    if cfg.rgb_warmup_steps <= 0:
+        return 1.0
+    return _clip01(float(step) / cfg.rgb_warmup_steps)
+
+
+def candidate_scores(
+    cfg: Config,
+    l_k: torch.Tensor,
+    rgb_l_k: torch.Tensor | None,
+    ramp: float = 1.0,
+) -> torch.Tensor:
+    """Per-candidate selection score [B, K] (or [B, K, V]) for the hard-min
+    argmin. With rgb and ``cfg.rgb_sel_normalize`` each error is divided by
+    its detached batch mean, so silhouette and colour weigh O(1) each;
+    the loss values are unaffected, only the argmin's input changes."""
+    if rgb_l_k is None:
+        return cfg.proj_weight * l_k
+    if cfg.rgb_sel_normalize:
+        return l_k / (l_k.mean().detach() + 1e-8) + ramp * rgb_l_k / (
+            rgb_l_k.mean().detach() + 1e-8)
+    return cfg.proj_weight * l_k + cfg.rgb_weight * ramp * rgb_l_k
+
+
+def _resize_images(tgt: torch.Tensor, size: int) -> torch.Tensor:
+    """[..., H, W, 3] colour images to [..., size, size, 3], bilinearly."""
+    if tgt.shape[-2] == size:
+        return tgt
+    return _resize(tgt.movedim(-1, -3), size, "bilinear").movedim(-3, -1)
+
+
 def compute_loss(
     cfg: Config,
     preds: dict[str, torch.Tensor],
@@ -62,21 +116,23 @@ def compute_loss(
     generator: torch.Generator | None = None,
     train: bool = True,
     density_fn=None,
+    project_fn=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss + metrics dict.
 
     batch: masks [B, V, S, S], depths [B, V, S, S] (with depth), quats
-    [B, V, 4], images_tgt [B, V, H, H, 3] (with rgb). ``generator`` (on
+    [B, V, 4], images_tgt [B, V, H, H, 3] (with rgb), quat_in [B, 4] (the
+    input view's camera, predicted pose without ``pose_from_views``).
+    preds: the model's outputs, and ``train.apply_model``'s per-view pose
+    heads (``quats_views`` ...) and ``points_view2``. ``generator`` (on
     the points' device) draws the point dropout weights; it is needed only
     when ``train`` and ``pc_point_dropout < 1``. ``density_fn`` goes to
-    ``gsplat_project`` (None: the kernels' dispatcher).
+    ``gsplat_project``, ``project_fn`` to ``pointcloud_project_fn`` (None:
+    the kernels' dispatchers).
     """
-    if cfg.predict_pose:
-        raise NotImplementedError("predicted-pose loss is not ported yet")
     points = preds["points"]  # [B, N, 3]
     B = points.shape[0]
     masks = batch["masks"]
-    V = masks.shape[1]
     D = cfg.vox_size
     # external datasets may store masks/depths at another resolution than
     # the projection grid: resized here, so any mask size trains at any D
@@ -97,8 +153,33 @@ def compute_loss(
             generator, B, points.shape[1], keep
         )
     metrics: dict[str, torch.Tensor] = {"sigma_rel": sigma_rel}
+    pose_loss = _predicted_pose_loss if cfg.predict_pose else _gt_pose_loss
+    total = pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
+                      point_weights, step, metrics, density_fn, project_fn)
 
-    # render B*V views in one batched call
+    if cfg.predict_scale and cfg.scale_weight > 0 and "scale" in preds:
+        s_loss = torch.mean((preds["scale"] - 0.7) ** 2)
+        total = total + cfg.scale_weight * s_loss
+        metrics["loss_scale"] = s_loss
+
+    if cfg.translation_weight > 0 and (
+        "translation" in preds or "translations_views" in preds
+    ):
+        t = preds.get("translations_views", preds.get("translation"))
+        t_loss = torch.mean(t**2)
+        total = total + cfg.translation_weight * t_loss
+        metrics["loss_translation"] = t_loss
+
+    metrics["loss_total"] = total
+    return total, metrics
+
+
+def _gt_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
+                  point_weights, step, metrics, density_fn,
+                  project_fn) -> torch.Tensor:
+    """The GT-pose branch: render B*V views in one batched call."""
+    points = preds["points"]
+    B, V, D = points.shape[0], masks.shape[1], cfg.vox_size
     pts = points.repeat_interleave(V, dim=0)  # [B*V, N, 3]
     pw = (None if point_weights is None
           else point_weights.repeat_interleave(V, dim=0))
@@ -119,7 +200,8 @@ def compute_loss(
         )
     else:
         out = pointcloud_project_fn(cfg, pts, quats, sigma_rel,
-                                    point_weights=pw, rgb=rgb)
+                                    point_weights=pw, rgb=rgb,
+                                    project_fn=project_fn)
     sil, depth, rgb_proj = out.silhouette.reshape(B, V, D, D), out.depth, \
         out.rgb
     proj_loss = torch.mean((sil - masks) ** 2)
@@ -130,9 +212,7 @@ def compute_loss(
         # view, resized to the mask resolution. The targets are
         # background-composited renders, so the background is composited
         # into the prediction first
-        tgt = batch["images_tgt"]
-        if tgt.shape[-2] != D:
-            tgt = _resize(tgt.movedim(-1, -3), D, "bilinear").movedim(-3, -1)
+        tgt = _resize_images(batch["images_tgt"], D)
         rgb_proj = rgb_proj.reshape(B, V, D, D, 3)
         rgb_proj = rgb_proj + (1.0 - sil[..., None]) * cfg.rgb_background
         w = masks[..., None]
@@ -145,17 +225,173 @@ def compute_loss(
         d_loss = torch.mean(_masked_depth_loss(depth, depths, masks))
         total = total + cfg.drc_weight * d_loss
         metrics["loss_depth"] = d_loss
-    # IoU diagnostic on the first target view
+    metrics["iou"] = _iou(sil, masks)
+    return total
+
+
+def _iou(sil: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """IoU diagnostic on the first target view: sil, masks [B, V, D, D]."""
     pred_m = sil[:, 0] > 0.4
     gt_m = masks[:, 0] > 0.5
     inter = (pred_m & gt_m).sum(dim=(-2, -1))
     union = (pred_m | gt_m).sum(dim=(-2, -1)).clamp_min(1)
-    metrics["iou"] = torch.mean(inter / union)
+    return torch.mean(inter / union)
 
-    if cfg.predict_scale and cfg.scale_weight > 0 and "scale" in preds:
-        s_loss = torch.mean((preds["scale"] - 0.7) ** 2)
-        total = total + cfg.scale_weight * s_loss
-        metrics["loss_scale"] = s_loss
 
-    metrics["loss_total"] = total
-    return total, metrics
+def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
+                         point_weights, step, metrics, density_fn,
+                         project_fn) -> torch.Tensor:
+    """The predicted-pose branch: K candidates, hard-min selection."""
+    points = preds["points"]
+    B, V, D = points.shape[0], masks.shape[1], cfg.vox_size
+    K = cfg.pose_predict_num_candidates
+    per_view_pose = cfg.pose_from_views and "quats_views" in preds
+    if per_view_pose:
+        # each target view's candidates were predicted from that view's own
+        # image, so q_k(v) is object -> camera v: no GT rig transform
+        cand_v = preds["quats_views"]  # [B, V, K, 4]
+        q_full = cand_v.transpose(1, 2)  # [B, K, V, 4]
+    else:
+        cand = preds["quats"]  # [B, K, 4]
+        q_rel = quaternion_multiply(
+            batch["quats"], quaternion_conjugate(batch["quat_in"])[:, None])
+        # object -> camera v for each (candidate, view): q_rel(v) * q_k
+        q_full = quaternion_multiply(q_rel[:, None], cand[:, :, None])
+
+    def bc(x: torch.Tensor) -> torch.Tensor:
+        """[B, ...] -> [B*K*V, ...] candidate/view broadcast."""
+        return x[:, None, None].expand((B, K, V) + x.shape[1:]).reshape(
+            (B * K * V,) + x.shape[1:])
+
+    pts = bc(points)
+    pw = None if point_weights is None else bc(point_weights)
+    trans = None
+    if per_view_pose and "translation" in preds:
+        # each target view's offset from that view's own pose head
+        if "translations_views" not in preds:
+            raise ValueError(
+                "pose_from_views with predict_translation needs per-view "
+                "translations (preds['translations_views'] — apply_model "
+                "builds them from pose_only)"
+            )
+        trans = preds["translations_views"].transpose(1, 2).reshape(
+            B * K * V, 3)
+    elif "translation" in preds:
+        trans = preds["translation"][:, :, None].expand(B, K, V, 3).reshape(
+            B * K * V, 3)
+    use_rgb = (cfg.pc_rgb and "rgb" in preds and "images_tgt" in batch
+               and cfg.rgb_weight > 0)
+    q_flat = q_full.reshape(B * K * V, 4)
+    if cfg.pc_gauss and "gauss_scales" in preds:
+        opacity = bc(preds["gauss_opacity"])
+        if pw is not None:
+            opacity = opacity * pw  # point dropout folds into opacity
+        out = gsplat_project(
+            cfg, pts, q_flat, bc(preds["gauss_scales"]),
+            bc(preds["gauss_rot"]), opacity=opacity,
+            rgb=bc(preds["rgb"]) if use_rgb else None, translation=trans,
+            density_fn=density_fn,
+        )
+    else:
+        # with rgb every candidate's colour renders in the same call, and
+        # its error takes part in the selection
+        out = pointcloud_project_fn(
+            cfg, pts, q_flat, sigma_rel, point_weights=pw,
+            rgb=bc(preds["rgb"]) if use_rgb else None, translation=trans,
+            project_fn=project_fn)
+    sil, depth = out.silhouette.reshape(B, K, V, D, D), out.depth
+    # per-sample per-candidate loss over pixels (and over views in
+    # input-view-pose mode; per-view selection keeps the view axis)
+    l_kv = torch.mean((sil - masks[:, None]) ** 2, dim=(3, 4))  # [B, K, V]
+    l_k = l_kv if per_view_pose else l_kv.mean(2)
+    rgb_l_k = None
+    if use_rgb:
+        tgt = _resize_images(batch["images_tgt"], D)
+        rgb_cmp = out.rgb.reshape(B, K, V, D, D, 3) + (
+            1.0 - sil[..., None]) * cfg.rgb_background
+        w = masks[:, None, :, :, :, None]  # [B, 1, V, D, D, 1]
+        axes = (3, 4, 5) if per_view_pose else (2, 3, 4, 5)
+        denom = (w.sum(axes) * 3.0).clamp_min(1.0)
+        rgb_l_k = (w * (rgb_cmp - tgt[:, None]) ** 2).sum(axes) / denom
+    ramp = rgb_ramp(cfg, step)
+    comb_k = candidate_scores(cfg, l_k, rgb_l_k, ramp)
+    k_star = torch.argmin(comb_k, dim=1)  # [B] or [B, V]
+    sel_w = None
+    if cfg.pose_softmin_temp > 0 and cfg.pose_softmin_steps > 0:
+        # softmin -> hard-min anneal: a softmax over the detached scores
+        # at a relative temperature decaying to ~0
+        frac = _clip01(1.0 - float(step) / cfg.pose_softmin_steps)
+        scores = comb_k.detach()
+        t_eff = cfg.pose_softmin_temp * frac * scores.mean() + 1e-8
+        sel_w = torch.softmax(-scores / t_eff, dim=1)
+        proj_loss = torch.mean((sel_w * l_k).sum(1))
+        metrics["sel_entropy"] = torch.mean(
+            -(sel_w * torch.log(sel_w + 1e-12)).sum(1))
+    else:
+        # the winner alone receives projection gradient
+        proj_loss = torch.mean(torch.take_along_dim(l_k, k_star[:, None], 1))
+    total = cfg.proj_weight * proj_loss
+    metrics["loss_proj"] = proj_loss
+    metrics["cand_spread"] = torch.mean(
+        comb_k.amax(1) - comb_k.amin(1))
+    if per_view_pose:
+        # gauge-coherence telemetry of the winners (a metric only)
+        q_sel = torch.take_along_dim(
+            q_full, k_star[:, None, :, None], 1).squeeze(1)  # [B, V, 4]
+        metrics["gauge_spread_deg"] = torch.mean(gauge_spread_deg(
+            q_sel.detach().transpose(0, 1), batch["quats"].transpose(0, 1)))
+    if use_rgb:
+        if sel_w is not None:
+            rgb_loss = torch.mean((sel_w * rgb_l_k).sum(1))
+        else:
+            rgb_loss = torch.mean(
+                torch.take_along_dim(rgb_l_k, k_star[:, None], 1))
+        total = total + cfg.rgb_weight * ramp * rgb_loss
+        metrics["loss_rgb"] = rgb_loss
+    student = "student_quat_views" if per_view_pose else "student_quat"
+    if cfg.pose_student and student in preds:
+        if per_view_pose:
+            q_teacher = torch.take_along_dim(
+                cand_v, k_star[:, :, None, None], 2).squeeze(2)  # [B, V, 4]
+        else:
+            q_teacher = torch.take_along_dim(
+                cand, k_star[:, None, None], 1).squeeze(1)  # [B, 4]
+        dot = (preds[student] * q_teacher.detach()).sum(-1)
+        student_loss = torch.mean(1.0 - dot**2)  # sign-invariant
+        sw = cfg.pose_student_weight
+        if cfg.pose_student_warmup_steps > 0:
+            sw = sw * _clip01(float(step) / cfg.pose_student_warmup_steps)
+        total = total + sw * student_loss
+        metrics["loss_student"] = student_loss
+    if cfg.pose_anchor_weight > 0 and "correction_quats" in preds:
+        # pull each candidate's pre-offset correction toward identity
+        aw = cfg.pose_anchor_weight
+        if cfg.pose_anchor_steps > 0:
+            aw = aw * _clip01(1.0 - float(step) / cfg.pose_anchor_steps)
+        corr = (preds["correction_quats_views"]
+                if per_view_pose and "correction_quats_views" in preds
+                else preds["correction_quats"])
+        if cfg.pose_anchor_mode == "azimuth":
+            # only the vertical-axis component, q_y = sin(theta / 2)
+            anchor_loss = torch.mean(corr[..., 2] ** 2)
+        else:
+            anchor_loss = torch.mean(1.0 - corr[..., 0] ** 2)
+        total = total + aw * anchor_loss
+        metrics["loss_anchor"] = anchor_loss
+    if cfg.pose_consistency_weight > 0 and "points_view2" in preds:
+        # two input views of one model must decode to the same cloud
+        cons = torch.mean(
+            chamfer_distance(points, preds["points_view2"])["chamfer"])
+        total = total + cfg.pose_consistency_weight * cons
+        metrics["loss_consistency"] = cons
+    win_idx = (k_star[:, None, :, None, None] if per_view_pose
+               else k_star[:, None, None, None, None])  # into [B, K, V, D, D]
+    if cfg.proj_depth and cfg.drc_weight > 0:
+        d_win = torch.take_along_dim(
+            depth.reshape(B, K, V, D, D), win_idx, 1).squeeze(1)
+        d_loss = torch.mean(_masked_depth_loss(d_win, depths, masks))
+        total = total + cfg.drc_weight * d_loss
+        metrics["loss_depth"] = d_loss
+    metrics["iou"] = _iou(
+        torch.take_along_dim(sil, win_idx, 1).squeeze(1), masks)
+    return total

@@ -1,6 +1,6 @@
-"""Model assembly: encoder -> points, scale, rgb and the gauss splat heads
-(port of ``dpcx/models/model_pc.py``; the pose head and ``pose_only`` come
-with predicted pose)."""
+"""Model assembly: encoder -> points, scale, rgb and the gauss splat heads,
+and with ``predict_pose`` the pose head (port of
+``dpcx/models/model_pc.py``)."""
 
 from __future__ import annotations
 
@@ -18,8 +18,6 @@ class ModelPointCloud(nn.Module):
     def __init__(self, cfg: Config, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.predict_pose:
-            raise NotImplementedError("predicted pose is not ported yet")
         self.cfg = cfg
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -46,13 +44,28 @@ class ModelPointCloud(nn.Module):
             generator=generator,
             device=device,
         )
+        self.pose_head = (
+            get_network("pose_head")(
+                features_in=cfg.fc_hidden,
+                num_candidates=cfg.pose_predict_num_candidates,
+                with_student=cfg.pose_student,
+                predict_translation=cfg.predict_translation,
+                candidate_offsets=cfg.pose_candidate_offsets,
+                compute_dtype=dtype,
+                generator=generator,
+                device=device,
+            )
+            if cfg.predict_pose else None
+        )
 
     def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """images [B, H, W, 3] -> {"points": [B, N, 3], "scale"?: [B, 1],
         "rgb"?: [B, N, 3], "gauss_scales"?: [B, N, 3], "gauss_rot"?:
         [B, N, 4], "gauss_opacity"?: [B, N]} (points already scaled when the
-        config predicts a scale)."""
-        dec = self.decoder(self.encoder(images)["latent"])
+        config predicts a scale), and with ``predict_pose`` the pose head's
+        outputs (``PoseHead.forward``)."""
+        enc = self.encoder(images)
+        dec = self.decoder(enc["latent"])
         points = dec["points"]
         out: dict[str, torch.Tensor] = {}
         if "scale" in dec:
@@ -64,4 +77,13 @@ class ModelPointCloud(nn.Module):
         for k in ("rgb", "gauss_scales", "gauss_rot", "gauss_opacity"):
             if k in dec:
                 out[k] = dec[k]
+        if self.pose_head is not None:
+            out.update(self.pose_head(enc["pose_inp"]))
         return out
+
+    def pose_only(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The encoder and the pose head only: images [M, H, W, 3] ->
+        ``PoseHead.forward``'s outputs. ``pose_from_views`` predicts each
+        target view's pose from its own image with it; the decoder (most
+        of the parameters) runs once, on the input view."""
+        return self.pose_head(self.encoder(images)["pose_inp"])

@@ -1,5 +1,5 @@
 """Network registry: string -> module constructor (port of
-``dpcx/nets/net_factory.py``; ``pose_head`` joins with predicted pose)."""
+``dpcx/nets/net_factory.py``)."""
 
 from __future__ import annotations
 
@@ -27,9 +27,11 @@ def get_network(name: str) -> Callable:
 def _register_defaults() -> None:
     from dpcx_torch.nets.img_encoder import ImageEncoder
     from dpcx_torch.nets.pc_decoder import PointCloudDecoder
+    from dpcx_torch.nets.pose import PoseHead
 
     _REGISTRY.setdefault("img_encoder", ImageEncoder)
     _REGISTRY.setdefault("pc_decoder", PointCloudDecoder)
+    _REGISTRY.setdefault("pose_head", PoseHead)
 
 
 _register_defaults()

@@ -239,8 +239,8 @@ def aniso_density(
     if acc_dtype != "float32":
         raise NotImplementedError(
             f"acc_dtype={acc_dtype!r}: only the float32 mode of the "
-            "anisotropic splat kernels is ported (the bfloat16 mode is "
-            "ROADMAP queue 1 item 8)"
+            "anisotropic splat kernels is ported (the bfloat16 mode of "
+            "K6/K7 is ROADMAP queue 1 item 11)"
         )
     if not 1 <= vox <= MAX_ANISO_VOX:
         raise ValueError(f"anisotropic splats cover 1 <= vox <= "

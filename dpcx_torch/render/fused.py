@@ -15,6 +15,17 @@ the x/y-blurred grid (8 MiB per render at 128^3) for the backward, or,
 when False (``cfg.remat``), keeps only coords, weights and taps, and the
 backward re-splats and re-blurs into fresh scratch first. At D <= 64 the
 grid is always kept, as ``save_grid`` has no effect there in dpcx.
+
+``acc_dtype`` "bfloat16" is K1/K2's bfloat16 operand mode, at D <= 64
+(the D > 64 mode, K3-K5's, is ROADMAP queue 1 item 11): every value the
+Pallas kernels type bfloat16 is rounded to nearest-even where they round
+it, sums stay f32. Its plain version is ``fused_project_reference(...,
+acc_dtype="bfloat16")`` forward and ``fused_backward_reference``
+backward, written out because autograd through the rounded forward would
+round other quantities than K2 does; CPU tensors take them through
+``fused_project_plain``. In float32 mode ``fused_backward_reference`` is
+K2's function too, hat derivative 0 at an exactly integer coordinate
+included, where autograd through the plain forward is floor-based.
 """
 
 from __future__ import annotations
@@ -23,17 +34,25 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from dpcx_torch.render.drc import drc_projection
-from dpcx_torch.render.gauss import gauss_kernel_1d, smoothen_voxels3d
+from dpcx_torch.render.gauss import (
+    blur_matrix,
+    gauss_kernel_1d,
+    smoothen_voxels3d,
+)
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
 
 MAX_FUSED_VOX = 128  # the kernels' grid is D^3 f32 per render, D <= 128
 BLOCKED_VOX = 64  # above this, dpcx runs the depth-blocked kernels K3-K5
+ACC_DTYPES = ("float32", "bfloat16")
 
 # kernel launches by name; counted only where a launch happens. D <= 64
-# counts as fused_*, D > 64 as blocked_* (the K3-K5 counterparts)
+# counts as fused_*, D > 64 as blocked_* (the K3-K5 counterparts); the
+# bfloat16 mode of K1/K2 as fused_render_bf16, fused_render_bwd_bf16
 LAUNCHES: dict[str, int] = {
     "fused_render": 0,
     "fused_render_bwd": 0,
+    "fused_render_bf16": 0,
+    "fused_render_bwd_bf16": 0,
     "blocked_render": 0,
     "blocked_render_bwd": 0,
     "blocked_render_bwd_recompute": 0,
@@ -45,6 +64,68 @@ def launch_family(vox: int) -> str:
     return "blocked" if vox > BLOCKED_VOX else "fused"
 
 
+def _rnd(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to the nearest bfloat16 (ties to even), back to f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _keep(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _corners(ndc_t: torch.Tensor, vox: int):
+    """Per point and axis (rows z, y, x of [R, 3, N]): the low corner cell
+    (floor of the grid coordinate) and the hats of dpcx's Pallas kernels,
+    relu(1 - |g - c|), at the low and the high corner, and their
+    derivatives (_dhat_t: 0 at an exactly integer coordinate)."""
+    g = (ndc_t.flip(1) + 0.5) * vox - 0.5
+    lo = torch.floor(g)
+    t = g - lo
+    hats = (1.0 - t, 1.0 - (t - 1.0).abs())
+    off = (t != 0).float()
+    dhats = (-off, off)
+    return lo.to(torch.int64), hats, dhats
+
+
+def _corner_index(lo, dz, dy, dx, vox):
+    """Flat cell of corner (dz, dy, dx) in [R, D^3] and whether it lies in
+    the grid, each [R, N]."""
+    iz, iy, ix = lo[:, 0] + dz, lo[:, 1] + dy, lo[:, 2] + dx
+    valid = ((iz >= 0) & (iz < vox) & (iy >= 0) & (iy < vox)
+             & (ix >= 0) & (ix < vox))
+    cell = ((iz.clamp(0, vox - 1) * vox + iy.clamp(0, vox - 1)) * vox
+            + ix.clamp(0, vox - 1))
+    return cell, valid
+
+
+def _grid_yx(ndc_t, vox, sigma_vox, radius, point_weights, rnd=_rnd):
+    """The splat and the y, then x blur, each input and the taps rounded by
+    ``rnd`` (``_rnd``: bfloat16 mode; ``_keep``: float32) -> (the
+    x/y-blurred grid [R, D, D, D] f32, the blur matrix K as rounded)."""
+    R, _, N = ndc_t.shape
+    lo, hats, _ = _corners(ndc_t, vox)
+    pw = (torch.ones(R, N, dtype=ndc_t.dtype, device=ndc_t.device)
+          if point_weights is None else point_weights)
+    grid = torch.zeros(R, vox**3, dtype=torch.float32, device=ndc_t.device)
+    for dz in (0, 1):
+        wzp = rnd(hats[dz][:, 0] * pw)  # (h_z pw) rounded once
+        for dy in (0, 1):
+            a = rnd(wzp * rnd(hats[dy][:, 1]))
+            for dx in (0, 1):
+                cell, valid = _corner_index(lo, dz, dy, dx, vox)
+                w = torch.where(valid, a * rnd(hats[dx][:, 2]), 0.0)
+                grid.scatter_add_(1, cell, w)
+    grid = grid.reshape(R, vox, vox, vox)
+    K = rnd(blur_matrix(sigma_vox, vox, radius).float())
+    grid = torch.einsum("bzyx,yi->bzix", rnd(grid), K)  # y
+    grid = torch.einsum("bzyx,xi->bzyi", rnd(grid), K)  # x
+    return grid, K
+
+
+def _zblur(grid, K, rnd=_rnd):
+    return torch.einsum("bzyx,zi->biyx", rnd(grid), K)
+
+
 def fused_project_reference(
     ndc_t: torch.Tensor,
     vox_size: int,
@@ -52,9 +133,14 @@ def fused_project_reference(
     kernel_radius: int,
     point_weights: torch.Tensor | None = None,
     with_depth: bool = False,
+    acc_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of the kernel: scatter splat + separable blur
     + DRC. ndc_t [R, 3, N] (rows x, y, z_ndc) -> sil [R, D, D], depth.
+
+    ``acc_dtype`` "bfloat16": the bfloat16 mode's forward, rounded where
+    dpcx's K1 rounds (the module docstring); differentiate it with
+    ``fused_backward_reference``, not autograd.
 
     Its forward is the kernels' function. Its gradient, by autograd through
     the floor-based trilinear weights, is that of dpcx's XLA scatter
@@ -63,11 +149,148 @@ def fused_project_reference(
     an exactly integer grid coordinate: there the floor-based derivative
     along that axis is one-sided (-v(c) + v(c + 1)) where the kernels give
     0."""
+    if acc_dtype == "bfloat16":
+        grid, K = _grid_yx(ndc_t, vox_size, sigma_vox, kernel_radius,
+                           point_weights)
+        return drc_projection(_zblur(grid, K), with_depth=with_depth)
     grid = pointcloud2voxels_scatter(
         ndc_t.transpose(1, 2), vox_size, point_weights=point_weights
     )
     grid = smoothen_voxels3d(grid, sigma_vox, kernel_radius)
     return drc_projection(grid, with_depth=with_depth)
+
+
+def fused_backward_reference(
+    ndc_t: torch.Tensor,
+    vox_size: int,
+    sigma_vox: torch.Tensor | float,
+    kernel_radius: int,
+    point_weights: torch.Tensor | None,
+    with_depth: bool,
+    dsil: torch.Tensor,
+    ddepth: torch.Tensor | None,
+    acc_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: the cotangents dsil, ddepth [R, D, D] (ddepth
+    None: zero) -> (d ndc_t [R, 3, N], d weights [R, N]). Float32 mode
+    rounds nothing; bfloat16 mode rounds as below.
+
+    As ``_fused_bwd_kernel`` (``dpcx/render/pallas_kernel.py:254``): the
+    grid as the forward makes it; the DRC cotangent in f32 by Total minus
+    prefix (summed from the back: like the kernel's suffix form, it avoids
+    the subtraction), zero where the forward clipped; the blur transposes
+    z, then y, then x, each input rounded; the splat backward with dG, h_y,
+    h_x rounded, a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)), v = sum_x dG h_x,
+    P = sum_y v h_y, Q = sum_y v dh_y, t1 = sum_zy dG a, and h_z, dh_z, pw
+    unrounded."""
+    R, _, N = ndc_t.shape
+    D = vox_size
+    rnd = _rnd if acc_dtype == "bfloat16" else _keep
+    grid, K = _grid_yx(ndc_t, D, sigma_vox, kernel_radius, point_weights,
+                       rnd)
+    o_raw = _zblur(grid, K, rnd)
+    top = 1.0 - 1e-5
+    o = o_raw.clamp(0.0, top)
+    one_minus = 1.0 - o
+    trans = torch.cat([torch.ones_like(o[:, :1]),
+                       torch.cumprod(one_minus, dim=1)[:, :-1]], dim=1)
+    phi = dsil[:, None].expand_as(o)
+    if with_depth and ddepth is not None:
+        d_z = (torch.arange(D, dtype=torch.float32, device=o.device)
+               + 0.5) / D - 0.5
+        phi = phi + ddepth[:, None] * d_z[:, None, None]
+    # Total minus prefix, summed from the back: the terms after z (and the
+    # background's), which a subtraction would lose where a saturated ray
+    # has taken almost all of Total before z
+    terms = o * trans * phi
+    after = torch.cat([terms.flip(1).cumsum(1).flip(1)[:, 1:],
+                       torch.zeros_like(terms[:, :1])], dim=1)
+    if with_depth and ddepth is not None:
+        after = after + (ddepth * (trans[:, -1] * one_minus[:, -1]))[:, None]
+    do = trans * phi - after / one_minus
+    do = torch.where(o_raw < top, do, 0.0)
+    # blur transposes: z, then y, then x (K is symmetric: each pass is its
+    # own transpose), each input rounded
+    dg = _zblur(do, K, rnd)
+    dg = torch.einsum("bzyx,yi->bzix", rnd(dg), K)
+    dg = rnd(torch.einsum("bzyx,xi->bzyi", rnd(dg), K)).reshape(R, -1)
+
+    lo, hats, dhats = _corners(ndc_t, D)
+    pw = (torch.ones(R, N, dtype=ndc_t.dtype, device=ndc_t.device)
+          if point_weights is None else point_weights)
+    pw_r = rnd(pw)
+    zero = torch.zeros(R, N, dtype=torch.float32, device=ndc_t.device)
+    agz, agy, apw, t1 = zero, zero, zero, [zero, zero]
+    for dz in (0, 1):
+        hz, dhz = hats[dz][:, 0], dhats[dz][:, 0]
+        hzp = rnd(rnd(hz) * pw_r)
+        P = Q = zero
+        for dy in (0, 1):
+            hy, dhy = rnd(hats[dy][:, 1]), dhats[dy][:, 1]
+            a = rnd(hzp * hy)
+            v = zero
+            for dx in (0, 1):
+                cell, valid = _corner_index(lo, dz, dy, dx, D)
+                g = torch.where(valid, torch.gather(dg, 1, cell), 0.0)
+                v = v + g * rnd(hats[dx][:, 2])
+                t1[dx] = t1[dx] + g * a
+            P = P + v * hy
+            Q = Q + v * dhy
+        agz = agz + dhz * P
+        agy = agy + hz * Q
+        apw = apw + hz * P
+    agx = t1[0] * dhats[0][:, 2] + t1[1] * dhats[1][:, 2]
+    dcoords = torch.stack([agz * pw, agy * pw, agx], dim=1)  # rows z, y, x
+    return D * dcoords.flip(1), apw
+
+
+class _PlainRender(torch.autograd.Function):
+    """The plain forward and the plain K2 backward written out (no gradient
+    reaches sigma, as on the kernels)."""
+
+    @staticmethod
+    def forward(ctx, ndc_t, point_weights, sigma_vox, vox, radius,
+                with_depth, acc_dtype):
+        ctx.save_for_backward(ndc_t, point_weights, sigma_vox)
+        ctx.vox, ctx.radius, ctx.with_depth = vox, radius, with_depth
+        ctx.acc_dtype = acc_dtype
+        ctx.set_materialize_grads(False)
+        sil, depth = fused_project_reference(
+            ndc_t, vox, sigma_vox, radius, point_weights, with_depth,
+            acc_dtype=acc_dtype)
+        return (sil, depth) if with_depth else sil
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsil, ddepth=None):
+        ndc_t, point_weights, sigma_vox = ctx.saved_tensors
+        if dsil is None:  # only the depth output reached the loss
+            dsil = torch.zeros_like(ddepth)
+        d_ndc, d_w = fused_backward_reference(
+            ndc_t, ctx.vox, sigma_vox, ctx.radius, point_weights,
+            ctx.with_depth, dsil, ddepth, ctx.acc_dtype)
+        return (d_ndc, None if point_weights is None else d_w,
+                None, None, None, None, None)
+
+
+def fused_project_plain(
+    ndc_t: torch.Tensor,
+    vox_size: int,
+    sigma_vox: torch.Tensor | float,
+    kernel_radius: int,
+    point_weights: torch.Tensor | None = None,
+    with_depth: bool = False,
+    acc_dtype: str = "float32",
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The plain version with K2's backward written out
+    (``fused_backward_reference``), on any device: what CPU tensors take
+    in bfloat16 mode, and what a kernel-vs-plain check on the card compares
+    the kernels with in either mode."""
+    sigma = torch.as_tensor(sigma_vox, dtype=torch.float32,
+                            device=ndc_t.device)
+    out = _PlainRender.apply(ndc_t, point_weights, sigma, vox_size,
+                             kernel_radius, with_depth, acc_dtype)
+    return out if with_depth else (out, None)
 
 
 def _check_inputs(ndc_t, vox_size, kernel_radius, point_weights) -> None:
@@ -94,10 +317,12 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _launch_forward(coords, weights, taps, radius, vox, with_depth):
+def _launch_forward(coords, weights, taps, radius, vox, with_depth,
+                    bf16=False):
     """Forward (K1, or K3 at D > 64): coords [R, 3, N] (z, y, x grid
     units), weights [R, N] or None, taps [2 radius + 1] -> (sil, depth or
-    None, the x/y-blurred grid [R, D, D, D] that the backward may read)."""
+    None, the x/y-blurred grid [R, D, D, D] that the backward may read).
+    ``bf16``: K1's bfloat16 operand mode (D <= 64)."""
     from dpcx_torch import _build
 
     R, _, N = coords.shape
@@ -110,10 +335,10 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth):
         err = lib.dpcx_fused_render(
             coords.data_ptr(), _ptr(weights), taps.data_ptr(), radius,
             grid.data_ptr(), sil.data_ptr(), _ptr(depth), R, N, D,
-            int(with_depth),
+            int(with_depth), int(bf16),
             torch.cuda.current_stream(coords.device).cuda_stream,
         )
-    name = f"{launch_family(vox)}_render"
+    name = f"{launch_family(vox)}_render" + ("_bf16" if bf16 else "")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -121,7 +346,7 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth):
 
 
 def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
-                     vox, with_depth, want_dweights):
+                     vox, with_depth, want_dweights, bf16=False):
     """Backward (K2, or K4 + K5 at D > 64): cotangents dsil [R, D, D] and
     ddepth (or None: zero) -> (d coords [R, 3, N], d weights [R, N] or
     None). ``grid`` is the forward's x/y-blurred grid, or None: then the
@@ -148,10 +373,10 @@ def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
             coords.data_ptr(), _ptr(weights), taps.data_ptr(), radius,
             grid.data_ptr(), dsil.data_ptr(), _ptr(ddepth), dgrid.data_ptr(),
             dcoords.data_ptr(), _ptr(dweights), R, N, D, int(with_depth),
-            torch.cuda.current_stream(coords.device).cuda_stream,
+            int(bf16), torch.cuda.current_stream(coords.device).cuda_stream,
         )
     name = (f"{launch_family(vox)}_render_bwd"
-            + ("_recompute" if recompute else ""))
+            + ("_recompute" if recompute else "") + ("_bf16" if bf16 else ""))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -169,13 +394,14 @@ class _FusedRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, coords, weights, taps, radius, vox, with_depth,
-                save_grid):
+                save_grid, bf16):
         sil, depth, grid = _launch_forward(
-            coords, weights, taps, radius, vox, with_depth
+            coords, weights, taps, radius, vox, with_depth, bf16
         )
         keep = save_grid or vox <= BLOCKED_VOX
         ctx.save_for_backward(coords, weights, taps, grid if keep else None)
         ctx.radius, ctx.vox, ctx.with_depth = radius, vox, with_depth
+        ctx.bf16 = bf16
         # an output the loss never reads arrives as None, not as zeros
         ctx.set_materialize_grads(False)
         return (sil, depth) if with_depth else sil
@@ -190,14 +416,14 @@ class _FusedRender(torch.autograd.Function):
         dcoords, dweights = _launch_backward(
             coords, weights, taps, ctx.radius, grid, dsil.contiguous(),
             None if ddepth is None else ddepth.contiguous(),
-            ctx.vox, ctx.with_depth, want_weights,
+            ctx.vox, ctx.with_depth, want_weights, ctx.bf16,
         )
         return (dcoords if want_coords else None, dweights,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
-                    with_depth, save_grid=True):
+                    with_depth, save_grid=True, bf16=False):
     """The kernel path: the NDC -> grid affine stays outside the Function,
     so autograd chains d/d(ndc) = D d/d(coords), as pallas_project_t."""
     for name, t in (("ndc_t", ndc_t), ("point_weights", point_weights)):
@@ -216,7 +442,7 @@ def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
                             device=ndc_t.device)
     taps = gauss_kernel_1d(sigma, kernel_radius).contiguous()
     out = _FusedRender.apply(coords, pw, taps, kernel_radius, D, with_depth,
-                             save_grid)
+                             save_grid, bf16)
     return out if with_depth else (out, None)
 
 
@@ -233,18 +459,27 @@ def fused_project_t(
     """CHANNEL-MAJOR fused projection: ndc_t [R, 3, N] (rows x, y, z_ndc,
     from pc_perspective_transform_t) -> (sil [R, D, D], depth or None).
 
-    Mirrors ``dpcx.render.pallas_kernel.pallas_project_t``, gradients and
-    ``save_grid`` included. CUDA tensors go through the CUDA kernels, CPU
-    tensors through the plain version (where ``save_grid`` changes
-    nothing).
+    Mirrors ``dpcx.render.pallas_kernel.pallas_project_t``, gradients,
+    ``acc_dtype`` and ``save_grid`` included. CUDA tensors go through the
+    CUDA kernels, CPU tensors through the plain version (where
+    ``save_grid`` changes nothing).
     """
-    if acc_dtype != "float32":
+    if acc_dtype not in ACC_DTYPES:
+        raise ValueError(f"acc_dtype must be one of {ACC_DTYPES}, "
+                         f"got {acc_dtype!r}")
+    bf16 = acc_dtype == "bfloat16"
+    if bf16 and vox_size > BLOCKED_VOX:
         raise NotImplementedError(
-            f"acc_dtype={acc_dtype!r}: only the float32 mode of the fused "
-            "kernel is ported"
+            f"acc_dtype='bfloat16' at vox_size {vox_size} > {BLOCKED_VOX}: "
+            "the bfloat16 mode of the depth-blocked kernels K3-K5 is not "
+            "ported yet (ROADMAP queue 1 item 11)"
         )
     _check_inputs(ndc_t, vox_size, kernel_radius, point_weights)
     if ndc_t.device.type == "cpu":
+        if bf16:
+            return fused_project_plain(ndc_t, vox_size, sigma_vox,
+                                       kernel_radius, point_weights,
+                                       with_depth, acc_dtype)
         return fused_project_reference(
             ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
             with_depth,
@@ -256,5 +491,5 @@ def fused_project_t(
         )
     return _kernel_project(
         ndc_t, vox_size, sigma_vox, kernel_radius, point_weights, with_depth,
-        save_grid,
+        save_grid, bf16,
     )

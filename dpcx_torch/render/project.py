@@ -69,9 +69,12 @@ def pointcloud_project_fn(
     rgb: torch.Tensor | None = None,
     translation: torch.Tensor | None = None,
     return_voxels: bool = False,
+    project_fn=None,
 ) -> RenderOut:
     """Project world-frame clouds [B, N, 3] through cameras [B, 4]; with
     ``rgb`` [B, N, 3], also the expected colour along each ray [B, Y, X, 3].
+    ``project_fn``: the fused renderer, with ``fused_project_t``'s
+    signature (None: ``fused_project_t``, the CUDA kernels on the card).
     """
     dtype = getattr(torch, cfg.renderer_dtype)
     points = points.to(dtype)
@@ -103,7 +106,7 @@ def pointcloud_project_fn(
             camera_distance=cfg.camera_distance,
             translation=trans,
         )
-        sil, depth = fused_project_t(
+        sil, depth = (project_fn or fused_project_t)(
             ndc_t,
             D,
             sigma_vox,

@@ -11,8 +11,9 @@ Protocol (npz over HTTP):
 
     POST /predict   body = npz{"images": [B, H, W, 3] float32/uint8}
                     -> npz{"points": [B, N, 3], "scale": [B, 1]} (and
-                       "rgb", "gauss_scales", "gauss_rot", "gauss_opacity"
-                       when the config predicts them)
+                       "pose": [B, 4], the student quaternion, with
+                       predict_pose; "rgb", "gauss_scales", "gauss_rot",
+                       "gauss_opacity" when the config predicts them)
     GET  /healthz   -> {"status": "ok", "requests": ..., "batch": ...}
 
 Run it:
@@ -59,6 +60,20 @@ class ServingModel:
         self.model = model.eval()
         self.requests = 0
 
+    def _outputs(self, preds: dict[str, torch.Tensor]) -> dict:
+        """The served surface of the model's outputs, as dpcx's
+        ``_serve_step``: the pose head's internals (candidates, their
+        corrections) stay inside; the student quaternion is "pose"."""
+        out = {"points": preds["points"]}
+        if "scale" in preds:
+            out["scale"] = preds["scale"]
+        if self.cfg.predict_pose and "student_quat" in preds:
+            out["pose"] = preds["student_quat"]
+        for k in ("rgb", "gauss_scales", "gauss_rot", "gauss_opacity"):
+            if k in preds:
+                out[k] = preds[k]
+        return out
+
     def warmup(self) -> float:
         """Run one serving batch; returns its seconds."""
         t0 = time.perf_counter()
@@ -84,7 +99,8 @@ class ServingModel:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], self.batch_size - n, 0)]
                 )
-            preds = self.model(torch.from_numpy(chunk).to(self.device))
+            preds = self._outputs(
+                self.model(torch.from_numpy(chunk).to(self.device)))
             # .cpu() waits for the device, so the batch is done here
             outs.append(
                 {k: v[:n].float().cpu().numpy() for k, v in preds.items()}

@@ -1,5 +1,5 @@
-"""Training loop for GT pose: Adam, one eager step per batch, ``torch.save``
-checkpoints, JSONL metrics (port of ``dpcx/train.py``).
+"""Training loop: Adam, one eager step per batch, ``torch.save``
+checkpoints, JSONL metrics, the gauge reseed (port of ``dpcx/train.py``).
 
 Differences from the reference, by design:
 
@@ -17,10 +17,19 @@ Differences from the reference, by design:
   ``{"params", "opt_state", "step"}``, the newest 3 kept (Orbax's
   ``max_to_keep``). An Orbax step directory there is refused, never read.
 
-Not ported yet, and refused: predicted pose and the gauge reseed (ROADMAP
-queue 1 item 4), periodic eval (item 3), profiling (item 8), point
-sharding (item 9), block rotation (item 10: it rotates the records of
-dpcx's device-side batch stream, which this loop does not follow).
+The gauge reseed is dpcx's (``gauge_reseed_*``): after the step that
+crosses ``gauge_reseed_check_step``, a logged ``gauge_spread_deg`` above
+the threshold re-initialises the model from a generator seeded ``seed +
+7919 * attempt``, deletes the dead attempt's checkpoints, writes
+``{"gauge_reseed": attempt, "gauge_spread_deg": spread}`` and restarts the
+step count and the clock. As in dpcx, the attempt count is not saved in
+checkpoints, a missing ``gauge_spread_deg`` reads as 0 (healthy), and the
+logged steps restart from 0 after a reseed.
+
+Not ported yet, and refused: periodic eval (ROADMAP queue 1 item 3),
+profiling (item 8), point sharding (item 9), block rotation (item 10: it
+rotates the records of dpcx's device-side batch stream, which this loop
+does not follow).
 """
 
 from __future__ import annotations
@@ -82,13 +91,28 @@ def create_state(cfg: Config, device=None,
 
 def apply_model(cfg: Config, model: ModelPointCloud,
                 batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The GT-pose model application: the input view's forward."""
-    if "image_in2" in batch or "images_v" in batch:
-        raise NotImplementedError(
-            "second-view and per-view pose inputs come with predicted pose "
-            "(ROADMAP queue 1 item 4)"
-        )
-    return model(batch["image"])
+    """The model application of one training batch: the input view's
+    forward, the second input view's decode of the consistency loss
+    (``image_in2``) and, with ``images_v`` [B, V, H, W, 3], each target
+    view's pose heads from its own image (``pose_only``: the decoder runs
+    once, on the input view)."""
+    preds = model(batch["image"])
+    if "image_in2" in batch:
+        preds["points_view2"] = model(batch["image_in2"])["points"]
+    if "images_v" in batch:
+        iv = batch["images_v"]
+        Bv, Vu = iv.shape[:2]
+        pv = model.pose_only(iv.reshape((Bv * Vu,) + iv.shape[2:]))
+        preds["quats_views"] = pv["quats"].reshape(Bv, Vu, -1, 4)
+        preds["correction_quats_views"] = pv["correction_quats"].reshape(
+            Bv, Vu, -1, 4)
+        if "translation" in pv:
+            preds["translations_views"] = pv["translation"].reshape(
+                Bv, Vu, -1, 3)
+        if "student_quat" in pv:
+            preds["student_quat_views"] = pv["student_quat"].reshape(
+                Bv, Vu, 4)
+    return preds
 
 
 def train_step(
@@ -97,11 +121,13 @@ def train_step(
     batch: dict[str, torch.Tensor],
     generator: torch.Generator | None,
     density_fn=None,
+    project_fn=None,
 ) -> dict[str, torch.Tensor]:
     """One step (forward, render, backward, Adam) on ``state`` in place;
     returns the metrics as device tensors, ``grad_norm`` included.
-    ``density_fn`` goes to ``compute_loss`` (the anisotropic splats'
-    density; None: the kernels' dispatcher).
+    ``density_fn`` and ``project_fn`` go to ``compute_loss`` (the
+    anisotropic splats' density and the fused renderer; None: the kernels'
+    dispatchers).
 
     With ``cfg.remat`` model plus loss run under ``torch.utils.checkpoint``
     (dpcx's ``jax.checkpoint`` of its ``loss_fn``): their activations are
@@ -117,7 +143,8 @@ def train_step(
             generator.set_state(gen_state)
         preds = apply_model(cfg, state.model, batch)
         return compute_loss(cfg, preds, batch, state.step, generator,
-                            train=True, density_fn=density_fn)
+                            train=True, density_fn=density_fn,
+                            project_fn=project_fn)
 
     if cfg.remat:
         from torch.utils.checkpoint import checkpoint
@@ -131,8 +158,9 @@ def train_step(
     params = [p for g in opt.param_groups for p in g["params"]]
     for p in params:
         # optax updates every leaf; a parameter the loss never reached
-        # (the unused pose branch) takes a zero gradient here too, so each
-        # parameter's Adam step count stays the global one
+        # (the pose branch's fc_pose without predicted pose) takes a zero
+        # gradient here too, so each parameter's Adam step count stays the
+        # global one
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     metrics["grad_norm"] = torch.linalg.vector_norm(
@@ -157,15 +185,23 @@ def device_records(dataset: Dataset, device) -> dict[str, torch.Tensor]:
     }
 
 
-def _prep_batch(batch: dict, device,
-                pc_rgb: bool = False) -> dict[str, torch.Tensor]:
+def _batch_keys(cfg: Config) -> tuple[str, ...]:
+    """The batch fields the model and the loss read under ``cfg`` (dpcx's
+    ``_prep_batch``): the input-view camera with predicted pose, the
+    target views' images with ``pc_rgb`` and ``pose_from_views``, and a
+    second input view when the batch drew one."""
+    return ("image", "masks", "quats", "depths", "image_in2") + tuple(
+        k for k, on in (("quat_in", cfg.predict_pose),
+                        ("images_tgt", cfg.pc_rgb),
+                        ("images_v", cfg.pose_from_views)) if on)
+
+
+def _prep_batch(batch: dict, device, cfg: Config) -> dict[str, torch.Tensor]:
     """numpy batch -> float32 tensors on ``device``, the fields the loss
-    reads (the target views' images with ``pc_rgb``)."""
-    keys = ("image", "masks", "quats", "depths") + (
-        ("images_tgt",) if pc_rgb else ())
+    reads under ``cfg``."""
     return {
         k: torch.as_tensor(batch[k], dtype=torch.float32).to(device)
-        for k in keys if k in batch
+        for k in _batch_keys(cfg) if k in batch
     }
 
 
@@ -175,21 +211,20 @@ def batch_at(cfg: Config, dataset: Dataset, step: int, device,
     step))``, gathered from device-resident ``records`` when given."""
     rng = np.random.default_rng((cfg.seed, step))
     if records is None:
-        return _prep_batch(dataset.batch(rng, cfg.batch_size), device,
-                           cfg.pc_rgb)
-    m, v_in, v_tgt = (
-        torch.from_numpy(a).to(device)
+        return _prep_batch(dataset.batch(rng, cfg.batch_size), device, cfg)
+    m, v_in, v_tgt, v_in2 = (
+        None if a is None else torch.from_numpy(a).to(device)
         for a in dataset.batch_indices(rng, cfg.batch_size)
     )
-    batch = {
-        "image": records["images"][m, v_in],
-        "masks": records["masks"][m[:, None], v_tgt],
-        "depths": records["depths"][m[:, None], v_tgt],
-        "quats": records["quats"][m[:, None], v_tgt],
-    }
-    if cfg.pc_rgb:
-        batch["images_tgt"] = records["images"][m[:, None], v_tgt]
-    return batch
+    tgt, src = (m[:, None], v_tgt), (m, v_in)
+    rows = {"image": ("images", src), "masks": ("masks", tgt),
+            "depths": ("depths", tgt), "quats": ("quats", tgt),
+            "quat_in": ("quats", src), "images_tgt": ("images", tgt),
+            "images_v": ("images", tgt)}
+    if v_in2 is not None:
+        rows["image_in2"] = ("images", (m, v_in2))
+    return {k: records[r][idx] for k, (r, idx) in rows.items()
+            if k in _batch_keys(cfg)}
 
 
 class MetricWriter:
@@ -318,8 +353,6 @@ def restore_checkpoint(cfg: Config, state: TrainState) -> TrainState:
 
 def _refuse_unported(cfg: Config) -> None:
     refusals = [
-        (cfg.predict_pose or cfg.gauge_reseed_threshold_deg > 0,
-         "predicted pose and the gauge reseed", 4),
         (cfg.eval_every > 0, "periodic eval (eval_every > 0)", 3),
         (cfg.device_records_models > 0, "device_records_models > 0", 10),
         (bool(cfg.profile_dir), "profile_dir", 8),
@@ -360,6 +393,7 @@ def train(
     history: list[dict] = []
     t0 = time.time()
     start_step = step = state.step
+    reseed_attempt = 0
     with MetricWriter(cfg.checkpoint_dir) as writer:
         while step < max_steps:
             prev_step = step
@@ -374,6 +408,33 @@ def train(
                     time.time() - t0, 1e-9)
                 writer.write(step, rec)
                 history.append({"step": step, **rec})
+            if (
+                cfg.gauge_reseed_threshold_deg > 0
+                and reseed_attempt < cfg.gauge_reseed_max_retries
+                and prev_step < cfg.gauge_reseed_check_step <= step
+            ):
+                # the gauge never cohered: re-roll the init from a
+                # per-attempt seed and restart the step count; the batch
+                # stream stays a function of (seed, step)
+                gs = float(metrics.get("gauge_spread_deg", 0.0))
+                if gs > cfg.gauge_reseed_threshold_deg:
+                    reseed_attempt += 1
+                    rec = {"gauge_reseed": reseed_attempt,
+                           "gauge_spread_deg": gs}
+                    writer.write(step, rec)
+                    history.append({"step": step, **rec})
+                    state = create_state(cfg, device, torch.Generator(
+                        device=device).manual_seed(
+                            cfg.seed + 7919 * reseed_attempt))
+                    if use_checkpoints:
+                        # else the dead attempt's checkpoints would win the
+                        # newest-step restore on resume
+                        for old in checkpoint_steps(cfg):
+                            (Path(cfg.checkpoint_dir) / "ckpt"
+                             / f"{old}.pt").unlink()
+                    step = start_step = 0
+                    t0 = time.time()
+                    continue
             if use_checkpoints and crossed(prev_step, step, cfg.save_every):
                 save_checkpoint(cfg, state)
                 _write_image_summary(cfg, state.model, batch, step)

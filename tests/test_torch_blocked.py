@@ -188,12 +188,14 @@ def test_save_grid_wiring(vox, save_grid, keeps_grid, rng, monkeypatch):
         ndc = ((coords + 0.5) / vox - 0.5).flip(1)
         return fused.fused_project_reference(ndc, vox, 1.5, radius, w, True)
 
-    def launch_forward(coords, w, taps, radius_, vox_, wd):
+    def launch_forward(coords, w, taps, radius_, vox_, wd, bf16):
+        assert not bf16
         sil, depth = plain(coords, w)
         return sil, depth, torch.full((1,), 7.0)
 
     def launch_backward(coords, w, taps, radius_, grid, dsil, ddepth, vox_,
-                        wd, want_w):
+                        wd, want_w, bf16):
+        assert not bf16
         seen["grid"] = grid
         with torch.enable_grad():
             c = coords.detach().requires_grad_()
@@ -322,7 +324,8 @@ def test_train_steps_d72_match_dpcx(remat, rng, monkeypatch):
     state.step = int(jstate.step)
     for b in batches[1:]:
         jstate, m_j = j_train_step(cfg, jstate, _prep_batch(b, cfg), key)
-        m_t = ttrain.train_step(tcfg, state, ttrain._prep_batch(b, "cpu"),
+        m_t = ttrain.train_step(tcfg, state,
+                                ttrain._prep_batch(b, "cpu", cfg),
                                 torch.Generator())
         np.testing.assert_allclose(m_t["loss_total"].item(),
                                    float(m_j["loss_total"]), rtol=1e-4)

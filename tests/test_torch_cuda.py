@@ -256,13 +256,15 @@ def test_blur_yx_launch_at_d128(cuda):
         torch.testing.assert_close(d_k, d_p, atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("vox,save_grid", [(32, True), (72, True),
-                                           (72, False)])
-def test_integer_coordinate_gradient_is_zero(cuda, vox, save_grid):
+@pytest.mark.parametrize("vox,save_grid,bf16", [(32, True, False),
+                                                (72, True, False),
+                                                (72, False, False),
+                                                (32, True, True)])
+def test_integer_coordinate_gradient_is_zero(cuda, vox, save_grid, bf16):
     """Along an axis whose grid coordinate is an exact integer the hat's
     derivative is 0, as dpcx's _dhat_t gives (the plain version's
-    floor-based derivative is one-sided there): K2's backward and the
-    D > 64 backward in both modes."""
+    floor-based derivative is one-sided there): K2's backward in both
+    operand modes and the D > 64 backward in both grid modes."""
     from dpcx_torch.render.gauss import gauss_kernel_1d
 
     rng = np.random.default_rng(vox)
@@ -273,12 +275,24 @@ def test_integer_coordinate_gradient_is_zero(cuda, vox, save_grid):
     coords = torch.tensor(g, device=cuda, requires_grad=True)
     taps = gauss_kernel_1d(torch.tensor(1.5, device=cuda), radius)
     sil = fused._FusedRender.apply(coords, None, taps.contiguous(), radius,
-                                   vox, False, save_grid)
+                                   vox, False, save_grid, bf16)
     dsil = torch.tensor(rng.normal(size=(R, vox, vox)), dtype=torch.float32,
                         device=cuda)
     (d,) = torch.autograd.grad((sil * dsil).sum(), coords)
     d = d.cpu().numpy()
     assert (d[:, 0, : N // 2] == 0).all() and (d[:, 2, N // 2 :] == 0).all()
+    if bf16:
+        # rounded cotangents are often exactly equal at a point's two
+        # corners (rays with no occupancy take dsil at every z), so exact
+        # zeros arise off the integers too: hold the gradient to the plain
+        # bfloat16 backward instead, which gives 0 where the kernel must
+        ndc = ((coords.detach() + 0.5) / vox - 0.5).flip(1)
+        want, _ = fused.fused_backward_reference(
+            ndc, vox, torch.tensor(1.5, device=cuda), radius, None, False,
+            dsil, None, "bfloat16")
+        want = (want / vox).flip(1).cpu().numpy()  # d ndc -> d coords
+        assert np.abs(d - want).max() <= BF16_SHARE * np.abs(want).max()
+        return
     assert (d[:, 1] != 0).mean() > 0.99  # y is never an integer here
     assert (d[:, 0, N // 2 :] != 0).mean() > 0.99
 
@@ -390,7 +404,65 @@ def test_gsplat_project_on_card(cuda):
     ref = gsplat.gsplat_project(cfg.replace(gsplat_impl="dense"), pts, q,
                                 scales, rot, opac, rgb)
     assert (ref.silhouette - out.silhouette).abs().max() < 0.02
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         gsplat.gsplat_project(cfg.replace(pallas_acc_dtype="bfloat16"), pts,
                               q, scales, rot, opac, rgb)
     assert aniso.LAUNCHES["aniso_render"] == before["aniso_render"] + 1
+
+
+BF16_SHARE = 2.0**-8  # of the largest plain value: the splat's atomics
+# reorder f32 sums, which can flip a bfloat16 rounding downstream
+
+
+@pytest.mark.parametrize(
+    "renders,n,vox,radius,with_depth,weights",
+    [
+        (32, 16000, 64, 8, True, True),  # the car_64_depth render
+        (256, 2048, 32, 6, False, True),  # the chair_pred_pose render
+        (4, 1000, 16, 2, True, False),
+        (3, 777, 20, 3, False, True),  # D % 8 != 0, odd N
+    ],
+)
+def test_bf16_kernels_match_plain(cuda, renders, n, vox, radius, with_depth,
+                                  weights):
+    """K1 and K2 in bfloat16 operand mode against the plain bfloat16
+    forward and fused_backward_reference, on the same inputs: sil, depth
+    and gradients within BF16_SHARE of the largest plain value; launches
+    count under fused_render_bf16 and fused_render_bwd_bf16."""
+    rng = np.random.default_rng(vox + n + 2)
+    ndc = torch.tensor(rng.uniform(-0.6, 0.6, (renders, 3, n)),
+                       dtype=torch.float32, device=cuda)
+    pw = (torch.tensor(rng.uniform(0, 2, (renders, n)), dtype=torch.float32,
+                       device=cuda) if weights else None)
+    dsil = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                        dtype=torch.float32, device=cuda)
+    ddepth = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                          dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(0.05 * vox, device=cuda)
+    before = dict(fused.LAUNCHES)
+    g_k = _grads(
+        lambda x, w: fused.fused_project_t(
+            x, vox, sigma, radius, point_weights=w, with_depth=with_depth,
+            acc_dtype="bfloat16"),
+        ndc, pw, dsil, ddepth,
+    )
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in fused.LAUNCHES.items()}
+    assert made == {k: int(k in ("fused_render_bf16",
+                                 "fused_render_bwd_bf16")) for k in made}
+    with torch.no_grad():
+        s_k, d_k = fused.fused_project_t(
+            ndc, vox, sigma, radius, point_weights=pw, with_depth=with_depth,
+            acc_dtype="bfloat16")
+    s_p, d_p = fused.fused_project_reference(
+        ndc, vox, sigma, radius, point_weights=pw, with_depth=with_depth,
+        acc_dtype="bfloat16")
+    for a, b in ((s_k, s_p), (d_k, d_p)) if with_depth else ((s_k, s_p),):
+        assert (a - b).abs().max().item() <= BF16_SHARE * b.abs().max()
+    g_p = fused.fused_backward_reference(
+        ndc, vox, sigma, radius, pw, with_depth, dsil,
+        ddepth if with_depth else None, "bfloat16")
+    for a, b in zip(g_k, g_p):
+        bound = BF16_SHARE * b.abs().max().item()
+        assert bound > 0
+        assert (a - b).abs().max().item() <= bound

@@ -244,7 +244,7 @@ def test_gsplat_refusals():
     _, tcfg = _cfgs("pallas")
     pts, scales, rot, opac, rgb = _t(*_inputs(5, n=64))
     q = torch.tensor([[1.0, 0, 0, 0]] * B)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         tgs.gsplat_project(tcfg.replace(pallas_acc_dtype="bfloat16"), pts, q,
                            scales, rot, opac, rgb)
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -165,13 +165,18 @@ def test_same_pads_match_flax(size):
 
 
 def test_registry_and_unported_heads():
+    """Every network dpcx registers, the pose head included; an unknown
+    name raises; a predicted-pose model builds its pose head (once
+    refused)."""
     assert net_factory.get_network("img_encoder").__name__ == "ImageEncoder"
     assert net_factory.get_network("pc_decoder").__name__ == \
         "PointCloudDecoder"
-    with pytest.raises(KeyError, match="pose_head"):
-        net_factory.get_network("pose_head")
-    with pytest.raises(NotImplementedError, match="pose"):
-        ModelPointCloud(_t(_cfg(predict_pose=True)))
+    assert net_factory.get_network("pose_head").__name__ == "PoseHead"
+    with pytest.raises(KeyError, match="pose_heads"):
+        net_factory.get_network("pose_heads")
+    model = ModelPointCloud(_t(_cfg(predict_pose=True)))
+    assert model.pose_head is not None
+    assert ModelPointCloud(_t(_cfg())).pose_head is None
 
 
 @pytest.mark.parametrize("heads", [{"pc_rgb": True}, {"pc_gauss": True},

@@ -235,12 +235,14 @@ def test_fused_function_wiring(with_depth, weights, use_sil, use_depth, rng,
         return fused.fused_project_reference(ndc, D, sigma.detach(), radius,
                                              w, with_depth)
 
-    def launch_forward(coords, w, taps, radius_, vox, wd):
+    def launch_forward(coords, w, taps, radius_, vox, wd, bf16):
+        assert not bf16
         sil, depth = plain(coords, w)
         return sil, depth, torch.zeros(1)
 
     def launch_backward(coords, w, taps, radius_, grid, dsil, ddepth, vox,
-                        wd, want_w):
+                        wd, want_w, bf16):
+        assert not bf16
         seen["ddepth"] = ddepth
         with torch.enable_grad():
             c = coords.detach().requires_grad_()
@@ -321,8 +323,15 @@ def test_fused_wrapper_refuses(rng):
     ndc_t = torch.from_numpy(rng.uniform(-0.4, 0.4, (2, 3, 64))
                              .astype(np.float32))
     sigma = torch.tensor(0.8)
-    with pytest.raises(NotImplementedError, match="float32"):
-        fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="bfloat16")
+    # the bfloat16 mode runs at D <= 64 (K1/K2's) and is refused above,
+    # where it would be K3-K5's; other operand types are refused
+    sil_b, _ = fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="bfloat16")
+    sil_f, _ = fused.fused_project_t(ndc_t, D, sigma, 2)
+    assert 0 < (sil_b - sil_f).abs().max() < 1e-2
+    with pytest.raises(NotImplementedError, match="item 11"):
+        fused.fused_project_t(ndc_t, 72, sigma, 2, acc_dtype="bfloat16")
+    with pytest.raises(ValueError, match="acc_dtype"):
+        fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="float16")
     # a gradient asked for on a CPU tensor: autograd through the plain
     # version, as fused_project_reference gives it
     x = ndc_t.clone().requires_grad_()

@@ -158,9 +158,14 @@ def test_compute_loss_refuses_unported(tiny_yaml):
               for s in (1, 1, 2)]
     assert all(torch.isfinite(t) for t in totals)
     assert totals[0] == totals[1]
-    with pytest.raises(NotImplementedError, match="predicted-pose"):
-        compute_loss(cfg.replace(predict_pose=True), preds, batch, 0,
-                     train=False)
+    # predicted pose, once refused: the candidates' renders and the winner
+    K = 3
+    pp = cfg.replace(predict_pose=True, pose_predict_num_candidates=K)
+    quats = torch.tensor([1.0, 0, 0, 0]).repeat(2, K, 1)
+    total, m = compute_loss(pp, {**preds, "quats": quats},
+                            {**batch, "quat_in": batch["quats"][:, 0]}, 0,
+                            train=False)
+    assert torch.isfinite(total) and m["cand_spread"].item() == 0.0
     # dropout off: train=True is the same forward
     total, _ = compute_loss(cfg.replace(pc_point_dropout=1.0), preds, batch,
                             0, train=True)

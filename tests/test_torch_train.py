@@ -185,7 +185,8 @@ def test_train_steps_match_dpcx(dropout, rng, monkeypatch):
     _assert_params_equal(state, jstate, atol=0)
     for b in batches[1:]:
         jstate, m_j = j_train_step(cfg, jstate, _prep_batch(b, cfg), key)
-        m_t = ttrain.train_step(_t(cfg), state, ttrain._prep_batch(b, "cpu"),
+        m_t = ttrain.train_step(_t(cfg), state,
+                                ttrain._prep_batch(b, "cpu", cfg),
                                 torch.Generator())
         assert state.step == int(jstate.step)
         for k in ("loss_total", "grad_norm"):
@@ -218,7 +219,7 @@ def test_rgb_splats_train_step_matches_dpcx(rng, monkeypatch):
     jstate, _ = j_train_step(cfg, jstate, _prep_batch(batches[0], cfg), key)
     state = _carried_state(cfg, jstate)
     jstate, m_j = j_train_step(cfg, jstate, _prep_batch(batches[1], cfg), key)
-    tbatch = ttrain._prep_batch(batches[1], "cpu", cfg.pc_rgb)
+    tbatch = ttrain._prep_batch(batches[1], "cpu", cfg)
     assert "images_tgt" in tbatch
     m_t = ttrain.train_step(_t(cfg), state, tbatch, torch.Generator())
     assert "loss_rgb" in m_t
@@ -256,6 +257,45 @@ def test_train_step_takes_the_density_fn_it_is_handed(rng):
         assert torch.equal(m_a[k], m_b[k]), k
     for k in p_a:
         assert torch.equal(p_a[k], p_b[k]), k
+
+
+@pytest.mark.parametrize("predict_pose", [False, True])
+def test_train_step_takes_the_project_fn_it_is_handed(predict_pose, rng):
+    """train_step's project_fn reaches the fused renderer in both loss
+    branches: a step through a recording wrapper of fused_project_t calls
+    it once, with B x (K x) V renders, and equals the step through the
+    default; one through fused_project_plain (K2's backward written out)
+    agrees with both."""
+    cfg = _t(SMALL).replace(renderer="pallas", pc_point_dropout=1.0,
+                            predict_pose=predict_pose,
+                            pose_predict_num_candidates=2)
+    batch = ttrain.batch_at(cfg, Dataset(_records(rng, cfg), cfg), 0, "cpu")
+    calls = []
+
+    def spy(ndc_t, *a, **k):
+        calls.append(ndc_t.shape[0])
+        return fused.fused_project_t(ndc_t, *a, **k)
+
+    def plain(ndc_t, vox, sigma, radius, point_weights=None,
+              with_depth=False, acc_dtype="float32", save_grid=True):
+        return fused.fused_project_plain(ndc_t, vox, sigma, radius,
+                                         point_weights, with_depth, acc_dtype)
+
+    runs = []
+    for fn in (None, spy, plain):
+        state = ttrain.create_state(cfg, "cpu",
+                                    torch.Generator().manual_seed(0))
+        m = ttrain.train_step(cfg, state, batch, None, project_fn=fn)
+        runs.append((m, state.model.state_dict()))
+    K = cfg.pose_predict_num_candidates if predict_pose else 1
+    assert calls == [cfg.batch_size * K * cfg.views_per_step]
+    (m_a, p_a), (m_b, p_b), (m_c, p_c) = runs
+    for k in ("loss_total", "grad_norm"):
+        assert torch.equal(m_a[k], m_b[k]), k
+        torch.testing.assert_close(m_c[k], m_a[k], rtol=1e-5, atol=1e-6)
+    for k in p_a:
+        assert torch.equal(p_a[k], p_b[k]), k
+        torch.testing.assert_close(p_c[k], p_a[k], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("pc_rgb", [True, False])
@@ -360,16 +400,35 @@ def test_checkpoints_refuse_orbax_and_changed_semantics(tmp_path, rng):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"predict_pose": True}, "item 4"),
     ({"eval_every": 10}, "item 3"),
     ({"device_records_models": 4}, "item 10"),
-    ({"gauge_reseed_threshold_deg": 5.0}, "item 4"),  # remat is ported
     ({"profile_dir": "prof"}, "item 8"),
     ({"shard_points": True}, "item 9"),
 ])
 def test_train_refuses_unported(overrides, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.train(_tiny_cfg(tmp_path).replace(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [
+    {"predict_pose": True},
+    {"predict_pose": True, "pose_from_views": True,
+     "gauge_reseed_threshold_deg": 5.0, "gauge_reseed_check_step": 2},
+])
+def test_train_runs_predicted_pose(overrides, tmp_path, rng):
+    """Predicted pose and the gauge reseed, once refused, now train: the
+    input-view candidates (q_rel * q_k) and, with pose_from_views, per-view
+    candidates whose untrained gauge spread fires the reseed at step 2 of
+    every attempt, gauge_reseed_max_retries (3) times."""
+    cfg = _tiny_cfg(tmp_path).replace(**overrides)
+    ds = Dataset(_records(rng, cfg), cfg)
+    _, hist = ttrain.train(cfg, dataset=ds, max_steps=3, device="cpu")
+    assert hist[-1]["step"] == 3 and np.isfinite(hist[-1]["loss_total"])
+    assert "cand_spread" in hist[-1]
+    fired = [h for h in hist if "gauge_reseed" in h]
+    assert len(fired) == (cfg.gauge_reseed_max_retries
+                          if cfg.gauge_reseed_threshold_deg else 0)
+    assert ("gauge_spread_deg" in hist[-1]) == cfg.pose_from_views
 
 
 def test_cli_datagen_train_serve(tmp_path, monkeypatch, capsys):
