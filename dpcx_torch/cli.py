@@ -18,20 +18,17 @@ import json
 import sys
 
 
-def _load_cfg(args):
+def _load_cfg(args, validate: bool = True):
     from dpcx_torch.config import load_config
 
     cfg = load_config(args.config) if args.config else load_config()
-    if cfg.shard_points:
-        raise SystemExit("shard_points (point-sharded rendering) is not "
-                         "ported yet")
-    return cfg.validate()
+    return cfg.validate() if validate else cfg
 
 
 def cmd_train(args) -> None:
     from dpcx_torch.train import train
 
-    cfg = _load_cfg(args)
+    cfg = _load_cfg(args, validate=False)  # train() validates
     if args.steps:
         cfg = cfg.replace(max_number_of_steps=args.steps)
     _, history = train(cfg, num_models=args.num_models, device=args.device)

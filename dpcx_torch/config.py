@@ -4,10 +4,9 @@
 The port reads the same ``experiments/*.yaml`` as dpcx, so ``Config`` has
 the same fields, types and defaults, and ``validate()`` the same checks and
 messages (``tests/test_torch_config.py`` pins the copy to dpcx's). The copy
-exists so that this package imports nothing of dpcx. One difference:
-dpcx's ``validate()`` warns, through jax, that ``shard_points`` on one
-device is a no-op; here that warning is dropped, because the port's entry
-points refuse ``shard_points`` before they validate.
+exists so that this package imports nothing of dpcx. Where dpcx counts
+jax devices (the ``shard_points`` warning), the port counts the processes
+of the ``torch.distributed`` group, one card each (``world_size``).
 """
 
 from __future__ import annotations
@@ -323,7 +322,25 @@ class Config:
             raise ValueError(
                 "invalid config:\n  - " + "\n  - ".join(errs)
             )
+        if self.shard_points and world_size() == 1:
+            import warnings
+
+            warnings.warn(
+                "shard_points on a single device is a no-op (the "
+                "point axis has nothing to shard over)",
+                stacklevel=2,
+            )
         return self
+
+
+def world_size() -> int:
+    """The processes of the default ``torch.distributed`` group (1 without
+    one): the port's device count, one card per process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 _TUPLE_FIELDS = {

@@ -72,23 +72,33 @@
 //       there).
 // (d) and (f) are bound by bytes like (c) and the forward splat.
 //
-// Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16", D <= 64
-// only). Each kernel is a template on kBf16. The Pallas kernels cast their
-// matmul operands to bfloat16 and accumulate in f32; here every value they
-// type bfloat16 is rounded to nearest-even (__float2bfloat16_rn) where they
-// round it, products of two rounded values are exact in f32, and every sum
-// stays f32, as does the grid in device memory (dpcx's f32 scratch):
-//   taps        rounded (kmat, kronA, kronB are cast);
+// Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16"). The Pallas
+// kernels cast their matmul operands to bfloat16 and accumulate in f32;
+// here every value they type bfloat16 is rounded to nearest-even
+// (__float2bfloat16_rn) where they round it, products of two rounded values
+// are exact in f32, and every sum stays f32, as does the grid in device
+// memory (dpcx's f32 scratch). The rounding points are K1/K2's at D <= 64
+// and K3-K5's above (Mode below):
+//   taps        rounded (kmat, kronA, kronB, kronz, kronzT are cast);
 //   splat       a corner adds f32(rnd(rnd(h_z pw) rnd(h_y))) rnd(h_x), with
-//               dpcx's hats relu(1 - |g - c|);
-//   blur        y, then x, then z (kronA @ x, then @ kmat, then kronB @ x),
-//               each pass's input rounded: blur_yx_kernel<true> blurs y
-//               first (the f32 mode keeps x first: there the order does not
-//               change the result);
-//   DRC         f32; zblur_drc_kernel rounds each tap input;
-//   backward    the DRC cotangent in f32 (the suffix form), rounded before
-//               the z transpose, then blur_yx_kernel<true> (y, x, inputs
-//               rounded); splat_bwd_kernel<true> rounds dG, h_y, h_x and
+//               dpcx's hats relu(1 - |g - c|) (both);
+//   blur        each pass's input rounded. K1: y, then x, then z
+//               (blur_yx_kernel<true, true> blurs y first, zblur_drc_kernel
+//               rounds each tap input). K3: z, then x, then y (zblur_kernel
+//               first, in place, then blur_yx_kernel<true, false>), and the
+//               DRC walk reads the fully blurred grid. The f32 mode keeps x,
+//               y, z: there the order does not change the result;
+//   DRC         f32;
+//   backward    the DRC cotangent in f32 (the suffix form). K2: rounded
+//               before the z transpose, then y, x (inputs rounded), then dG
+//               rounded. K5: x, then y (inputs rounded), then the banded z
+//               transpose of each z-block of dpcx's Dz rows
+//               (zblock_transpose_kernel): the block's partial sums are
+//               rounded, and a row in the halo of several blocks sums their
+//               rounded partials in f32, which is dG (read unrounded), as
+//               _blocked_bwd_kernel writes each block's transpose into its
+//               own scratch and rounds what its splat backward reads. Then
+//               splat_bwd_kernel<true> rounds h_y, h_x and
 //               a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)) (not the forward's
 //               rnd(h_z pw)); h_z, dh_z and pw enter unrounded.
 // Bound: as the f32 mode (CUDA cores; the tensor cores are later work).
@@ -108,7 +118,25 @@ constexpr int kMaxTaps = 2 * (kMaxVox - 1) + 1;  // radius <= D - 1
 constexpr int kThreads = 256;
 constexpr int kWideThreads = 1024;  // blur_yx at D > 64: one block per SM
 constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kBf16MaxVox = 64;  // the bf16 mode is K1/K2's: D <= 64
+constexpr int kFusedMaxVox = 64;  // above: dpcx's depth-blocked K3-K5
+
+// The operand mode: f32; the bf16 mode of K1/K2 (D <= 64); the bf16 mode of
+// K3-K5 (D > 64), whose rounding points differ (the header).
+enum class Mode { kF32, kBf16, kBf16Blocked };
+
+Mode mode_of(int bf16, int d) {
+  return !bf16 ? Mode::kF32 : d > kFusedMaxVox ? Mode::kBf16Blocked
+                                               : Mode::kBf16;
+}
+
+// dpcx's z-block (blocked_params): the largest of 32, 16, 8 dividing D, or
+// 0 where none does (the blocked kernels refuse that D)
+int z_block(int d) {
+  for (int b = 32; b >= 8; b /= 2) {
+    if (d % b == 0) return b;
+  }
+  return 0;
+}
 
 // round to the nearest bfloat16 (ties to even), back to f32
 __device__ __forceinline__ float rnd(float v) {
@@ -178,10 +206,11 @@ __global__ void splat_kernel(const float* __restrict__ coords,
 }
 
 // (b) one block per (render, z): blur the slab along two axes, in place.
-// out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid. The
-// f32 mode blurs x, then y; the bf16 mode y, then x (dpcx's kronA @ x, then
-// @ kmat), with each pass's input and the taps rounded.
-template <bool kBf16>
+// out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid. kYFirst
+// blurs y, then x (K1's bf16 mode: dpcx's kronA @ x, then @ kmat); else x,
+// then y (the f32 mode, and K3's bf16 mode: _blur_yx_interior). bf16 rounds
+// each pass's input and the taps.
+template <bool kBf16, bool kYFirst>
 __global__ void __launch_bounds__(kWideThreads)
     blur_yx_kernel(float* __restrict__ grid, const float* __restrict__ taps,
                    int radius, int d) {
@@ -191,8 +220,8 @@ __global__ void __launch_bounds__(kWideThreads)
   float* k = b + d * d;     // [2R + 1] taps
   const int ntaps = 2 * radius + 1;
   const int dd = d * d;
-  // the first pass runs along x (stride 1) in f32, along y (stride D) in bf16
-  const int s1 = kBf16 ? d : 1, s2 = kBf16 ? 1 : d;
+  // the first pass runs along y (stride D) or x (stride 1)
+  const int s1 = kYFirst ? d : 1, s2 = kYFirst ? 1 : d;
   float* slab = grid + static_cast<int64_t>(blockIdx.x) * dd;
   for (int i = threadIdx.x; i < ntaps; i += blockDim.x) {
     k[i] = operand<kBf16>(taps[i]);
@@ -203,7 +232,7 @@ __global__ void __launch_bounds__(kWideThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < dd; i += blockDim.x) {
     const int y = i / d, x = i - y * d;
-    const int c = kBf16 ? y : x;
+    const int c = kYFirst ? y : x;
     const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
     float s = 0.f;
     for (int t = lo; t <= hi; ++t) s += a[i + t * s1] * k[t + radius];
@@ -212,7 +241,7 @@ __global__ void __launch_bounds__(kWideThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < dd; i += blockDim.x) {
     const int y = i / d, x = i - y * d;
-    const int c = kBf16 ? x : y;
+    const int c = kYFirst ? x : y;
     const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
     float s = 0.f;
     for (int t = lo; t <= hi; ++t) s += b[i + t * s2] * k[t + radius];
@@ -220,17 +249,46 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-// (c) one thread per ray (render, y, x): z-blur on the fly (bf16: each tap
-// input rounded), then DRC in f32.
-template <bool kBf16>
+// K3's bf16 mode: one thread per ray (render, y, x) blurs its column along z
+// first, in place: the column, each value rounded, goes to a per-thread
+// array (512 B at D 128, local memory), and the blurred column back.
+__global__ void zblur_kernel(float* __restrict__ grid,
+                             const float* __restrict__ taps, int radius,
+                             int renders, int d) {
+  __shared__ float k[kMaxTaps];
+  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
+    k[i] = rnd(taps[i]);
+  }
+  __syncthreads();
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (ray >= renders * dd) return;
+  const int64_t r = ray / dd;
+  float* col = grid + r * dd * d + (ray - r * dd);
+  float c[kMaxVox];
+  for (int z = 0; z < d; ++z) c[z] = rnd(col[z * dd]);
+  for (int z = 0; z < d; ++z) {
+    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
+    float s = 0.f;
+    for (int t = lo; t <= hi; ++t) s += c[z + t] * k[t + radius];
+    col[z * dd] = s;
+  }
+}
+
+// (c) one thread per ray (render, y, x): z-blur on the fly (kZBlur; bf16:
+// each tap input rounded), then DRC in f32. Without kZBlur the grid is the
+// fully blurred one (K3's bf16 mode) and the taps are not read.
+template <bool kBf16, bool kZBlur>
 __global__ void zblur_drc_kernel(const float* __restrict__ grid,
                                  const float* __restrict__ taps, int radius,
                                  float* __restrict__ sil,
                                  float* __restrict__ depth, int renders,
                                  int d, int with_depth) {
   __shared__ float k[kMaxTaps];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-    k[i] = operand<kBf16>(taps[i]);
+  if constexpr (kZBlur) {
+    for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
+      k[i] = operand<kBf16>(taps[i]);
+    }
   }
   __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
@@ -241,10 +299,14 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   const float fd = static_cast<float>(d);
   float trans = 1.f, s = 0.f, dep = 0.f;
   for (int z = 0; z < d; ++z) {
-    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
     float o = 0.f;
-    for (int t = lo; t <= hi; ++t) {
-      o += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
+    if constexpr (kZBlur) {
+      const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
+      for (int t = lo; t <= hi; ++t) {
+        o += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
+      }
+    } else {
+      o = col[z * dd];
     }
     o = fminf(fmaxf(o, 0.f), 1.f - 1e-5f);
     const float p = o * trans;
@@ -314,15 +376,85 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
   }
 }
 
+// (d) in K5's bf16 mode: the grid is the fully blurred one, so one thread per
+// ray runs the DRC backward alone, into dgrid: the walk up stores T_z in
+// dgrid's column, the walk down (the suffix form, f32) replaces it by dL/do
+// (zero where the forward clipped). No per-thread array.
+__global__ void drc_bwd_kernel(const float* __restrict__ grid,
+                               const float* __restrict__ dsil,
+                               const float* __restrict__ ddepth,
+                               float* __restrict__ dgrid, int renders, int d,
+                               int with_depth) {
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (ray >= renders * dd) return;
+  const int64_t r = ray / dd;
+  const int64_t off = r * dd * d + (ray - r * dd);
+  const float* col = grid + off;
+  float* dcol = dgrid + off;
+  const float fd = static_cast<float>(d);
+  constexpr float kTop = 1.f - 1e-5f;
+  float trans = 1.f;
+  for (int z = 0; z < d; ++z) {
+    dcol[z * dd] = trans;
+    trans *= 1.f - fminf(fmaxf(col[z * dd], 0.f), kTop);
+  }
+  const float gs = dsil[ray];
+  const float gd = (with_depth && ddepth != nullptr) ? ddepth[ray] : 0.f;
+  float suffix = gd * 1.f;  // background depth 1.0 past the volume
+  for (int z = d - 1; z >= 0; --z) {
+    const float raw = col[z * dd];
+    const float oc = fminf(fmaxf(raw, 0.f), kTop);
+    const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
+    dcol[z * dd] = raw < kTop ? dcol[z * dd] * (phi - suffix) : 0.f;
+    suffix = oc * phi + (1.f - oc) * suffix;
+  }
+}
+
+// (e') K5's bf16 mode, after the y/x transpose: one thread per ray, the
+// banded z transpose per z-block of zb rows, in place. Block k (rows
+// [k zb, k zb + zb)) reaches raw rows [k zb - R, k zb + zb + R); row r takes,
+// from each block whose raw range holds it, rnd(sum over the block's rows i
+// of c_i tap(r - i)), with c the column rounded, and sums those in f32.
+__global__ void zblock_transpose_kernel(float* __restrict__ dgrid,
+                                        const float* __restrict__ taps,
+                                        int radius, int renders, int d,
+                                        int zb) {
+  __shared__ float k[kMaxTaps];
+  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
+    k[i] = rnd(taps[i]);
+  }
+  __syncthreads();
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (ray >= renders * dd) return;
+  const int64_t r = ray / dd;
+  float* col = dgrid + r * dd * d + (ray - r * dd);
+  float c[kMaxVox];
+  for (int z = 0; z < d; ++z) c[z] = rnd(col[z * dd]);
+  for (int z = 0; z < d; ++z) {
+    const int lo = max(z - radius, 0), hi = min(z + radius, d - 1);
+    float s = 0.f;
+    for (int b0 = lo / zb * zb; b0 <= hi; b0 += zb) {
+      const int i1 = min(hi, b0 + zb - 1);
+      float part = 0.f;
+      for (int i = max(lo, b0); i <= i1; ++i) part += c[i] * k[z - i + radius];
+      s += rnd(part);
+    }
+    col[z * dd] = s;
+  }
+}
+
 // (f) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
 // dweights is not null, dw into dweights [R, N]. Reduced as the Pallas
 // kernel does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
 // v = sum_x dG h_x, per x corner t1 = sum_zy dG a with a = (h_z pw) h_y;
 // then d z = pw sum dh_z P, d y = pw sum h_z Q, d x = sum dh_x t1 and
-// dw = sum h_z P. The bf16 mode rounds dG, h_y, h_x and a's operands
-// (rnd(rnd(h_z) rnd(pw)), not the forward's rnd(h_z pw)); h_z, dh_z, pw
+// dw = sum h_z P. The bf16 mode rounds h_y, h_x and a's operands
+// (rnd(rnd(h_z) rnd(pw)), not the forward's rnd(h_z pw)), and dG with
+// kRoundDg (K2's; K5's dG is a sum of rounded partials); h_z, dh_z, pw
 // enter the sums unrounded.
-template <bool kBf16>
+template <bool kBf16, bool kRoundDg>
 __global__ void splat_bwd_kernel(const float* __restrict__ coords,
                                  const float* __restrict__ weights,
                                  const float* __restrict__ dgrid,
@@ -369,7 +501,7 @@ __global__ void splat_bwd_kernel(const float* __restrict__ coords,
           const int64_t cell =
               (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
               static_cast<int64_t>(cx);
-          const float dg = operand<kBf16>(g[cell]);
+          const float dg = operand<kRoundDg>(g[cell]);
           v += dg * operand<kBf16>(hat(tx, dx));
           t1[dx] += dg * a;
         }
@@ -395,31 +527,39 @@ int64_t splat_blocks(int64_t points) {
 }
 
 bool bad_args(int renders, int n, int d, int radius, int bf16) {
-  return d < 1 || d > (bf16 ? kBf16MaxVox : kMaxVox) || radius < 0 ||
-         radius > d - 1 || renders < 0 || n < 0;
+  return d < 1 || d > kMaxVox || radius < 0 || radius > d - 1 ||
+         renders < 0 || n < 0 ||
+         (mode_of(bf16, d) == Mode::kBf16Blocked && z_block(d) == 0);
+}
+
+// one thread per ray (render, y, x)
+unsigned ray_blocks(int renders, int d) {
+  const int64_t rays = static_cast<int64_t>(renders) * d * d;
+  return static_cast<unsigned>((rays + kThreads - 1) / kThreads);
 }
 
 // (b) on every slab of grid [R, D, D, D], in place.
-template <bool kBf16>
+template <bool kBf16, bool kYFirst>
 cudaError_t launch_blur_yx(float* grid, const float* taps, int radius,
                            int renders, int d, cudaStream_t s) {
   const size_t smem =
       (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blur_yx_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        blur_yx_kernel<kBf16, kYFirst>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int threads = d > 64 ? kWideThreads : kThreads;
-  blur_yx_kernel<kBf16><<<static_cast<unsigned>(renders * d), threads, smem,
-                          s>>>(grid, taps, radius, d);
+  blur_yx_kernel<kBf16, kYFirst>
+      <<<static_cast<unsigned>(renders * d), threads, smem, s>>>(
+          grid, taps, radius, d);
   return cudaGetLastError();
 }
 
-// (a) + (b): the x/y-blurred grid of every render into the scratch grid.
-template <bool kBf16>
-cudaError_t launch_grid(const float* coords, const float* weights,
+// (a) + (b): the grid the DRC walk reads, into the scratch grid: x/y-blurred
+// (f32, K1's bf16), or fully blurred with the z pass first (K3's bf16).
+cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
   const size_t cells = static_cast<size_t>(renders) * d * d * d;
@@ -427,70 +567,117 @@ cudaError_t launch_grid(const float* coords, const float* weights,
   if (err != cudaSuccess) return err;
   const int64_t points = static_cast<int64_t>(renders) * n;
   if (points > 0) {
-    splat_kernel<kBf16><<<static_cast<unsigned>(splat_blocks(points)),
-                          kThreads, 0, s>>>(coords, weights, grid, renders,
-                                            n, d);
+    const unsigned blocks = static_cast<unsigned>(splat_blocks(points));
+    if (m == Mode::kF32) {
+      splat_kernel<false><<<blocks, kThreads, 0, s>>>(coords, weights, grid,
+                                                      renders, n, d);
+    } else {
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(coords, weights, grid,
+                                                     renders, n, d);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return launch_blur_yx<kBf16>(grid, taps, radius, renders, d, s);
+  switch (m) {
+    case Mode::kF32:
+      return launch_blur_yx<false, false>(grid, taps, radius, renders, d, s);
+    case Mode::kBf16:
+      return launch_blur_yx<true, true>(grid, taps, radius, renders, d, s);
+    case Mode::kBf16Blocked:
+      zblur_kernel<<<ray_blocks(renders, d), kThreads, 0, s>>>(
+          grid, taps, radius, renders, d);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      return launch_blur_yx<true, false>(grid, taps, radius, renders, d, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// (c): the z-blur and DRC of the x/y-blurred grid.
-template <bool kBf16>
-cudaError_t launch_drc(const float* grid, const float* taps, int radius,
-                       float* sil, float* depth, int renders, int d,
-                       int with_depth, cudaStream_t s) {
-  const int64_t rays = static_cast<int64_t>(renders) * d * d;
-  zblur_drc_kernel<kBf16><<<static_cast<unsigned>((rays + kThreads - 1) /
-                                                  kThreads),
-                            kThreads, 0, s>>>(grid, taps, radius, sil, depth,
-                                              renders, d, with_depth);
+// (c): the DRC (after the z-blur, where the grid is only x/y-blurred).
+cudaError_t launch_drc(Mode m, const float* grid, const float* taps,
+                       int radius, float* sil, float* depth, int renders,
+                       int d, int with_depth, cudaStream_t s) {
+  const unsigned blocks = ray_blocks(renders, d);
+  switch (m) {
+    case Mode::kF32:
+      zblur_drc_kernel<false, true><<<blocks, kThreads, 0, s>>>(
+          grid, taps, radius, sil, depth, renders, d, with_depth);
+      break;
+    case Mode::kBf16:
+      zblur_drc_kernel<true, true><<<blocks, kThreads, 0, s>>>(
+          grid, taps, radius, sil, depth, renders, d, with_depth);
+      break;
+    case Mode::kBf16Blocked:
+      zblur_drc_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+          grid, taps, radius, sil, depth, renders, d, with_depth);
+      break;
+  }
   return cudaGetLastError();
 }
 
-// (d) + (e) + (f) on the x/y-blurred grid.
-template <bool kBf16>
-cudaError_t launch_bwd_stages(const float* coords, const float* weights,
-                              const float* taps, int radius,
-                              const float* grid, const float* dsil,
-                              const float* ddepth, float* dgrid,
-                              float* dcoords, float* dweights, int renders,
-                              int n, int d, int with_depth, cudaStream_t s) {
-  const int64_t rays = static_cast<int64_t>(renders) * d * d;
-  const unsigned blocks = static_cast<unsigned>((rays + kThreads - 1) /
-                                                kThreads);
-  if (d <= 64) {
-    zblur_drc_bwd_kernel<64, kBf16><<<blocks, kThreads, 0, s>>>(
-        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
-  } else if constexpr (!kBf16) {
+// (d) + (e) + (f) on the grid launch_grid makes.
+cudaError_t launch_bwd_stages(Mode m, const float* coords,
+                              const float* weights, const float* taps,
+                              int radius, const float* grid,
+                              const float* dsil, const float* ddepth,
+                              float* dgrid, float* dcoords, float* dweights,
+                              int renders, int n, int d, int with_depth,
+                              cudaStream_t s) {
+  const unsigned blocks = ray_blocks(renders, d);
+  const unsigned point_blocks = static_cast<unsigned>(
+      splat_blocks(static_cast<int64_t>(renders) * n));
+  cudaError_t err;
+  if (m == Mode::kBf16Blocked) {
+    drc_bwd_kernel<<<blocks, kThreads, 0, s>>>(grid, dsil, ddepth, dgrid,
+                                               renders, d, with_depth);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = launch_blur_yx<true, false>(dgrid, taps, radius, renders, d, s);
+    if (err != cudaSuccess) return err;
+    zblock_transpose_kernel<<<blocks, kThreads, 0, s>>>(
+        dgrid, taps, radius, renders, d, z_block(d));
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n == 0) return err;
+    splat_bwd_kernel<true, false><<<point_blocks, kThreads, 0, s>>>(
+        coords, weights, dgrid, dcoords, dweights, renders, n, d);
+    return cudaGetLastError();
+  }
+  const bool bf16 = m == Mode::kBf16;
+  if (d <= kFusedMaxVox) {
+    if (bf16) {
+      zblur_drc_bwd_kernel<kFusedMaxVox, true><<<blocks, kThreads, 0, s>>>(
+          grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+    } else {
+      zblur_drc_bwd_kernel<kFusedMaxVox, false><<<blocks, kThreads, 0, s>>>(
+          grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+    }
+  } else {
     zblur_drc_bwd_kernel<kMaxVox, false><<<blocks, kThreads, 0, s>>>(
         grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
-  } else {
-    return cudaErrorInvalidValue;  // bad_args refuses bf16 above D 64
   }
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-
-  err = launch_blur_yx<kBf16>(dgrid, taps, radius, renders, d, s);
-  if (err != cudaSuccess) return err;
-
-  const int64_t points = static_cast<int64_t>(renders) * n;
-  if (points > 0) {
-    splat_bwd_kernel<kBf16><<<static_cast<unsigned>(splat_blocks(points)),
-                              kThreads, 0, s>>>(coords, weights, dgrid,
-                                                dcoords, dweights, renders, n,
-                                                d);
+  err = bf16 ? launch_blur_yx<true, true>(dgrid, taps, radius, renders, d, s)
+             : launch_blur_yx<false, false>(dgrid, taps, radius, renders, d,
+                                            s);
+  if (err != cudaSuccess || n == 0) return err;
+  if (bf16) {
+    splat_bwd_kernel<true, true><<<point_blocks, kThreads, 0, s>>>(
+        coords, weights, dgrid, dcoords, dweights, renders, n, d);
+  } else {
+    splat_bwd_kernel<false, false><<<point_blocks, kThreads, 0, s>>>(
+        coords, weights, dgrid, dcoords, dweights, renders, n, d);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Forward. grid: scratch [R, D, D, D] f32 that holds the x/y-blurred grid
-// afterwards; sil, depth: [R, D, D] f32 (depth may be null when with_depth
-// is 0); bf16: the operand mode (1: bfloat16, D <= 64). Returns a
-// cudaError_t as int.
+// Forward. grid: scratch [R, D, D, D] f32 that holds the grid the DRC walk
+// read afterwards (x/y-blurred; fully blurred in K3's bf16 mode); sil,
+// depth: [R, D, D] f32 (depth may be null when with_depth is 0); bf16: the
+// operand mode (1: bfloat16; above D 64, D % 8 == 0). Returns a cudaError_t
+// as int.
 extern "C" int dpcx_fused_render(const float* coords, const float* weights,
                                  const float* taps, int radius, float* grid,
                                  float* sil, float* depth, int renders, int n,
@@ -502,21 +689,16 @@ extern "C" int dpcx_fused_render(const float* coords, const float* weights,
   }
   if (renders == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Mode m = mode_of(bf16, d);
   cudaError_t err =
-      bf16 ? launch_grid<true>(coords, weights, taps, radius, grid, renders,
-                               n, d, s)
-           : launch_grid<false>(coords, weights, taps, radius, grid, renders,
-                                n, d, s);
+      launch_grid(m, coords, weights, taps, radius, grid, renders, n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = bf16 ? launch_drc<true>(grid, taps, radius, sil, depth, renders, d,
-                                with_depth, s)
-             : launch_drc<false>(grid, taps, radius, sil, depth, renders, d,
-                                 with_depth, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_drc(m, grid, taps, radius, sil, depth,
+                                     renders, d, with_depth, s));
 }
 
-// Backward, saved-grid mode. grid: the forward's x/y-blurred grid
-// [R, D, D, D] (read only); dgrid: scratch [R, D, D, D]; dsil [R, D, D];
+// Backward, saved-grid mode. grid: the forward's grid [R, D, D, D] (read
+// only); dgrid: scratch [R, D, D, D]; dsil [R, D, D];
 // ddepth [R, D, D] or null (zero); dcoords out [R, 3, N] (z, y, x);
 // dweights out [R, N] or null (not wanted). weights null means every point
 // weighs 1; bf16 as the forward's. Returns a cudaError_t as int.
@@ -531,19 +713,15 @@ extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      bf16 ? launch_bwd_stages<true>(coords, weights, taps, radius, grid,
-                                     dsil, ddepth, dgrid, dcoords, dweights,
-                                     renders, n, d, with_depth, s)
-           : launch_bwd_stages<false>(coords, weights, taps, radius, grid,
-                                      dsil, ddepth, dgrid, dcoords, dweights,
-                                      renders, n, d, with_depth, s));
+  return static_cast<int>(launch_bwd_stages(
+      mode_of(bf16, d), coords, weights, taps, radius, grid, dsil, ddepth,
+      dgrid, dcoords, dweights, renders, n, d, with_depth,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Backward, recompute mode: as dpcx_fused_render_bwd, but grid is scratch
-// [R, D, D, D] that is first re-splatted and re-blurred (y/x) from coords,
-// weights and taps, as the forward made it.
+// [R, D, D, D] that is first re-splatted and re-blurred from coords, weights
+// and taps, as the forward made it.
 extern "C" int dpcx_fused_render_bwd_recompute(
     const float* coords, const float* weights, const float* taps, int radius,
     float* grid, const float* dsil, const float* ddepth, float* dgrid,
@@ -553,12 +731,9 @@ extern "C" int dpcx_fused_render_bwd_recompute(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (renders == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? launch_grid<true>(coords, weights, taps, radius, grid, renders,
-                               n, d, s)
-           : launch_grid<false>(coords, weights, taps, radius, grid, renders,
-                                n, d, s);
+  const cudaError_t err =
+      launch_grid(mode_of(bf16, d), coords, weights, taps, radius, grid,
+                  renders, n, d, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return dpcx_fused_render_bwd(coords, weights, taps, radius, grid, dsil,
                                ddepth, dgrid, dcoords, dweights, renders, n,

@@ -1,6 +1,6 @@
 """Pose metrics (port of ``gauge_spread_deg`` from
 ``dpcx/eval/pose_metrics.py``; the rest of that module is eval's, ROADMAP
-queue 1 item 3)."""
+queue 1 item 1)."""
 
 from __future__ import annotations
 

@@ -240,7 +240,7 @@ def aniso_density(
         raise NotImplementedError(
             f"acc_dtype={acc_dtype!r}: only the float32 mode of the "
             "anisotropic splat kernels is ported (the bfloat16 mode of "
-            "K6/K7 is ROADMAP queue 1 item 11)"
+            "K6/K7 is ROADMAP queue 2)"
         )
     if not 1 <= vox <= MAX_ANISO_VOX:
         raise ValueError(f"anisotropic splats cover 1 <= vox <= "

@@ -11,21 +11,27 @@ autograd differentiates that. Any other device raises. The plain version
 is also the yardstick the kernels are checked against on the card.
 
 ``save_grid`` mirrors ``pallas_project_t``'s: at D > 64 the forward keeps
-the x/y-blurred grid (8 MiB per render at 128^3) for the backward, or,
+its grid (8 MiB per render at 128^3) for the backward, or,
 when False (``cfg.remat``), keeps only coords, weights and taps, and the
 backward re-splats and re-blurs into fresh scratch first. At D <= 64 the
 grid is always kept, as ``save_grid`` has no effect there in dpcx.
 
-``acc_dtype`` "bfloat16" is K1/K2's bfloat16 operand mode, at D <= 64
-(the D > 64 mode, K3-K5's, is ROADMAP queue 1 item 11): every value the
-Pallas kernels type bfloat16 is rounded to nearest-even where they round
-it, sums stay f32. Its plain version is ``fused_project_reference(...,
-acc_dtype="bfloat16")`` forward and ``fused_backward_reference``
-backward, written out because autograd through the rounded forward would
-round other quantities than K2 does; CPU tensors take them through
-``fused_project_plain``. In float32 mode ``fused_backward_reference`` is
-K2's function too, hat derivative 0 at an exactly integer coordinate
-included, where autograd through the plain forward is floor-based.
+``acc_dtype`` "bfloat16" is the Pallas kernels' bfloat16 operand mode:
+every value they type bfloat16 is rounded to nearest-even where they round
+it, sums stay f32, and so does the grid in memory. The rounding points
+differ with D. At D <= 64 they are K1/K2's: the blur runs y, x, z, its
+transpose z, y, x, then dG is rounded. At D > 64 they are K3-K5's: the blur
+runs z, x, y, its transpose x, y, then the banded z transpose of each
+z-block of ``blocked_dz(D)`` rows, whose rounded partial sums add up to dG
+(so a row in the halo of several blocks is not the rounding of its full
+cotangent); the grid the forward saves is then the fully blurred one. Its
+plain version is ``fused_project_reference(..., acc_dtype="bfloat16")``
+forward and ``fused_backward_reference`` backward, written out because
+autograd through the rounded forward would round other quantities than the
+kernels do; CPU tensors take them through ``fused_project_plain``. In
+float32 mode ``fused_backward_reference`` is K2's function too, hat
+derivative 0 at an exactly integer coordinate included, where autograd
+through the plain forward is floor-based.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ ACC_DTYPES = ("float32", "bfloat16")
 
 # kernel launches by name; counted only where a launch happens. D <= 64
 # counts as fused_*, D > 64 as blocked_* (the K3-K5 counterparts); the
-# bfloat16 mode of K1/K2 as fused_render_bf16, fused_render_bwd_bf16
+# bfloat16 mode adds _bf16
 LAUNCHES: dict[str, int] = {
     "fused_render": 0,
     "fused_render_bwd": 0,
@@ -56,6 +62,9 @@ LAUNCHES: dict[str, int] = {
     "blocked_render": 0,
     "blocked_render_bwd": 0,
     "blocked_render_bwd_recompute": 0,
+    "blocked_render_bf16": 0,
+    "blocked_render_bwd_bf16": 0,
+    "blocked_render_bwd_recompute_bf16": 0,
 }
 
 
@@ -98,10 +107,10 @@ def _corner_index(lo, dz, dy, dx, vox):
     return cell, valid
 
 
-def _grid_yx(ndc_t, vox, sigma_vox, radius, point_weights, rnd=_rnd):
-    """The splat and the y, then x blur, each input and the taps rounded by
-    ``rnd`` (``_rnd``: bfloat16 mode; ``_keep``: float32) -> (the
-    x/y-blurred grid [R, D, D, D] f32, the blur matrix K as rounded)."""
+def _splat(ndc_t, vox, point_weights, rnd):
+    """The trilinear splat [R, D, D, D] f32: a corner adds a h_x with a =
+    rnd(rnd(h_z pw) rnd(h_y)), each h_x rounded too (``rnd``: ``_rnd``
+    in bfloat16 mode, ``_keep`` in float32), summed in f32."""
     R, _, N = ndc_t.shape
     lo, hats, _ = _corners(ndc_t, vox)
     pw = (torch.ones(R, N, dtype=ndc_t.dtype, device=ndc_t.device)
@@ -115,15 +124,63 @@ def _grid_yx(ndc_t, vox, sigma_vox, radius, point_weights, rnd=_rnd):
                 cell, valid = _corner_index(lo, dz, dy, dx, vox)
                 w = torch.where(valid, a * rnd(hats[dx][:, 2]), 0.0)
                 grid.scatter_add_(1, cell, w)
-    grid = grid.reshape(R, vox, vox, vox)
+    return grid.reshape(R, vox, vox, vox)
+
+
+# one blur pass along an axis of [R, z, y, x] (K is symmetric)
+_PASS = {"z": "bzyx,zi->biyx", "y": "bzyx,yi->bzix", "x": "bzyx,xi->bzyi"}
+
+
+def _blur(grid, K, axes: str, rnd):
+    """Blur passes along ``axes`` in order, each pass's input rounded by
+    ``rnd``; the output of the last pass is not rounded."""
+    for axis in axes:
+        grid = torch.einsum(_PASS[axis], rnd(grid), K)
+    return grid
+
+
+def blocked_mode(vox: int, acc_dtype: str) -> bool:
+    """Whether the bfloat16 mode is K3-K5's (D > 64) rather than K1/K2's:
+    they round at other points (the module docstring)."""
+    return acc_dtype == "bfloat16" and vox > BLOCKED_VOX
+
+
+def blocked_dz(vox: int) -> int:
+    """The z-block of dpcx's depth-blocked kernels (``blocked_params``):
+    the largest of 32, 16, 8 that divides D. K5's bfloat16 mode rounds the
+    banded z transpose per z-block, so its function depends on it."""
+    for dz in (32, 16, 8):
+        if vox % dz == 0:
+            return dz
+    raise ValueError(
+        f"the bfloat16 mode at vox_size {vox} > {BLOCKED_VOX} is the "
+        f"depth-blocked kernels', which need vox_size % 8 == 0")
+
+
+def _blurred(ndc_t, vox, sigma_vox, radius, point_weights, rnd, blocked):
+    """The splat and the three blur passes, rounded by ``rnd``: y, x, z as
+    K1 (``blocked`` False), or z, x, y as K3 (``blocked``) -> (the blurred
+    grid [R, D, D, D] f32, the blur matrix K as rounded)."""
     K = rnd(blur_matrix(sigma_vox, vox, radius).float())
-    grid = torch.einsum("bzyx,yi->bzix", rnd(grid), K)  # y
-    grid = torch.einsum("bzyx,xi->bzyi", rnd(grid), K)  # x
-    return grid, K
+    grid = _splat(ndc_t, vox, point_weights, rnd)
+    return _blur(grid, K, "zxy" if blocked else "yxz", rnd), K
 
 
-def _zblur(grid, K, rnd=_rnd):
-    return torch.einsum("bzyx,zi->biyx", rnd(grid), K)
+def _zblock_transpose(dg, K, dz, radius):
+    """K5's banded z transpose in bfloat16 mode: z-block k (rows [k dz,
+    k dz + dz)) spreads its rounded rows over its raw rows [k dz - R,
+    k dz + dz + R) with the rounded taps; each block's partial sums are
+    rounded, and a raw row in several blocks' ranges sums their rounded
+    partials in f32 (``_blocked_bwd_kernel`` writes each block's transpose
+    into its own scratch, and its splat backward rounds what it reads)."""
+    D = dg.shape[1]
+    x = _rnd(dg)
+    out = torch.zeros_like(dg)
+    for z0 in range(0, D, dz):
+        lo, hi = max(z0 - radius, 0), min(z0 + dz + radius, D)
+        out[:, lo:hi] += _rnd(torch.einsum(
+            "bzyx,zi->biyx", x[:, z0:z0 + dz], K[z0:z0 + dz, lo:hi]))
+    return out
 
 
 def fused_project_reference(
@@ -139,8 +196,10 @@ def fused_project_reference(
     + DRC. ndc_t [R, 3, N] (rows x, y, z_ndc) -> sil [R, D, D], depth.
 
     ``acc_dtype`` "bfloat16": the bfloat16 mode's forward, rounded where
-    dpcx's K1 rounds (the module docstring); differentiate it with
-    ``fused_backward_reference``, not autograd.
+    dpcx's K1 (``_fused_kernel``, D <= 64: splat, blur y, x, z) or K3
+    (``_blocked_fwd_kernel``, D > 64: splat, blur z, x, y) rounds (the
+    module docstring); differentiate it with ``fused_backward_reference``,
+    not autograd.
 
     Its forward is the kernels' function. Its gradient, by autograd through
     the floor-based trilinear weights, is that of dpcx's XLA scatter
@@ -150,9 +209,10 @@ def fused_project_reference(
     along that axis is one-sided (-v(c) + v(c + 1)) where the kernels give
     0."""
     if acc_dtype == "bfloat16":
-        grid, K = _grid_yx(ndc_t, vox_size, sigma_vox, kernel_radius,
-                           point_weights)
-        return drc_projection(_zblur(grid, K), with_depth=with_depth)
+        grid, _ = _blurred(ndc_t, vox_size, sigma_vox, kernel_radius,
+                           point_weights, _rnd,
+                           blocked_mode(vox_size, acc_dtype))
+        return drc_projection(grid, with_depth=with_depth)
     grid = pointcloud2voxels_scatter(
         ndc_t.transpose(1, 2), vox_size, point_weights=point_weights
     )
@@ -171,9 +231,9 @@ def fused_backward_reference(
     ddepth: torch.Tensor | None,
     acc_dtype: str = "float32",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: the cotangents dsil, ddepth [R, D, D] (ddepth
-    None: zero) -> (d ndc_t [R, 3, N], d weights [R, N]). Float32 mode
-    rounds nothing; bfloat16 mode rounds as below.
+    """Plain version of K2 (and of K4 + K5): the cotangents dsil, ddepth
+    [R, D, D] (ddepth None: zero) -> (d ndc_t [R, 3, N], d weights [R,
+    N]). Float32 mode rounds nothing; bfloat16 mode rounds as below.
 
     As ``_fused_bwd_kernel`` (``dpcx/render/pallas_kernel.py:254``): the
     grid as the forward makes it; the DRC cotangent in f32 by Total minus
@@ -182,13 +242,22 @@ def fused_backward_reference(
     z, then y, then x, each input rounded; the splat backward with dG, h_y,
     h_x rounded, a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)), v = sum_x dG h_x,
     P = sum_y v h_y, Q = sum_y v dh_y, t1 = sum_zy dG a, and h_z, dh_z, pw
-    unrounded."""
+    unrounded.
+
+    In bfloat16 mode at D > 64, as ``_blocked_total_kernel`` and
+    ``_blocked_bwd_kernel`` (``dpcx/render/pallas_blocked.py:376``,
+    ``:451``): the grid in K3's order (``fused_project_reference``); the
+    DRC cotangent as above; the blur transposes x, then y, each input
+    rounded; then the banded z transpose per z-block (``_zblock_transpose``:
+    each block's partial sums rounded, a raw row in several blocks' ranges
+    the f32 sum of their rounded partials, which is dG, read unrounded);
+    the splat backward rounds as K2's."""
     R, _, N = ndc_t.shape
     D = vox_size
     rnd = _rnd if acc_dtype == "bfloat16" else _keep
-    grid, K = _grid_yx(ndc_t, D, sigma_vox, kernel_radius, point_weights,
-                       rnd)
-    o_raw = _zblur(grid, K, rnd)
+    blocked = blocked_mode(D, acc_dtype)
+    o_raw, K = _blurred(ndc_t, D, sigma_vox, kernel_radius, point_weights,
+                        rnd, blocked)
     top = 1.0 - 1e-5
     o = o_raw.clamp(0.0, top)
     one_minus = 1.0 - o
@@ -209,11 +278,15 @@ def fused_backward_reference(
         after = after + (ddepth * (trans[:, -1] * one_minus[:, -1]))[:, None]
     do = trans * phi - after / one_minus
     do = torch.where(o_raw < top, do, 0.0)
-    # blur transposes: z, then y, then x (K is symmetric: each pass is its
-    # own transpose), each input rounded
-    dg = _zblur(do, K, rnd)
-    dg = torch.einsum("bzyx,yi->bzix", rnd(dg), K)
-    dg = rnd(torch.einsum("bzyx,xi->bzyi", rnd(dg), K)).reshape(R, -1)
+    # blur transposes (K is symmetric: each pass is its own transpose),
+    # each input rounded: K2's z, y, x, then dG rounded; or K5's x, y, then
+    # the z transpose per z-block, whose rounded partials sum to dG
+    if blocked:
+        dg = _zblock_transpose(_blur(do, K, "xy", rnd), K, blocked_dz(D),
+                               kernel_radius)
+    else:
+        dg = rnd(_blur(do, K, "zyx", rnd))
+    dg = dg.reshape(R, -1)
 
     lo, hats, dhats = _corners(ndc_t, D)
     pw = (torch.ones(R, N, dtype=ndc_t.dtype, device=ndc_t.device)
@@ -321,8 +394,9 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth,
                     bf16=False):
     """Forward (K1, or K3 at D > 64): coords [R, 3, N] (z, y, x grid
     units), weights [R, N] or None, taps [2 radius + 1] -> (sil, depth or
-    None, the x/y-blurred grid [R, D, D, D] that the backward may read).
-    ``bf16``: K1's bfloat16 operand mode (D <= 64)."""
+    None, the grid [R, D, D, D] that the backward may read: x/y-blurred,
+    or fully blurred in K3's bfloat16 mode). ``bf16``: the bfloat16
+    operand mode (K1's at D <= 64, K3's above)."""
     from dpcx_torch import _build
 
     R, _, N = coords.shape
@@ -349,7 +423,7 @@ def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
                      vox, with_depth, want_dweights, bf16=False):
     """Backward (K2, or K4 + K5 at D > 64): cotangents dsil [R, D, D] and
     ddepth (or None: zero) -> (d coords [R, 3, N], d weights [R, N] or
-    None). ``grid`` is the forward's x/y-blurred grid, or None: then the
+    None). ``grid`` is the forward's saved grid, or None: then the
     recompute launcher re-splats and re-blurs it into scratch first."""
     from dpcx_torch import _build
 
@@ -468,13 +542,9 @@ def fused_project_t(
         raise ValueError(f"acc_dtype must be one of {ACC_DTYPES}, "
                          f"got {acc_dtype!r}")
     bf16 = acc_dtype == "bfloat16"
-    if bf16 and vox_size > BLOCKED_VOX:
-        raise NotImplementedError(
-            f"acc_dtype='bfloat16' at vox_size {vox_size} > {BLOCKED_VOX}: "
-            "the bfloat16 mode of the depth-blocked kernels K3-K5 is not "
-            "ported yet (ROADMAP queue 1 item 11)"
-        )
     _check_inputs(ndc_t, vox_size, kernel_radius, point_weights)
+    if blocked_mode(vox_size, acc_dtype):
+        blocked_dz(vox_size)  # raises where dpcx's blocked kernels do
     if ndc_t.device.type == "cpu":
         if bf16:
             return fused_project_plain(ndc_t, vox_size, sigma_vox,

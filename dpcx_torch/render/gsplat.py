@@ -15,7 +15,7 @@ as in the reference.
 (every point on every cell, the quadratic form clamped at 0); "pallas" is
 the z-windowed function of dpcx's Pallas kernel, run by the CUDA kernels of
 ``render/aniso.py`` on CUDA tensors and by their plain version on CPU
-tensors. dpcx's "windowed" form is not ported (ROADMAP queue 1 item 6): its
+tensors. dpcx's "windowed" form is not ported (ROADMAP queue 1 item 2): its
 window truncation gives other numbers than either.
 """
 
@@ -207,7 +207,7 @@ def gsplat_project(
         )
     elif cfg.gsplat_impl == "windowed":
         raise NotImplementedError(
-            "gsplat_impl='windowed' is not ported (ROADMAP queue 1 item 6): "
+            "gsplat_impl='windowed' is not ported (ROADMAP queue 1 item 2): "
             "its window truncation gives other numbers than 'dense' or "
             "'pallas'"
         )

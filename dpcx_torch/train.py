@@ -26,10 +26,15 @@ step count and the clock. As in dpcx, the attempt count is not saved in
 checkpoints, a missing ``gauge_spread_deg`` reads as 0 (healthy), and the
 logged steps restart from 0 after a reseed.
 
-Not ported yet, and refused: periodic eval (ROADMAP queue 1 item 3),
-profiling (item 8), point sharding (item 9), block rotation (item 10: it
-rotates the records of dpcx's device-side batch stream, which this loop
-does not follow).
+Periodic eval needs an eval dataset, which ``train`` does not take yet
+(ROADMAP queue 1 item 1); without one dpcx evaluates nothing either, and
+``eval_every`` only sets the chunk of its device-side loop, which this loop
+does not have. ``shard_points`` on one process renders unsharded, as dpcx
+on one device (``Config.validate`` warns). Not ported yet, and refused:
+profiling (item 2), point sharding over more than one process (item 5),
+and block rotation where dpcx would rotate, ``device_data`` with ``0 <
+device_records_models < num_models`` (item 4: it rotates the records of
+dpcx's device-side batch stream, which this loop does not follow).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from dpcx_torch.config import Config
+from dpcx_torch.config import Config, world_size
 from dpcx_torch.data.dataset import Dataset, load_or_make
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.models.model_pc import ModelPointCloud
@@ -351,12 +356,16 @@ def restore_checkpoint(cfg: Config, state: TrainState) -> TrainState:
     return state
 
 
-def _refuse_unported(cfg: Config) -> None:
+def _refuse_unported(cfg: Config, num_models: int) -> None:
+    """Raise for what ``train`` does not port yet on a dataset of
+    ``num_models``."""
     refusals = [
-        (cfg.eval_every > 0, "periodic eval (eval_every > 0)", 3),
-        (cfg.device_records_models > 0, "device_records_models > 0", 10),
-        (bool(cfg.profile_dir), "profile_dir", 8),
-        (cfg.shard_points, "shard_points", 9),
+        (bool(cfg.profile_dir), "profile_dir", 2),
+        (cfg.shard_points and world_size() > 1,
+         "shard_points over more than one process", 5),
+        (cfg.device_data and 0 < cfg.device_records_models < num_models,
+         "block rotation (device_data with 0 < device_records_models < "
+         "num_models)", 4),
     ]
     for hit, what, item in refusals:
         if hit:
@@ -375,15 +384,15 @@ def train(
 ) -> tuple[TrainState, list[dict]]:
     """Full training entry on one ``device``; returns the state and the
     logged metric records."""
-    _refuse_unported(cfg)
     cfg.validate()
     device = torch.device(device)
+    if dataset is None:
+        dataset = load_or_make(cfg, num_models, seed=cfg.seed, device=device)
+    _refuse_unported(cfg, dataset.num_models)
     state = create_state(cfg, device)
     if use_checkpoints:
         record_and_check_run_config(cfg)
         state = restore_checkpoint(cfg, state)
-    if dataset is None:
-        dataset = load_or_make(cfg, num_models, seed=cfg.seed, device=device)
     records = device_records(dataset, device) if cfg.device_data else None
 
     def crossed(prev: int, cur: int, every: int) -> bool:

@@ -404,7 +404,7 @@ def test_gsplat_project_on_card(cuda):
     ref = gsplat.gsplat_project(cfg.replace(gsplat_impl="dense"), pts, q,
                                 scales, rot, opac, rgb)
     assert (ref.silhouette - out.silhouette).abs().max() < 0.02
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 2"):
         gsplat.gsplat_project(cfg.replace(pallas_acc_dtype="bfloat16"), pts,
                               q, scales, rot, opac, rgb)
     assert aniso.LAUNCHES["aniso_render"] == before["aniso_render"] + 1
@@ -466,3 +466,103 @@ def test_bf16_kernels_match_plain(cuda, renders, n, vox, radius, with_depth,
         bound = BF16_SHARE * b.abs().max().item()
         assert bound > 0
         assert (a - b).abs().max().item() <= bound
+
+
+BF16_FWD_SHARE, BF16_GRAD_L2 = 1e-5, 1e-3  # chip_smoke.py phase 3c's
+
+
+@pytest.mark.parametrize("save_grid", [True, False])
+@pytest.mark.parametrize(
+    "renders,n,vox,radius,with_depth,weights",
+    [
+        (3, 3000, 72, 9, True, True),  # z-blocks of 8: up to 4 per halo row
+        (2, 2000, 80, 10, False, True),  # z-blocks of 16
+        (2, 2000, 96, 12, True, False),  # z-blocks of 32
+    ],
+)
+def test_bf16_blocked_kernels_match_plain(cuda, save_grid, renders, n, vox,
+                                          radius, with_depth, weights):
+    """The counterparts of K3 and K4 + K5 in bfloat16 operand mode (D > 64)
+    against the plain bfloat16 forward and fused_backward_reference, with
+    the saved grid and with the recompute: the forward within 1e-5 of the
+    largest plain value, the gradients within BF16_SHARE of it and 1e-3 in
+    relative L2; launches count as blocked_*_bf16 (the multicat_128 render
+    itself: chip_smoke.py phase 3c). Control: the float32
+    kernels on the same inputs miss the forward's and the relative L2
+    limits."""
+    rng = np.random.default_rng(vox + n + 3)
+    ndc = torch.tensor(rng.uniform(-0.6, 0.6, (renders, 3, n)),
+                       dtype=torch.float32, device=cuda)
+    ndc[:, :, : n // 2] *= 0.4  # a dense core: saturated rays
+    pw = (torch.tensor((rng.random((renders, n)) < 0.1) * 10.0,
+                       dtype=torch.float32, device=cuda) if weights else None)
+    dsil = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                        dtype=torch.float32, device=cuda)
+    ddepth = torch.tensor(rng.normal(size=(renders, vox, vox)),
+                          dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(0.05 * vox, device=cuda)
+
+    def kernel(acc_dtype):
+        return _grads(
+            lambda x, w: fused.fused_project_t(
+                x, vox, sigma, radius, point_weights=w,
+                with_depth=with_depth, acc_dtype=acc_dtype,
+                save_grid=save_grid),
+            ndc, pw, dsil, ddepth)
+
+    before = dict(fused.LAUNCHES)
+    g_k = kernel("bfloat16")
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in fused.LAUNCHES.items()}
+    bwd = ("blocked_render_bwd_bf16" if save_grid
+           else "blocked_render_bwd_recompute_bf16")
+    assert made == {k: int(k in ("blocked_render_bf16", bwd)) for k in made}
+    g_f = kernel("float32")
+    with torch.no_grad():
+        outs = [fused.fused_project_t(ndc, vox, sigma, radius,
+                                      point_weights=pw, with_depth=with_depth,
+                                      acc_dtype=a)
+                for a in ("bfloat16", "float32")]
+    plain = fused.fused_project_reference(
+        ndc, vox, sigma, radius, point_weights=pw, with_depth=with_depth,
+        acc_dtype="bfloat16")
+    for i in range(2 if with_depth else 1):
+        b = plain[i]
+        peak = b.abs().max().item()
+        assert (outs[0][i] - b).abs().max().item() <= BF16_FWD_SHARE * peak
+        assert (outs[1][i] - b).abs().max().item() > BF16_FWD_SHARE * peak
+    g_p = fused.fused_backward_reference(
+        ndc, vox, sigma, radius, pw, with_depth, dsil,
+        ddepth if with_depth else None, "bfloat16")
+    seen = [((a - b).abs().max().item() / b.abs().max().item(),
+             _rel_l2(a, b), _rel_l2(f, b)) for a, f, b in zip(g_k, g_f, g_p)]
+    print(f"max abs of the largest, relative L2, control's relative L2: "
+          f"{seen}")
+    for share, rel, rel_f in seen:
+        assert share <= BF16_SHARE
+        assert rel <= BF16_GRAD_L2 < rel_f
+
+
+def _rel_l2(a, b):
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item()
+
+
+def test_bf16_order_follows_the_grid_size(cuda):
+    """At D 64 the bfloat16 kernels keep K1's pass order (y, x, z): they
+    agree with the plain K1-order forward and lie farther from the K3-order
+    one (z, x, y, what D > 64 takes), by more than the bound."""
+    rng = np.random.default_rng(64)
+    ndc = torch.tensor(rng.uniform(-0.5, 0.5, (4, 3, 8000)),
+                       dtype=torch.float32, device=cuda)
+    sigma = torch.tensor(0.05 * 64, device=cuda)
+    with torch.no_grad():
+        sil, _ = fused.fused_project_t(ndc, 64, sigma, 8,
+                                       acc_dtype="bfloat16")
+    k1, _ = fused.fused_project_reference(ndc, 64, sigma, 8,
+                                          acc_dtype="bfloat16")
+    k3 = fused.drc_projection(fused._blurred(
+        ndc, 64, sigma, 8, None, fused._rnd, True)[0])[0]
+    peak = k1.abs().max().item()
+    assert (sil - k1).abs().max().item() <= BF16_FWD_SHARE * peak
+    assert (sil - k3).abs().max().item() > BF16_FWD_SHARE * peak

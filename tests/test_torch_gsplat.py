@@ -244,10 +244,10 @@ def test_gsplat_refusals():
     _, tcfg = _cfgs("pallas")
     pts, scales, rot, opac, rgb = _t(*_inputs(5, n=64))
     q = torch.tensor([[1.0, 0, 0, 0]] * B)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 2"):
         tgs.gsplat_project(tcfg.replace(pallas_acc_dtype="bfloat16"), pts, q,
                            scales, rot, opac, rgb)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         tgs.gsplat_project(tcfg.replace(gsplat_impl="windowed"), pts, q,
                            scales, rot, opac, rgb)
     with pytest.raises(ValueError, match="vox_size<=64"):

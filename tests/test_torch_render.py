@@ -323,13 +323,16 @@ def test_fused_wrapper_refuses(rng):
     ndc_t = torch.from_numpy(rng.uniform(-0.4, 0.4, (2, 3, 64))
                              .astype(np.float32))
     sigma = torch.tensor(0.8)
-    # the bfloat16 mode runs at D <= 64 (K1/K2's) and is refused above,
-    # where it would be K3-K5's; other operand types are refused
-    sil_b, _ = fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="bfloat16")
-    sil_f, _ = fused.fused_project_t(ndc_t, D, sigma, 2)
-    assert 0 < (sil_b - sil_f).abs().max() < 1e-2
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fused.fused_project_t(ndc_t, 72, sigma, 2, acc_dtype="bfloat16")
+    # the bfloat16 mode runs at D <= 64 (K1/K2's) and above (K3-K5's, which
+    # need D % 8 == 0 as dpcx's blocked kernels do); other operand types
+    # are refused
+    for vox in (D, 72):
+        sil_b, _ = fused.fused_project_t(ndc_t, vox, sigma, 2,
+                                         acc_dtype="bfloat16")
+        sil_f, _ = fused.fused_project_t(ndc_t, vox, sigma, 2)
+        assert 0 < (sil_b - sil_f).abs().max() < 1e-2
+    with pytest.raises(ValueError, match="vox_size % 8 == 0"):
+        fused.fused_project_t(ndc_t, 68, sigma, 2, acc_dtype="bfloat16")
     with pytest.raises(ValueError, match="acc_dtype"):
         fused.fused_project_t(ndc_t, D, sigma, 2, acc_dtype="float16")
     # a gradient asked for on a CPU tensor: autograd through the plain

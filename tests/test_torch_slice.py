@@ -312,9 +312,10 @@ def test_serving_model_bf16_and_uint8(tiny_yaml):
 
 def test_cli_serve(tiny_yaml, monkeypatch, capsys):
     """The serve verb serves the seeded init when checkpoint_dir holds no
-    checkpoint, and refuses to start when it holds an Orbax checkpoint
-    (dpcx's, which the port cannot read), or when the config asks for
-    point-sharded rendering. (Serving the port's own checkpoint:
+    checkpoint, also when the config asks for point-sharded rendering (on
+    one process a no-op that warns, as dpcx on one device), and refuses to
+    start when checkpoint_dir holds an Orbax checkpoint (dpcx's, which the
+    port cannot read). (Serving the port's own checkpoint:
     tests/test_torch_train.py.)"""
     monkeypatch.setattr(http.server.ThreadingHTTPServer, "serve_forever",
                         lambda self, *a, **k: None)
@@ -325,8 +326,11 @@ def test_cli_serve(tiny_yaml, monkeypatch, capsys):
 
     sharded = Path(tiny_yaml).with_name("sharded.yaml")
     sharded.write_text(Path(tiny_yaml).read_text() + "\nshard_points: true\n")
-    with pytest.raises(SystemExit, match="shard_points"):
-        cli.main(["serve", "-f", str(sharded), "--device", "cpu"])
+    with pytest.warns(UserWarning, match="shard_points on a single device"):
+        cli.main(["serve", "-f", str(sharded), "--port", "0", "--batch",
+                  "2", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["batch"] == 2 and out["serving"] > 0
 
     cfg = load_config(tiny_yaml)
     ckpt = Path(cfg.checkpoint_dir) / "ckpt" / "100"

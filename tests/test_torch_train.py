@@ -400,14 +400,17 @@ def test_checkpoints_refuse_orbax_and_changed_semantics(tmp_path, rng):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"eval_every": 10}, "item 3"),
-    ({"device_records_models": 4}, "item 10"),
-    ({"profile_dir": "prof"}, "item 8"),
-    ({"shard_points": True}, "item 9"),
+    # 4 models: dpcx rotates device-resident blocks of 3
+    ({"device_records_models": 3}, "queue 1 item 4"),
+    ({"profile_dir": "prof"}, "queue 1 item 2"),
 ])
-def test_train_refuses_unported(overrides, item, tmp_path):
+def test_train_refuses_unported(overrides, item, tmp_path, rng):
+    """What train does not port yet raises, naming its ROADMAP item (the
+    other side of each condition: tests/test_torch_train_flags.py)."""
+    cfg = _tiny_cfg(tmp_path).replace(**overrides)
     with pytest.raises(NotImplementedError, match=item):
-        ttrain.train(_tiny_cfg(tmp_path).replace(**overrides), device="cpu")
+        ttrain.train(cfg, dataset=Dataset(_records(rng, cfg), cfg),
+                     device="cpu")
 
 
 @pytest.mark.parametrize("overrides", [
