@@ -37,7 +37,18 @@ Phases, each of which raises on failure (exit code non-zero):
               (32 renders x 4096 points, D 32, rgb), density only, and at
               N 1000 (pads); the backward (K7) against autograd through the
               plain version, all 32 renders, for a random linear functional
-              of the density and colour grids, with dropout weights.
+              of the density and colour grids, with dropout weights; and
+              the float32 aniso_backward_reference (K7's function written
+              out) against the same autograd gradients.
+3d. splats bf16 — K6 and K7 in bfloat16 operand mode against the plain
+              bfloat16 forward and aniso_backward_reference (the raw moments
+              over dpcx's rounded basis) at the rgb_splats render, its
+              density-only variant (phase 3b's inputs and cotangents) and
+              8 x 4096 at D 64 with rgb: the forward within 1e-5 of the
+              largest plain value, each gradient group (mu, A6, w, rgb)
+              within 2^-8 of its largest and 1e-3 in relative L2; the
+              float32-mode kernels on the same inputs must miss the
+              forward's and the relative L2 limits.
 4. serve    — experiments/car_64_depth.yaml at full width, seeded random
               weights, behind the HTTP server: 3 requests of 1, 16 and 20
               images (padding, chunking, uint8), checked against a direct
@@ -77,7 +88,13 @@ Phases, each of which raises on failure (exit code non-zero):
               plain version, `cli train` for 200 steps (finite losses,
               loss_rgb logged, the last 20 below the first 20, exactly one
               K6 and one K7 launch per step and no other kernel's), and a
-              ServingModel call on the trained model (rgb and gauss heads).
+              ServingModel call on the trained model (rgb and gauss heads);
+              then with pallas_acc_dtype: bfloat16 (K6 and K7's bfloat16
+              mode) 3 kernel-vs-plain steps (which must lie farther from the
+              float32 ones than the limit), `cli train` for 100 steps (one
+              bfloat16 K6 and K7 launch per step and nothing else, finite
+              loss_total and loss_rgb, the last fifth below the first, a
+              checkpoint) and a ServingModel call on that model.
 9c. pose    — experiments/chair_pred_pose.yaml at full width (image 128,
               N 2048, D 32, B 8, K 8 candidates, 4 views predicted from
               their own images, student, renderer pallas): `cli datagen`
@@ -99,16 +116,18 @@ Phases, each of which raises on failure (exit code non-zero):
               last 10 below the first 10, no kernel launch).
 10. time    — CUDA-event medians: each forward and backward kernel
               against its plain version at the shapes of phases 2, 3b and
-              3c (the recompute backward too); host-clock serve latency at
-              batch 16 and the median car_64_depth, multicat_128,
-              rgb_splats and chair_pred_pose (float32 and bfloat16)
-              training steps.
+              3c (the recompute backward too) and at the rgb_splats render
+              of phase 3d; host-clock serve latency at batch 16 and the
+              median car_64_depth, multicat_128, rgb_splats and
+              chair_pred_pose training steps (the last three in both
+              operand modes).
 11. profile — torch.profiler device time per kernel, per call, of K1, K2,
-              the D > 64 forward and backward (both modes), K6 and K7, the
-              scoring forward, the batch-16 ServingModel call and one
-              training step of each of car_64_depth, multicat_128 (both
-              modes), rgb_splats and chair_pred_pose (both modes) (with its
-              time by layer), beside the host time per call and the share
+              the D > 64 forward and backward (both modes), K6 and K7 (both
+              modes), the scoring forward, the batch-16 ServingModel call
+              and one training step of each of car_64_depth, multicat_128,
+              rgb_splats and chair_pred_pose (the last three in both
+              modes; with its time by layer), beside the host time per
+              call and the share
               of it in which the card is idle. Wherever a kernel's device
               time is read (the kernel profiles and the steps), the
               profiler's time of the renderer kernels is held against CUDA
@@ -160,7 +179,7 @@ SEED = 0
 DEVICE = "cuda"
 TRAIN_STEPS, RESUME_STEPS, CHAIR_STEPS, MODELS = 200, 10, 20, 32
 MULTICAT_STEPS, REMAT_STEPS, SPLAT_STEPS = 100, 3, 200
-MULTICAT_BF16_STEPS, LARGECLOUD_STEPS = 40, 30
+MULTICAT_BF16_STEPS, LARGECLOUD_STEPS, SPLAT_BF16_STEPS = 40, 30, 100
 POSE_STEPS, RESEED_STEPS, RESEED_CHECK, POSE_BF16_STEPS = 200, 60, 30, 100
 # K1/K2 bf16 vs the plain bf16 version, of the largest plain value: the
 # forward within BF16_FWD_SHARE (its bf16 operands are products of bf16
@@ -210,6 +229,18 @@ SPLAT_OPS, SPLAT_BWD_OPS, DRC_OPS, DRC_BWD_OPS, DEPTH_OPS = 40, 108, 6, 14, 3
 # those into the point's ten moments (15); per-point work is left out
 ANISO_FWD_OPS = {True: (12, 12, 6), False: (6, 12, 6)}
 ANISO_BWD_OPS = {True: (23, 22, 21), False: (11, 22, 21)}
+# The bfloat16 mode (rgb / density only): its quadratic form, exponential,
+# t_c and u stay f32 and count at PEAK_F32_FLOPS, its rounded-operand
+# products (Pallas matmuls) at PEAK_BF16_FLOPS: per point-cell the f32 and
+# the bf16 operations, then per row and per plane as above. Forward: e (5)
+# in f32; the density row and the three colour rows (8) in bf16, since
+# dpcx sums the density as row 0 of the same matmul, E = rnd(e) rnd([1, r,
+# g, b]) (pallas_gsplat.py:140-165); density only, its row alone (2).
+# Backward: e (5), t_c (3), u (7; density only e ct_d, 1) in f32, the six
+# basis rows (12) and the three colour sums (6) in bf16; a row forms its
+# coefficients (12), a plane its dz terms (6)
+ANISO_FWD_BF16_OPS = {True: (5, 8, 12, 6), False: (5, 2, 12, 6)}
+ANISO_BWD_BF16_OPS = {True: (15, 18, 12, 6), False: (6, 12, 12, 6)}
 # what csrc/aniso_splat.cu itself spends per point-cell (expf as 2), printed
 # beside the bound: K6 24 / 18, K7 55 / 43 (it recomputes per-row terms in
 # every cell and sums ten moments per cell)
@@ -784,7 +815,9 @@ def phase_parity(cfg, ds, want: dict):
     within TRAIN_RTOL, and under predicted pose every step's winners equal.
     The plain side is handed to train_step: fused_project_plain (whose
     backward is K2's function, the hat derivative 0 at an exactly integer
-    grid coordinate included) and aniso_density_reference. ``want``: the
+    grid coordinate included), and aniso_density_reference in float32 or
+    aniso_density_plain (K7's bfloat16 function written out) in bfloat16.
+    ``want``: the
     launches the kernel steps make (the plain steps make none). Returns
     the kernel run's (losses, first-step gradients)."""
     from dpcx_torch.render import aniso, fused
@@ -798,7 +831,9 @@ def phase_parity(cfg, ds, want: dict):
                                          acc_dtype)
 
     def aniso_plain(mu, A6, w, rgb, rz, vox, acc_dtype="float32"):
-        assert acc_dtype == "float32", acc_dtype
+        if acc_dtype == "bfloat16":
+            return aniso.aniso_density_plain(mu, A6, w, rgb, rz, vox,
+                                             acc_dtype)
         return aniso.aniso_density_reference(mu, A6, w, rgb, rz, vox)
 
     c = cfg.replace(compute_dtype="float32")
@@ -1147,7 +1182,9 @@ def phase_aniso_backward(aniso, cases) -> list[dict]:
     checkpointed, so all 32 renders fit), for a random linear functional
     of the density and colour grids, with opacity and dropout weights, at
     the two rgb_splats shapes of phase_aniso_kernel: relative L2 of each
-    gradient (mu, A6, w, rgb) within SPLAT_GRAD_RTOL."""
+    gradient (mu, A6, w, rgb) within SPLAT_GRAD_RTOL; and the float32
+    aniso_backward_reference (K7's function written out, the plain side of
+    phase 3d) against the same autograd gradients, under the same bound."""
     rng = np.random.default_rng(SEED + 20)
     out = []
     for case in cases[:2]:
@@ -1160,16 +1197,25 @@ def phase_aniso_backward(aniso, cases) -> list[dict]:
         torch.cuda.synchronize()
         assert aniso.LAUNCHES["aniso_render_bwd"] == before + 1
         g_p = splat_grads(aniso.aniso_density_reference, case, ct)
+        pk = aniso.pack(case["mu"], case["A6"], case["w"], case["rgb"])
+        z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], vox)
+        dpk = aniso.aniso_backward_reference(pk, z_lo, z_hi, ct, vox,
+                                             with_rgb)
+        g_r = [dpk[:, a:b].transpose(1, 2).reshape(g.shape)
+               for (a, b), g in zip(((0, 3), (3, 9), (9, 10), (10, 13)), g_p)]
         worst, err = 0.0, 0.0
-        for name, a, b in zip(("mu", "A6", "w", "rgb"), g_k, g_p):
-            rel = (torch.linalg.vector_norm(a - b)
-                   / torch.linalg.vector_norm(b)).item()
+        for name, a, b, r in zip(("mu", "A6", "w", "rgb"), g_k, g_p, g_r):
+            rel, rel_r = ((torch.linalg.vector_norm(x - b)
+                           / torch.linalg.vector_norm(b)).item()
+                          for x in (a, r))
             err = max(err, (a - b).abs().max().item())
             print(f"backward check K7 {case['name']} d {name}: relative L2 "
                   f"{rel:.3e} (bound {SPLAT_GRAD_RTOL}), max abs err "
                   f"{(a - b).abs().max().item():.3e}, max |plain| "
-                  f"{b.abs().max().item():.3e}", flush=True)
+                  f"{b.abs().max().item():.3e}; aniso_backward_reference "
+                  f"relative L2 {rel_r:.3e}", flush=True)
             assert np.isfinite(rel) and rel <= SPLAT_GRAD_RTOL, (name, rel)
+            assert rel_r <= SPLAT_GRAD_RTOL, (name, rel_r)
             worst = max(worst, rel)
         out.append(dict(case, ct=ct, err=err, rel=worst))
     return out
@@ -1186,6 +1232,129 @@ def splat_grads(render, case, ct):
     out = (torch.cat([out[0][:, None], out[1]], 1) if len(ins) == 4
            else out[:, None])
     return torch.autograd.grad((out * ct).sum(), ins)
+
+
+def phase_aniso_bf16(aniso, bwd_cases) -> list[dict]:
+    """K6 and K7 in bfloat16 operand mode against the plain bfloat16 forward
+    and aniso_backward_reference (raw moments of rnd(u) over dpcx's rounded
+    basis, centred at the end) on the same inputs: the rgb_splats render
+    and its density-only variant (phase 3b's inputs and cotangents), and
+    8 x 4096 at D 64 with rgb (the shape of dpcx's D 64 gsplat bench key).
+    The forward within BF16_FWD_SHARE of the largest plain value, each
+    gradient group (mu, A6, w, rgb of the packed gradient) within BF16_SHARE
+    of its largest and BF16_GRAD_L2 in relative L2. Control: the
+    float32-mode kernels on the same inputs must miss the forward's and the
+    relative L2 limits. Then the wrapper itself in that mode at the
+    rgb_splats render (check_aniso_bf16_wrapper). Returns each case with
+    its errors."""
+    d64 = splat_inputs(8, 4096, 64, SEED + 30, True)
+    z_lo, z_hi = aniso.z_ranges(d64["mu"][..., 0], d64["rz"], 64)
+    d64.update(name="d64", renders=8, n=4096,
+               point_cells=int((z_hi - z_lo).sum()) * 64 * 64,
+               ct=torch.randn(8, 4, 64, 64, 64, device=DEVICE,
+                              generator=torch.Generator(
+                                  device=DEVICE).manual_seed(SEED + 31)))
+    groups = (("mu", 0, 3), ("A6", 3, 9), ("w", 9, 10), ("rgb", 10, 13))
+    out = []
+    for case in (*bwd_cases[:2], d64):
+        vox, with_rgb, ct = case["vox"], case["rgb"] is not None, case["ct"]
+        pk = aniso.pack(case["mu"], case["A6"], case["w"], case["rgb"])
+        z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], vox)
+        before = launch_counts()
+        fwd = {bf: aniso._launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf)
+               for bf in (True, False)}
+        bwd = {bf: aniso._launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb,
+                                          bf) for bf in (True, False)}
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in launch_counts().items()}
+        assert made == only(aniso_render=1, aniso_render_bwd=1,
+                            aniso_render_bf16=1, aniso_render_bwd_bf16=1), \
+            made
+        want = aniso._render_plain(pk, z_lo, z_hi, vox, with_rgb, "bfloat16")
+        g_p = aniso.aniso_backward_reference(pk, z_lo, z_hi, ct, vox,
+                                             with_rgb, "bfloat16")
+        label = (f"{case['name']} ({case['renders']} x {case['n']}, D {vox}, "
+                 f"rgb {with_rgb})")
+        missed = []  # every row is printed before any limit is enforced
+        peak = want.abs().max().item()
+        fwd_err, ctl = ((fwd[bf] - want).abs().max().item()
+                        for bf in (True, False))
+        print(f"bf16 check K6 {label}: max abs err {fwd_err:.3e}, largest "
+              f"plain value {peak:.3e}, ratio {fwd_err / peak:.3e} (bound "
+              f"{BF16_FWD_SHARE:.1e}); float32 mode's ratio {ctl / peak:.3e} "
+              "(must exceed the bound)", flush=True)
+        if not fwd_err <= BF16_FWD_SHARE * peak < ctl:
+            missed.append(("forward", fwd_err, ctl, peak))
+        bwd_err = 0.0
+        for name, a, b in groups if with_rgb else groups[:3]:
+            p = g_p[:, a:b]
+            err = (bwd[True][:, a:b] - p).abs().max().item()
+            top = p.abs().max().item()
+            rel, rel_f = ((torch.linalg.vector_norm(bwd[bf][:, a:b] - p)
+                           / torch.linalg.vector_norm(p)).item()
+                          for bf in (True, False))
+            print(f"bf16 check K7 {label} d {name}: max abs err {err:.3e}, "
+                  f"largest plain value {top:.3e}, ratio {err / top:.3e} "
+                  f"(bound {BF16_SHARE:.3e}), relative L2 {rel:.3e} (bound "
+                  f"{BF16_GRAD_L2:.1e}); float32 mode's relative L2 "
+                  f"{rel_f:.3e} (must exceed the bound)", flush=True)
+            if not (np.isfinite(rel) and err <= BF16_SHARE * top
+                    and rel <= BF16_GRAD_L2 < rel_f):
+                missed.append((name, err, top, rel, rel_f))
+            bwd_err = max(bwd_err, err)
+        assert not missed, (label, missed)
+        out.append(dict(case, pk=pk, z_lo=z_lo, z_hi=z_hi, fwd_err=fwd_err,
+                        bwd_err=bwd_err))
+    check_aniso_bf16_wrapper(aniso, bwd_cases[0])
+    return out
+
+
+def check_aniso_bf16_wrapper(aniso, case) -> None:
+    """The wrapper's bfloat16 dispatch (acc_dtype to the mode flag, pack,
+    z-ranges, autograd) at the rgb_splats render: aniso_density(...,
+    "bfloat16") against aniso_density_plain in that mode, the forward within
+    BF16_FWD_SHARE of the largest plain value, each gradient (mu, A6, w,
+    rgb) within BF16_SHARE of its largest and BF16_GRAD_L2 in relative L2;
+    one launch of each bf16 kernel and none other."""
+    ct = case["ct"]
+
+    def wrapper(*a):
+        return aniso.aniso_density(*a, acc_dtype="bfloat16")
+
+    def plain(*a):
+        return aniso.aniso_density_plain(*a, acc_dtype="bfloat16")
+
+    with torch.no_grad():
+        want = torch.cat([t[:, None] if t.dim() == 4 else t
+                          for t in plain(*aniso_args(case))], 1)
+    before = launch_counts()
+    with torch.no_grad():
+        got = torch.cat([t[:, None] if t.dim() == 4 else t
+                         for t in wrapper(*aniso_args(case))], 1)
+    g_k = splat_grads(wrapper, case, ct)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in launch_counts().items()}
+    assert made == only(aniso_render_bf16=2, aniso_render_bwd_bf16=1), made
+    g_p = splat_grads(plain, case, ct)
+    peak = want.abs().max().item()
+    fwd_err = (got - want).abs().max().item()
+    print(f"bf16 check aniso_density wrapper {case['name']}: forward max abs "
+          f"err {fwd_err:.3e}, ratio {fwd_err / peak:.3e} (bound "
+          f"{BF16_FWD_SHARE:.1e})", flush=True)
+    missed = [] if fwd_err <= BF16_FWD_SHARE * peak else [("forward",
+                                                            fwd_err, peak)]
+    for name, a, b in zip(("mu", "A6", "w", "rgb"), g_k, g_p):
+        err, top = (a - b).abs().max().item(), b.abs().max().item()
+        rel = (torch.linalg.vector_norm(a - b)
+               / torch.linalg.vector_norm(b)).item()
+        print(f"bf16 check aniso_density wrapper {case['name']} d {name}: "
+              f"max abs err {err:.3e}, ratio {err / top:.3e} (bound "
+              f"{BF16_SHARE:.3e}), relative L2 {rel:.3e} (bound "
+              f"{BF16_GRAD_L2:.1e})", flush=True)
+        if not (np.isfinite(rel) and err <= BF16_SHARE * top
+                and rel <= BF16_GRAD_L2):
+            missed.append((name, err, top, rel))
+    assert not missed, missed
 
 
 def time_aniso(aniso, case):
@@ -1211,23 +1380,30 @@ def time_aniso(aniso, case):
     return fwd_ms, bwd_ms, plain_ms, plain_fb_ms, bwd
 
 
-def aniso_bound(case, backward: bool) -> tuple[float, str]:
+def aniso_bound(case, backward: bool, bf16: bool = False
+                ) -> tuple[float, str]:
     """(least ms, "bytes" or "operations") of one K6 or K7 call on this
-    case's data: the function's least f32 operations (ANISO_*_OPS, on the
-    point-cells, rows and planes in range for the z-ranges these inputs
-    give) over PEAK_F32_FLOPS, against the bytes (packed points and
-    z-ranges in, the grids out; backward: the cotangent grids in, the
-    packed gradient out) over PEAK_BYTES_PER_S."""
+    case's data: the function's least operations (on the point-cells, rows
+    and planes in range for the z-ranges these inputs give) over the peak
+    for their type, against the bytes (packed points and z-ranges in, the
+    grids out; backward: the cotangent grids in, the packed gradient out)
+    over PEAK_BYTES_PER_S. f32: ANISO_*_OPS at PEAK_F32_FLOPS; ``bf16``:
+    ANISO_*_BF16_OPS, the rounded-operand products at PEAK_BF16_FLOPS."""
     with_rgb = case["rgb"] is not None
-    per_cell, per_row, per_plane = (
-        ANISO_BWD_OPS if backward else ANISO_FWD_OPS)[with_rgb]
+    if bf16:
+        f32_cell, bf16_cell, per_row, per_plane = (
+            ANISO_BWD_BF16_OPS if backward else ANISO_FWD_BF16_OPS)[with_rgb]
+    else:
+        f32_cell, per_row, per_plane = (
+            ANISO_BWD_OPS if backward else ANISO_FWD_OPS)[with_rgb]
+        bf16_cell = 0
     cells, vox = case["point_cells"], case["vox"]
-    ops = (per_cell * cells + per_row * cells // vox
+    ops = (f32_cell * cells + per_row * cells // vox
            + per_plane * cells // vox**2)
     points = case["renders"] * case["n"]
     grids = case["renders"] * (4 if with_rgb else 1) * case["vox"] ** 3
     nbytes = 4 * (15 * points + grids + (13 * points if backward else 0))
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_ops = (ops / PEAK_F32_FLOPS + bf16_cell * cells / PEAK_BF16_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1239,57 +1415,46 @@ def aniso_own_ms(case, backward: bool) -> float:
     return own * case["point_cells"] / PEAK_F32_FLOPS * 1e3
 
 
-def phase_splats(cli, fused, tmp: Path):
-    """experiments/rgb_splats.yaml at full width (N 4096, D 32, B 8 x 4
-    views, rgb and gauss heads, gsplat_impl pallas, GT pose): `cli
-    datagen` (32 models, rendered by the plain ops: renderer xla),
-    kernel-vs-plain training steps, `cli train` for SPLAT_STEPS with the
-    counts set to 0 just before and read just after (one K6 and one K7
-    launch a step, nothing else), and one ServingModel call on the trained
-    model."""
-    from dpcx_torch.config import load_config, save_config
-    from dpcx_torch.serve import ServingModel
-    from dpcx_torch.train import load_checkpoint
-
-    cfg = load_config(RGB_SPLATS).validate().replace(
-        data_dir=str(tmp / "splats_data"),
-        checkpoint_dir=str(tmp / "splats"), log_every=1,
-        save_every=SPLAT_STEPS)
-    assert (cfg.pc_rgb, cfg.pc_gauss, cfg.gsplat_impl, cfg.vox_size,
-            cfg.pc_num_points, cfg.batch_size, cfg.views_per_step,
-            cfg.pallas_acc_dtype, cfg.predict_pose) == (
-        True, True, "pallas", 32, 4096, 8, 4, "float32", False)
-    path = str(tmp / "rgb_splats.yaml")
-    save_config(cfg, path)
-    ds = phase_datagen(cli, fused, path, MODELS, "rgb_splats")
-    phase_parity(cfg, ds, dict(aniso_render=3, aniso_render_bwd=3))
-
-    run_dir = Path(cfg.checkpoint_dir)
+def splat_train(cli, path: str, run_dir: Path, steps: int, mode: str,
+                label: str) -> dict:
+    """`cli train` of an rgb_splats config for ``steps`` with the counts set
+    to 0 just before and read just after: finite loss_total and loss_rgb,
+    the mean of the last min(20, steps / 5) below the first's, one K6 and
+    one K7 launch of ``mode`` ("" or "_bf16") per step and nothing else,
+    and a checkpoint. Returns the launches."""
     reset_counts()
     t0 = time.perf_counter()
-    cli.main(["train", "-f", path, "-n", str(MODELS), "--steps",
-              str(SPLAT_STEPS)])
+    cli.main(["train", "-f", path, "-n", str(MODELS), "--steps", str(steps)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = launch_counts()
     recs = [json.loads(line) for line in
             (run_dir / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in recs] == list(range(1, SPLAT_STEPS + 1))
+    assert [r["step"] for r in recs] == list(range(1, steps + 1))
     vals = np.array([r["loss_total"] for r in recs])
     rgb_vals = np.array([r["loss_rgb"] for r in recs])
     assert np.isfinite(vals).all() and np.isfinite(rgb_vals).all()
-    first, last = vals[:20].mean(), vals[-20:].mean()
-    print(f"train rgb_splats: {SPLAT_STEPS} steps in {secs:.1f} s (datagen "
-          f"cached; log_every 1), loss_total mean of the first 20 "
-          f"{first:.6f}, of the last 20 {last:.6f}; loss_rgb "
-          f"{rgb_vals[:20].mean():.6f} -> {rgb_vals[-20:].mean():.6f}; "
-          f"launches {launches}", flush=True)
+    k = min(20, steps // 5)
+    first, last = vals[:k].mean(), vals[-k:].mean()
+    print(f"train {label}: {steps} steps in {secs:.1f} s (datagen cached; "
+          f"log_every 1), loss_total mean of the first {k} {first:.6f}, of "
+          f"the last {k} {last:.6f}; loss_rgb {rgb_vals[:k].mean():.6f} -> "
+          f"{rgb_vals[-k:].mean():.6f}; launches {launches}", flush=True)
     assert last < first, (first, last)
-    assert launches == only(aniso_render=SPLAT_STEPS,
-                            aniso_render_bwd=SPLAT_STEPS), launches
+    assert launches == only(**{f"aniso_render{mode}": steps,
+                               f"aniso_render_bwd{mode}": steps}), launches
+    assert (run_dir / "ckpt" / f"{steps}.pt").exists()
     OUT_DIR.mkdir(exist_ok=True)
     shutil.copy(run_dir / "metrics.jsonl",
-                OUT_DIR / "chip_smoke_rgb_splats_metrics.jsonl")
+                OUT_DIR / f"chip_smoke_{label}_metrics.jsonl")
+    return launches
+
+
+def serve_splats(cfg, ds, steps: int, label: str) -> None:
+    """One ServingModel call on the newest checkpoint of ``cfg``'s run:
+    points, rgb and the gauss arrays, finite, scales within their bounds."""
+    from dpcx_torch.serve import ServingModel
+    from dpcx_torch.train import load_checkpoint
 
     params = load_checkpoint(cfg, DEVICE)["params"]
     model = ServingModel(cfg, params, batch_size=cfg.batch_size)
@@ -1305,10 +1470,63 @@ def phase_splats(cli, fused, tmp: Path):
     s = served["gauss_scales"]
     assert (s >= cfg.gauss_scale_min).all() and (s <= cfg.gauss_scale_max
                                                  ).all()
-    print(f"serve rgb_splats: {len(imgs)} images -> "
-          f"{sorted(served)} of the step-{SPLAT_STEPS} model, finite, scales "
-          f"in [{s.min():.4f}, {s.max():.4f}]", flush=True)
-    return cfg, ds, launches
+    print(f"serve {label}: {len(imgs)} images -> {sorted(served)} of the "
+          f"step-{steps} model, finite, scales in [{s.min():.4f}, "
+          f"{s.max():.4f}]", flush=True)
+
+
+def phase_splats(cli, fused, tmp: Path):
+    """experiments/rgb_splats.yaml at full width (N 4096, D 32, B 8 x 4
+    views, rgb and gauss heads, gsplat_impl pallas, GT pose): `cli
+    datagen` (32 models, rendered by the plain ops: renderer xla),
+    kernel-vs-plain training steps, `cli train` for SPLAT_STEPS with the
+    counts set to 0 just before and read just after (one K6 and one K7
+    launch a step, nothing else), and one ServingModel call on the trained
+    model; then the same with pallas_acc_dtype: bfloat16 (K6 and K7's
+    bfloat16 mode): kernel-vs-plain steps, which must lie farther from the
+    float32 ones than the limit, `cli train` for SPLAT_BF16_STEPS and a
+    ServingModel call. Returns (the f32 config, the bf16 config, the data,
+    the f32 run's launches, the bf16 run's launches)."""
+    from dpcx_torch.config import load_config, save_config
+
+    cfg = load_config(RGB_SPLATS).validate().replace(
+        data_dir=str(tmp / "splats_data"),
+        checkpoint_dir=str(tmp / "splats"), log_every=1,
+        save_every=SPLAT_STEPS)
+    assert (cfg.pc_rgb, cfg.pc_gauss, cfg.gsplat_impl, cfg.vox_size,
+            cfg.pc_num_points, cfg.batch_size, cfg.views_per_step,
+            cfg.pallas_acc_dtype, cfg.predict_pose) == (
+        True, True, "pallas", 32, 4096, 8, 4, "float32", False)
+    path = str(tmp / "rgb_splats.yaml")
+    save_config(cfg, path)
+    ds = phase_datagen(cli, fused, path, MODELS, "rgb_splats")
+    l_f32, g_f32 = phase_parity(cfg, ds,
+                                dict(aniso_render=3, aniso_render_bwd=3))
+    launches = splat_train(cli, path, Path(cfg.checkpoint_dir), SPLAT_STEPS,
+                           "", "rgb_splats")
+    serve_splats(cfg, ds, SPLAT_STEPS, "rgb_splats")
+
+    # the bfloat16 operand mode of K6 and K7
+    bf = cfg.replace(pallas_acc_dtype="bfloat16",
+                     checkpoint_dir=str(tmp / "splats_bf16"),
+                     save_every=SPLAT_BF16_STEPS)
+    bf_path = str(tmp / "rgb_splats_bf16.yaml")
+    save_config(bf, bf_path)
+    l_bf, g_bf = phase_parity(
+        bf, ds, dict(aniso_render_bf16=3, aniso_render_bwd_bf16=3))
+    # control: the two modes' kernel runs lie farther apart than the limit
+    # that held each against its plain version
+    name, rel = worst_grad(g_bf, g_f32)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_bf, l_f32))
+    print(f"parity control rgb_splats: bfloat16 against float32 kernel "
+          f"steps, first-step gradients worst relative L2 {rel:.3e} "
+          f"({name}), losses worst rel {loss_rel:.3e}; the gradients must "
+          f"exceed {TRAIN_RTOL}", flush=True)
+    assert rel > TRAIN_RTOL, (rel, loss_rel)
+    bf_launches = splat_train(cli, bf_path, Path(bf.checkpoint_dir),
+                              SPLAT_BF16_STEPS, "_bf16", "rgb_splats_bf16")
+    serve_splats(bf, ds, SPLAT_BF16_STEPS, "rgb_splats_bf16")
+    return cfg, bf, ds, launches, bf_launches
 
 
 def phase_bf16(bwd_cases, fused) -> list[dict]:
@@ -1562,6 +1780,8 @@ def main() -> int:
     # 3b. K6 and K7 vs their plain version
     aniso_cases = phase_aniso_kernel(aniso)
     aniso_bwd = phase_aniso_backward(aniso, aniso_cases)
+    # 3d. K6 and K7 in bfloat16 mode vs their plain bfloat16 version
+    aniso_bf16 = phase_aniso_bf16(aniso, aniso_bwd)
 
     # 4. serve: the first path starts here, with every launch count at 0
     reset_counts()
@@ -1646,7 +1866,8 @@ def main() -> int:
             mc_cfg, mc_bf, mc_ds, mc_launches, mc_bf_launches = \
                 phase_multicat(cli, fused, tmp)
             # 9b. rgb_splats: datagen, parity, train, serve
-            sp_cfg, sp_ds, sp_launches = phase_splats(cli, fused, tmp)
+            sp_cfg, sp_bf, sp_ds, sp_launches, sp_bf_launches = \
+                phase_splats(cli, fused, tmp)
             # 9c. chair_pred_pose: datagen, parity, train, reseed, bf16,
             # serve
             pp_cfg, pp_bf, pp_ds, pp_launches, pp_bf_launches = \
@@ -1714,11 +1935,42 @@ def main() -> int:
                       f"{aniso_own_ms(case, True):.4f} ms; plain forward "
                       f"{p_ms:.4f} ms, plain forward + backward "
                       f"{pfb_ms:.4f} ms | {card}", flush=True)
-            sp_step_fn = training_step_fn(sp_cfg, sp_ds)
-            sp_step_ms = host_ms(sp_step_fn)
-            print(f"time train step rgb_splats (B 8 x 4 views, N 4096, D 32, "
-                  f"rgb + gauss, bf16 compute): median {sp_step_ms:.3f} ms "
-                  f"per step | {card}", flush=True)
+            sp_bf_case = aniso_bf16[0]
+            sp_bf_args = aniso_args(sp_bf_case)
+
+            def sp_bf_launch():
+                aniso._launch_backward(
+                    sp_bf_case["pk"], sp_bf_case["z_lo"], sp_bf_case["z_hi"],
+                    sp_bf_case["ct"], 32, True, True)
+
+            sp_bf_ms = (
+                cuda_ms(lambda: aniso.aniso_density(*sp_bf_args,
+                                                    acc_dtype="bfloat16")),
+                cuda_ms(sp_bf_launch),
+                cuda_ms(lambda: aniso.aniso_density_reference(
+                    *sp_bf_args, acc_dtype="bfloat16"), runs=5, warmup=1),
+                cuda_ms(lambda: aniso.aniso_backward_reference(
+                    sp_bf_case["pk"], sp_bf_case["z_lo"], sp_bf_case["z_hi"],
+                    sp_bf_case["ct"], 32, True, "bfloat16"), runs=5,
+                    warmup=1))
+            print(f"time K6/K7 bf16 {sp_bf_case['name']} (32 renders x 4096 "
+                  f"points, D 32, {sp_bf_case['point_cells']} point-cells): "
+                  f"K6 {sp_bf_ms[0]:.4f} ms (f32 mode "
+                  f"{aniso_timings[sp_bf_case['name']][0]:.4f}; bound "
+                  f"{aniso_bound(sp_bf_case, False, True)[0]:.4f}), K7 "
+                  f"{sp_bf_ms[1]:.4f} ms (f32 mode "
+                  f"{aniso_timings[sp_bf_case['name']][1]:.4f}; bound "
+                  f"{aniso_bound(sp_bf_case, True, True)[0]:.4f}); plain "
+                  f"forward {sp_bf_ms[2]:.4f} ms, plain backward "
+                  f"(aniso_backward_reference) {sp_bf_ms[3]:.4f} ms | {card}",
+                  flush=True)
+            sp_step_fns = {}
+            for label, c in (("float32", sp_cfg), ("bfloat16", sp_bf)):
+                sp_step_fns[label] = training_step_fn(c, sp_ds)
+                ms = host_ms(sp_step_fns[label])
+                print(f"time train step rgb_splats {label} operands (B 8 x 4 "
+                      f"views, N 4096, D 32, rgb + gauss, bf16 compute): "
+                      f"median {ms:.3f} ms per step | {card}", flush=True)
             bf16_timings, bf16_launch = {}, {}
             for case in bf16_cases:
                 fwd_args = tuple(case[k] for k in (
@@ -1789,9 +2041,15 @@ def main() -> int:
                        "K6 rgb_splats (with the z-ranges)")
         device_profile(aniso_launch[sp_case["name"]],
                        "K7 rgb_splats (launch on the saved inputs)")
-        step = device_profile(sp_step_fn, "train step rgb_splats", runs=10,
-                              top=16, host_top=12)
-        print_step_breakdown(step, "rgb_splats")
+        device_profile(lambda: aniso.aniso_density(*sp_bf_args,
+                                                   acc_dtype="bfloat16"),
+                       "K6 bf16 rgb_splats (with the z-ranges)")
+        device_profile(sp_bf_launch,
+                       "K7 bf16 rgb_splats (launch on the saved inputs)")
+        for label, fn in sp_step_fns.items():
+            step = device_profile(fn, f"train step rgb_splats {label}",
+                                  runs=10, top=16, host_top=12)
+            print_step_breakdown(step, f"rgb_splats {label}")
         pp_case = next(c for c in bf16_cases
                        if c["name"] == "chair_pred_pose")
         device_profile(lambda: fused.fused_project_t(
@@ -1864,6 +2122,27 @@ def main() -> int:
                            "forward, CUDA events")
         return out
 
+    def splat_bf16_entry(name, replaces, backward):
+        k_ms = sp_bf_ms[1] if backward else sp_bf_ms[0]
+        bound_ms, bound_by = aniso_bound(sp_bf_case, backward, True)
+        key = "bwd_err" if backward else "fwd_err"
+        return {"name": name, "route": "cuda",
+                "source": "dpcx_torch/csrc/aniso_splat.cu",
+                "replaces": replaces,
+                "launches": sp_bf_launches[
+                    "aniso_render_bwd_bf16" if backward
+                    else "aniso_render_bf16"],
+                "max_abs_err": max(c[key] for c in aniso_bf16),
+                "ms": k_ms,
+                "plain_ms": sp_bf_ms[3] if backward else sp_bf_ms[2],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+                "note": ("bfloat16 operand mode; times and bound at the "
+                         "rgb_splats render (32 x 4096, D 32, rgb), "
+                         "launches from its bfloat16 cli train run"
+                         + ("; plain_ms: aniso_backward_reference"
+                            if backward else ""))}
+
     def bf16_entry(name, replaces, backward, case, run_launches, note):
         f_ms, b_ms, pf_ms, pb_ms = bf16_timings[case["name"], True]
         bound_ms, bound_by = render_bound(
@@ -1926,6 +2205,10 @@ def main() -> int:
         bf16_entry("blocked_render_bwd:K5:bf16",
                    "dpcx/render/pallas_blocked.py:451", True, mc_case,
                    mc_bf_launches, f"{mc_note}; {shared}"),
+        splat_bf16_entry("aniso_render:bf16",
+                         "dpcx/render/pallas_gsplat.py:88", False),
+        splat_bf16_entry("aniso_render_bwd:bf16",
+                         "dpcx/render/pallas_gsplat.py:187", True),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -118,10 +118,11 @@ def load() -> ctypes.CDLL:
         ]
         fn.restype = i32
     # csrc/aniso_splat.cu: the anisotropic splat forward (K6) and backward
+    # (K7), the operand mode likewise last before the stream
     lib.dpcx_aniso_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                      ptr]
+                                      i32, ptr]
     lib.dpcx_aniso_render.restype = i32
     lib.dpcx_aniso_render_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                          i32, i32, ptr]
+                                          i32, i32, i32, ptr]
     lib.dpcx_aniso_render_bwd.restype = i32
     return lib

@@ -15,8 +15,9 @@ as in the reference.
 (every point on every cell, the quadratic form clamped at 0); "pallas" is
 the z-windowed function of dpcx's Pallas kernel, run by the CUDA kernels of
 ``render/aniso.py`` on CUDA tensors and by their plain version on CPU
-tensors. dpcx's "windowed" form is not ported (ROADMAP queue 1 item 2): its
-window truncation gives other numbers than either.
+tensors, in either operand mode (``cfg.pallas_acc_dtype``). dpcx's
+"windowed" form is not ported (ROADMAP queue 1 item 2): its window
+truncation gives other numbers than either.
 """
 
 from __future__ import annotations

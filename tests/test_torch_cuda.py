@@ -381,8 +381,8 @@ def test_aniso_backward_matches_plain(cuda, renders, n, vox, with_rgb):
 
 
 def test_gsplat_project_on_card(cuda):
-    """gsplat_impl: pallas reaches K6 and, backward, K7 once each; dense
-    and the bfloat16 mode launch nothing (bfloat16 raises)."""
+    """gsplat_impl: pallas reaches K6 and, backward, K7 once each, in each
+    operand mode; dense launches nothing."""
     cfg = Config(vox_size=32, pc_rgb=True, pc_gauss=True,
                  gsplat_impl="pallas")
     rng = np.random.default_rng(5)
@@ -404,10 +404,16 @@ def test_gsplat_project_on_card(cuda):
     ref = gsplat.gsplat_project(cfg.replace(gsplat_impl="dense"), pts, q,
                                 scales, rot, opac, rgb)
     assert (ref.silhouette - out.silhouette).abs().max() < 0.02
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        gsplat.gsplat_project(cfg.replace(pallas_acc_dtype="bfloat16"), pts,
-                              q, scales, rot, opac, rgb)
     assert aniso.LAUNCHES["aniso_render"] == before["aniso_render"] + 1
+    pts.grad = None
+    out = gsplat.gsplat_project(cfg.replace(pallas_acc_dtype="bfloat16"), pts,
+                                q, scales, rot, opac, rgb)
+    (out.silhouette.sum() + out.rgb.sum()).backward()
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in aniso.LAUNCHES.items()}
+    assert made == {"aniso_render": 1, "aniso_render_bwd": 1,
+                    "aniso_render_bf16": 1, "aniso_render_bwd_bf16": 1}, made
+    assert pts.grad.isfinite().all() and pts.grad.abs().max() > 0
 
 
 BF16_SHARE = 2.0**-8  # of the largest plain value: the splat's atomics
@@ -566,3 +572,73 @@ def test_bf16_order_follows_the_grid_size(cuda):
     peak = k1.abs().max().item()
     assert (sil - k1).abs().max().item() <= BF16_FWD_SHARE * peak
     assert (sil - k3).abs().max().item() > BF16_FWD_SHARE * peak
+
+
+# K6/K7's bfloat16 mode against its plain version, per row group of the
+# packed gradient (mu, A6, w, rgb)
+SPLAT_GROUPS = (("mu", 0, 3), ("A6", 3, 9), ("w", 9, 10), ("rgb", 10, 13))
+
+
+@pytest.mark.parametrize("renders,n,vox,with_rgb", [
+    (4, 1000, 32, True),
+    (4, 1000, 32, False),  # density only
+    (2, 700, 64, True),  # D 64: two x columns a lane, basis errors up to 8
+])
+def test_aniso_bf16_kernels_match_plain(cuda, renders, n, vox, with_rgb):
+    """K6 and K7 in bfloat16 operand mode against the plain bfloat16
+    forward and aniso_backward_reference (the raw moments of rnd(u) over
+    dpcx's rounded basis): the forward within BF16_FWD_SHARE of the largest
+    plain value, each gradient group within BF16_SHARE of its largest and
+    BF16_GRAD_L2 in relative L2. The float32-mode kernels on the same inputs
+    must miss the forward's and the relative L2 limits; launches count
+    under aniso_render_bf16 and aniso_render_bwd_bf16."""
+    mu, A6, w, rgb, rz = _splat_inputs(cuda, renders, n, vox, vox + n + 5,
+                                       keep=0.1)
+    pk = aniso.pack(mu, A6, w, rgb if with_rgb else None)
+    z_lo, z_hi = aniso.z_ranges(mu[..., 0], rz, vox)
+    ct = torch.randn(renders, 4 if with_rgb else 1, vox, vox, vox,
+                     device=cuda, generator=torch.Generator(
+                         device=cuda).manual_seed(vox))
+    before = dict(aniso.LAUNCHES)
+    fwd = {bf: aniso._launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf)
+           for bf in (True, False)}
+    bwd = {bf: aniso._launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb, bf)
+           for bf in (True, False)}
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in aniso.LAUNCHES.items()}
+    assert made == dict.fromkeys(made, 1), made
+    want = aniso._render_plain(pk, z_lo, z_hi, vox, with_rgb, "bfloat16")
+    peak = want.abs().max().item()
+    err, ctl = ((fwd[bf] - want).abs().max().item() for bf in (True, False))
+    print(f"forward: {err / peak:.3e} of the largest, control "
+          f"{ctl / peak:.3e}")
+    assert err <= BF16_FWD_SHARE * peak < ctl
+    g_p = aniso.aniso_backward_reference(pk, z_lo, z_hi, ct, vox, with_rgb,
+                                         "bfloat16")
+    groups = SPLAT_GROUPS if with_rgb else SPLAT_GROUPS[:3]
+    for label, a, b in groups:
+        p = g_p[:, a:b]
+        share = (bwd[True][:, a:b] - p).abs().max().item() / p.abs().max()
+        rel, rel_f = (_rel_l2(bwd[bf][:, a:b], p) for bf in (True, False))
+        print(f"d {label}: {share:.3e} of the largest, relative L2 "
+              f"{rel:.3e}, control {rel_f:.3e}")
+        assert share <= BF16_SHARE and rel <= BF16_GRAD_L2 < rel_f, label
+    if not with_rgb:
+        assert not bwd[True][:, 10:13].any()
+
+
+def test_aniso_f32_backward_reference_is_the_derivative(cuda):
+    """On the card, the float32 aniso_backward_reference against autograd
+    through the plain forward: relative L2 within 2e-4 per row group (the
+    plain side K7's kernel-vs-plain checks could take)."""
+    mu, A6, w, rgb, rz = _splat_inputs(cuda, 4, 1000, 32, 77, keep=0.1)
+    pk = aniso.pack(mu, A6, w, rgb).requires_grad_()
+    z_lo, z_hi = aniso.z_ranges(mu[..., 0], rz, 32)
+    ct = torch.randn(4, 4, 32, 32, 32, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(1))
+    out = aniso._render_plain(pk, z_lo, z_hi, 32, True, "float32")
+    want, = torch.autograd.grad((out * ct).sum(), pk)
+    got = aniso.aniso_backward_reference(pk.detach(), z_lo, z_hi, ct, 32,
+                                         True)
+    for label, a, b in SPLAT_GROUPS:
+        assert _rel_l2(got[:, a:b], want[:, a:b]) <= 2e-4, label

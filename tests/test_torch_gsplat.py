@@ -238,14 +238,22 @@ def test_gsplat_project_matches_dpcx(impl, proj_depth, monkeypatch):
 
 
 def test_gsplat_refusals():
-    """bfloat16 operands and the windowed form are not ported (each names
-    its ROADMAP item); D > 64 with the Pallas path raises as in dpcx; a
-    device that is neither cpu nor cuda raises."""
+    """The windowed form is not ported (it names its ROADMAP item); D > 64
+    with the Pallas path raises as in dpcx; a device that is neither cpu
+    nor cuda raises, and so does an operand mode dpcx lacks. bfloat16
+    operands run on the CPU (the plain version, K7's function as its
+    backward) with finite gradients."""
     _, tcfg = _cfgs("pallas")
     pts, scales, rot, opac, rgb = _t(*_inputs(5, n=64))
     q = torch.tensor([[1.0, 0, 0, 0]] * B)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tgs.gsplat_project(tcfg.replace(pallas_acc_dtype="bfloat16"), pts, q,
+    ins = [t.clone().requires_grad_() for t in (pts, scales, opac, rgb)]
+    out = tgs.gsplat_project(tcfg.replace(pallas_acc_dtype="bfloat16"),
+                             ins[0], q, ins[1], rot, ins[2], ins[3])
+    (out.silhouette.sum() + out.rgb.sum()).backward()
+    assert all(t.grad.isfinite().all() and t.grad.abs().max() > 0
+               for t in ins)
+    with pytest.raises(ValueError, match="acc_dtype"):
+        tgs.gsplat_project(tcfg.replace(pallas_acc_dtype="float16"), pts, q,
                            scales, rot, opac, rgb)
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         tgs.gsplat_project(tcfg.replace(gsplat_impl="windowed"), pts, q,
