@@ -2,8 +2,12 @@
 """Smoke run of the PyTorch port (dpcx_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --splat-times TREE
 
-Phases, each of which raises on failure (exit code non-zero):
+The second form times only K6, K7 and the rgb_splats training step of
+the checkout at TREE (splat_times), for an A/B of a splat kernel change
+against an older commit. The first runs these phases, each of which
+raises on failure (exit code non-zero):
 
 1. build    — compile the CUDA kernels from dpcx_torch/csrc with nvcc,
               and print each kernel's stack frame and spills (ptxas).
@@ -117,7 +121,9 @@ Phases, each of which raises on failure (exit code non-zero):
 10. time    — CUDA-event medians: each forward and backward kernel
               against its plain version at the shapes of phases 2, 3b and
               3c (the recompute backward too) and at the rgb_splats render
-              of phase 3d; host-clock serve latency at batch 16 and the
+              of phase 3d (K6/K7 beside their bound, the floor of one exp a
+              point-cell on the MUFU, and the kernels' own operation
+              count); host-clock serve latency at batch 16 and the
               median car_64_depth, multicat_128, rgb_splats and
               chair_pred_pose training steps (the last three in both
               operand modes).
@@ -146,6 +152,7 @@ could take for the same work), and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import re
@@ -241,10 +248,30 @@ ANISO_BWD_OPS = {True: (23, 22, 21), False: (11, 22, 21)}
 # coefficients (12), a plane its dz terms (6)
 ANISO_FWD_BF16_OPS = {True: (5, 8, 12, 6), False: (5, 2, 12, 6)}
 ANISO_BWD_BF16_OPS = {True: (15, 18, 12, 6), False: (6, 12, 12, 6)}
-# what csrc/aniso_splat.cu itself spends per point-cell (expf as 2), printed
-# beside the bound: K6 24 / 18, K7 55 / 43 (it recomputes per-row terms in
-# every cell and sums ten moments per cell)
-ANISO_KERNEL_OPS = {False: {True: 24, False: 18}, True: {True: 55, False: 43}}
+# What csrc/aniso_splat.cu itself spends per point-cell, printed beside the
+# bound: by mode (bf16), then K6 / K7 (backward), then rgb / density only;
+# an FMA 2, ex2.approx 1, expf 8 (its range reduction and polynomial, as
+# the .cu header counts it), a bf16 rounding 0, the row terms spread over
+# the cells that share them (at D 32: 4 cells a thread in K6, 32 in K7).
+# f32 K6: dx, 2 FMAs, ex2, the density sum and 3 colour FMAs (13; density
+# only 7) and the row's dy, base, m once per 4 cells (8 / 4). f32 K7: e as
+# K6 (6), v = ct_d + r ct_r + g ct_g + b ct_b (3 FMAs), u = e v, 3 colour
+# FMAs, sum u, u dx, (u dx) dx (5) (24; density only u = e ct_d, 12) and
+# a row's dz and dy terms and its fold into ten moments (~35 / 32). bf16
+# K6 (D 32, the sums on the tensor cores): dx, the uncontracted exponent
+# (5), expf (8) and exact_row per 4 cells (9 / 4) (16, with rgb or
+# without: the sums are 8 bf16 MACs a point-cell, not counted here). bf16
+# K7: dx, exponent (5), expf (8), e ct (4), u (6), the colour sums (3),
+# the moment sums (5) (32; density only 20) and the row's terms (~20 /
+# 32; its fold is 10 float64 FMAs)
+ANISO_KERNEL_OPS = {
+    False: {False: {True: 15, False: 9}, True: {True: 25, False: 13}},
+    True: {False: {True: 16, False: 16}, True: {True: 33, False: 21}},
+}
+# one exp per point-cell on the MUFU, 16 a clock per SM on 132 SMs at the
+# H100 SXM's 1.98 GHz boost clock: a floor beside the bound (which counts
+# exp2 as one operation at the FMA rate), printed as information
+MUFU_EXP_PER_S = 132 * 16 * 1.98e9
 
 
 def card_line() -> str:
@@ -256,15 +283,17 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def ptxas_report(log: str) -> list[tuple[str, int, int]]:
-    """(kernel, stack frame bytes, spill store + load bytes) per function
-    from nvcc's -Xptxas=-v output; a template kernel as name<D>."""
-    out, name = [], None
+def ptxas_report(log: str) -> list[tuple[str, int, int, int, int]]:
+    """(kernel, stack frame bytes, spill store + load bytes, registers,
+    static shared memory bytes) per function from nvcc's -Xptxas=-v
+    output; a template kernel as name<args>."""
+    out, name, frame = [], None, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
                       r"for )([^' ]+)", line)
         if m:
-            k = re.search(r"([a-z_]+_kernel)((?:I?L[ib]\d+E)*)", m.group(1))
+            k = re.search(r"([a-z_]+_kernel(?:_mma)?)((?:I?L[ib]\d+E)*)",
+                          m.group(1))
             args = [("true" if v == "1" else "false") if t == "b" else v
                     for t, v in re.findall(r"L([ib])(\d+)E",
                                            k.group(2) if k else "")]
@@ -274,9 +303,14 @@ def ptxas_report(log: str) -> list[tuple[str, int, int]]:
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m and name:
-            out.append((name, int(m.group(1)),
-                        int(m.group(2)) + int(m.group(3))))
-            name = None
+            frame = (int(m.group(1)), int(m.group(2)) + int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, *frame, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0))
+            name = frame = None
     return out
 
 
@@ -296,8 +330,9 @@ def cuda_ms(fn, runs: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
-    """Median host milliseconds of fn(), which must end synchronised."""
+def host_times(fn, runs: int = 20, warmup: int = 2) -> list[float]:
+    """Host milliseconds of each of ``runs`` calls of fn(), which must end
+    synchronised, after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
     times = []
@@ -305,7 +340,12 @@ def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return times
+
+
+def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
+    """Median host milliseconds of fn(), which must end synchronised."""
+    return statistics.median(host_times(fn, runs, warmup))
 
 
 def launch_event_ms(fn, runs: int = 10) -> float:
@@ -1260,11 +1300,12 @@ def phase_aniso_bf16(aniso, bwd_cases) -> list[dict]:
         vox, with_rgb, ct = case["vox"], case["rgb"] is not None, case["ct"]
         pk = aniso.pack(case["mu"], case["A6"], case["w"], case["rgb"])
         z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], vox)
+        table = aniso.chunk_table(case["mu"][..., 0], case["rz"], vox)
         before = launch_counts()
-        fwd = {bf: aniso._launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf)
+        fwd = {bf: aniso._launch_forward(pk, table, vox, with_rgb, bf)
                for bf in (True, False)}
-        bwd = {bf: aniso._launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb,
-                                          bf) for bf in (True, False)}
+        bwd = {bf: aniso._launch_backward(pk, table, ct, vox, with_rgb, bf)
+               for bf in (True, False)}
         torch.cuda.synchronize()
         made = {k: v - before[k] for k, v in launch_counts().items()}
         assert made == only(aniso_render=1, aniso_render_bwd=1,
@@ -1303,8 +1344,8 @@ def phase_aniso_bf16(aniso, bwd_cases) -> list[dict]:
                 missed.append((name, err, top, rel, rel_f))
             bwd_err = max(bwd_err, err)
         assert not missed, (label, missed)
-        out.append(dict(case, pk=pk, z_lo=z_lo, z_hi=z_hi, fwd_err=fwd_err,
-                        bwd_err=bwd_err))
+        out.append(dict(case, pk=pk, z_lo=z_lo, z_hi=z_hi, table=table,
+                        fwd_err=fwd_err, bwd_err=bwd_err))
     check_aniso_bf16_wrapper(aniso, bwd_cases[0])
     return out
 
@@ -1358,18 +1399,17 @@ def check_aniso_bf16_wrapper(aniso, case) -> None:
 
 
 def time_aniso(aniso, case):
-    """CUDA-event ms of K6 (the wrapper, z-ranges included), K7 alone (the
-    launch on the saved inputs), the plain forward, and the plain forward
-    plus backward; and the K7 launch itself for the profiler."""
+    """CUDA-event ms of K6 (the wrapper, the chunk table included), K7 alone
+    (the launch on the saved inputs), the plain forward, and the plain
+    forward plus backward; and the K7 launch itself for the profiler."""
     args = aniso_args(case)
     with_rgb = case["rgb"] is not None
     fwd_ms = cuda_ms(lambda: aniso.aniso_density(*args))
     pk = aniso.pack(case["mu"], case["A6"], case["w"], case["rgb"])
-    z_lo, z_hi = aniso.z_ranges(case["mu"][..., 0], case["rz"], case["vox"])
+    table = aniso.chunk_table(case["mu"][..., 0], case["rz"], case["vox"])
 
     def bwd():
-        aniso._launch_backward(pk, z_lo, z_hi, case["ct"], case["vox"],
-                               with_rgb)
+        aniso._launch_backward(pk, table, case["ct"], case["vox"], with_rgb)
 
     bwd_ms = cuda_ms(bwd)
     plain_ms = cuda_ms(lambda: aniso.aniso_density_reference(*args), runs=5,
@@ -1408,11 +1448,17 @@ def aniso_bound(case, backward: bool, bf16: bool = False
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def aniso_own_ms(case, backward: bool) -> float:
+def aniso_own_ms(case, backward: bool, bf16: bool = False) -> float:
     """ms of the f32 operations csrc/aniso_splat.cu spends on this case's
     point-cells, at PEAK_F32_FLOPS (not a bound: the kernel's own count)."""
-    own = ANISO_KERNEL_OPS[backward][case["rgb"] is not None]
+    own = ANISO_KERNEL_OPS[bf16][backward][case["rgb"] is not None]
     return own * case["point_cells"] / PEAK_F32_FLOPS * 1e3
+
+
+def mufu_floor_ms(case) -> float:
+    """ms of one exp per point-cell of this case on the MUFU (K6 and K7
+    alike): a floor the bound does not show, not the bound."""
+    return case["point_cells"] / MUFU_EXP_PER_S * 1e3
 
 
 def splat_train(cli, path: str, run_dir: Path, steps: int, mode: str,
@@ -1738,11 +1784,86 @@ def phase_pred_pose(cli, fused, tmp: Path):
     return cfg, bf, ds, launches, bf_launches
 
 
+def splat_times(tree: Path) -> int:
+    """``--splat-times TREE``: the A/B of a change to the splat kernels, for
+    the checkout at TREE (this one, or an older commit unpacked with `git
+    archive` into a directory .gitignore lists), whose dpcx_torch is
+    imported and built; run it for the two trees in turns, one process
+    each (old, new, new, old). Prints ptxas's report of the tree's splat
+    kernels, then for each operand mode one JSON line: K6's and K7's
+    torch.profiler device us per call at phase 3b's rgb_splats render
+    (through the wrapper and autograd, which every tree's launchers
+    share) and the host-clock median, 10th and 90th percentiles of 30
+    rgb_splats training steps (after 3) on 32 synthetic models."""
+    sys.path.insert(0, str(tree.resolve()))
+    import dpcx_torch
+    from dpcx_torch import _build
+    from dpcx_torch.config import load_config
+    from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.render import aniso
+
+    assert Path(dpcx_torch.__file__).resolve().is_relative_to(
+        tree.resolve()), dpcx_torch.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    _build.build()
+    _build.load()
+    for name, frame, spill, regs, smem in ptxas_report(
+            _build.build_log().read_text()):
+        if "aniso" in name:
+            print(f"splat times {tree}: ptxas {name}: {regs} registers, "
+                  f"{smem} bytes shared memory, {frame} bytes stack frame, "
+                  f"{spill} bytes spilled", flush=True)
+    case = splat_inputs(32, 4096, 32, SEED + 10, True)
+    ct = torch.tensor(np.random.default_rng(SEED + 20).normal(
+        size=(32, 4, 32, 32, 32)), dtype=torch.float32, device=DEVICE)
+    cfg = load_config(RGB_SPLATS).validate()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        cfg = cfg.replace(data_dir=str(Path(tmp) / "data"),
+                          checkpoint_dir=str(Path(tmp) / "run"))
+        ds = load_or_make(cfg, 32, seed=cfg.seed, device=DEVICE)
+        for mode in ("float32", "bfloat16"):
+            def fwd():
+                with torch.no_grad():
+                    aniso.aniso_density(*aniso_args(case), acc_dtype=mode)
+
+            ins = [case[k].detach().requires_grad_()
+                   for k in ("mu", "A6", "w", "rgb")]
+            dens, cols = aniso.aniso_density(*ins, case["rz"], 32,
+                                             acc_dtype=mode)
+            loss = (torch.cat([dens[:, None], cols], 1) * ct).sum()
+
+            def bwd():
+                torch.autograd.grad(loss, ins, retain_graph=True)
+
+            rec = {"tree": str(tree), "mode": mode}
+            for key, fn, kernel in (("k6_device_us", fwd, "aniso_fwd_kernel"),
+                                    ("k7_device_us", bwd, "aniso_bwd_kernel")):
+                rec[key] = sum(us for name, us in device_profile(
+                    fn, f"{kernel} {mode} {tree}") if kernel in name)
+            steps = host_times(training_step_fn(
+                cfg.replace(pallas_acc_dtype=mode), ds), runs=30, warmup=3)
+            rec.update(step_ms_median=statistics.median(steps),
+                       step_ms_p10=float(np.percentile(steps, 10)),
+                       step_ms_p90=float(np.percentile(steps, 90)),
+                       card=card)
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--splat-times", metavar="TREE", type=Path,
+                    help="time only K6, K7 and the rgb_splats step of the "
+                         "checkout at TREE (see splat_times)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs a CUDA card", file=sys.stderr)
         return 2
+    if args.splat_times is not None:
+        return splat_times(args.splat_times)
 
     from dpcx_torch import _build, cli
     from dpcx_torch.config import load_config, save_config
@@ -1764,9 +1885,11 @@ def main() -> int:
     _build.load()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for name, frame, spill in ptxas_report(_build.build_log().read_text()):
-        print(f"build: ptxas {name}: {frame} bytes stack frame, {spill} "
-              "bytes spilled", flush=True)
+    for name, frame, spill, regs, smem in ptxas_report(
+            _build.build_log().read_text()):
+        print(f"build: ptxas {name}: {regs} registers, {smem} bytes shared "
+              f"memory, {frame} bytes stack frame, {spill} bytes spilled",
+              flush=True)
 
     cfg = load_config(CONFIG).validate()
     assert cfg.renderer == "pallas" and cfg.proj_depth
@@ -1930,7 +2053,9 @@ def main() -> int:
                       f"{case['point_cells']} point-cells): K6 {f_ms:.4f} ms "
                       f"(bound {aniso_bound(case, False)[0]:.4f}), K7 "
                       f"{b_ms:.4f} ms (bound {aniso_bound(case, True)[0]:.4f}"
-                      f"); the kernels' own f32 operations at peak: K6 "
+                      f"); MUFU floor of one exp per point-cell "
+                      f"{mufu_floor_ms(case):.4f} ms (not the bound); the "
+                      f"kernels' own f32 operations at peak: K6 "
                       f"{aniso_own_ms(case, False):.4f} ms, K7 "
                       f"{aniso_own_ms(case, True):.4f} ms; plain forward "
                       f"{p_ms:.4f} ms, plain forward + backward "
@@ -1939,9 +2064,8 @@ def main() -> int:
             sp_bf_args = aniso_args(sp_bf_case)
 
             def sp_bf_launch():
-                aniso._launch_backward(
-                    sp_bf_case["pk"], sp_bf_case["z_lo"], sp_bf_case["z_hi"],
-                    sp_bf_case["ct"], 32, True, True)
+                aniso._launch_backward(sp_bf_case["pk"], sp_bf_case["table"],
+                                       sp_bf_case["ct"], 32, True, True)
 
             sp_bf_ms = (
                 cuda_ms(lambda: aniso.aniso_density(*sp_bf_args,
@@ -1960,7 +2084,11 @@ def main() -> int:
                   f"{aniso_bound(sp_bf_case, False, True)[0]:.4f}), K7 "
                   f"{sp_bf_ms[1]:.4f} ms (f32 mode "
                   f"{aniso_timings[sp_bf_case['name']][1]:.4f}; bound "
-                  f"{aniso_bound(sp_bf_case, True, True)[0]:.4f}); plain "
+                  f"{aniso_bound(sp_bf_case, True, True)[0]:.4f}); MUFU "
+                  f"floor {mufu_floor_ms(sp_bf_case):.4f} ms (not the "
+                  f"bound); the kernels' own f32 operations at peak: K6 "
+                  f"{aniso_own_ms(sp_bf_case, False, True):.4f} ms, K7 "
+                  f"{aniso_own_ms(sp_bf_case, True, True):.4f} ms; plain "
                   f"forward {sp_bf_ms[2]:.4f} ms, plain backward "
                   f"(aniso_backward_reference) {sp_bf_ms[3]:.4f} ms | {card}",
                   flush=True)
@@ -2038,12 +2166,12 @@ def main() -> int:
             print_step_breakdown(step, f"multicat_128 {label}")
         sp_case = aniso_bwd[0]
         device_profile(lambda: aniso.aniso_density(*aniso_args(sp_case)),
-                       "K6 rgb_splats (with the z-ranges)")
+                       "K6 rgb_splats (with the chunk table)")
         device_profile(aniso_launch[sp_case["name"]],
                        "K7 rgb_splats (launch on the saved inputs)")
         device_profile(lambda: aniso.aniso_density(*sp_bf_args,
                                                    acc_dtype="bfloat16"),
-                       "K6 bf16 rgb_splats (with the z-ranges)")
+                       "K6 bf16 rgb_splats (with the chunk table)")
         device_profile(sp_bf_launch,
                        "K7 bf16 rgb_splats (launch on the saved inputs)")
         for label, fn in sp_step_fns.items():

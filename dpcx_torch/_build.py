@@ -118,11 +118,11 @@ def load() -> ctypes.CDLL:
         ]
         fn.restype = i32
     # csrc/aniso_splat.cu: the anisotropic splat forward (K6) and backward
-    # (K7), the operand mode likewise last before the stream
-    lib.dpcx_aniso_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                      i32, ptr]
+    # (K7): the packed points, the chunk table (order, band_lo, band_hi),
+    # then the grids; renders, N, sorted positions, chunks, D, rgb, and the
+    # operand mode last before the stream
+    lib.dpcx_aniso_render.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.dpcx_aniso_render.restype = i32
-    lib.dpcx_aniso_render_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                          i32, i32, i32, ptr]
+    lib.dpcx_aniso_render_bwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.dpcx_aniso_render_bwd.restype = i32
     return lib

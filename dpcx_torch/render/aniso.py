@@ -18,9 +18,12 @@ sorted by mu_z, and cut into chunks of C; a chunk covers the cells
 [zb, zb + nt G) with zb = clip(floor(min(mu_z - rz)), 0, D - 1) and nt whole
 trips of G slabs up to clip(floor(max(mu_z + rz)) + 1, 0, D - 1), clipped
 at D (``_window_metadata`` and ``_tiling``). Every point of a chunk adds to
-every cell of the chunk's band, not only within its own +-rz. ``z_ranges``
-computes that band for each point and hands it back in the original point
-order, so the kernels need neither the sort nor an un-sort.
+every cell of the chunk's band, not only within its own +-rz.
+``chunk_table`` computes the sort order and the chunks' bands once; the
+kernels take them (K6 walks only the chunks whose band covers its plane,
+K7 gives each block 128 sorted points, which share one band), and
+``z_ranges`` hands each point its band in the original point order for
+the plain versions.
 
 ``acc_dtype`` "bfloat16" is the Pallas kernels' bfloat16 operand mode. The
 forward rounds e to bfloat16 (nearest-even) and the colours once, and sums
@@ -39,7 +42,7 @@ whose forward and backward launch the hand-written CUDA kernels of
 version: in float32 ``aniso_density_reference``, which autograd
 differentiates; in bfloat16 ``aniso_density_plain``, the plain forward with
 K7's function written out as its backward. Any other device raises.
-Neither gets a gradient for rz or the integer z-ranges, as dpcx's VJP
+Neither gets a gradient for rz or the integer chunk table, as dpcx's VJP
 gives rz a zero cotangent.
 """
 
@@ -74,11 +77,14 @@ def tiling(num_points: int, vox: int) -> tuple[int, int]:
 
 
 @torch.no_grad()
-def z_ranges(mu_z: torch.Tensor, rz: torch.Tensor,
-             vox: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-point z-range [z_lo, z_hi) of the cells the point adds to, by
-    the chunk rule of dpcx's Pallas kernel; mu_z, rz [B, N] -> two int32
-    [B, N] in the original point order (z_hi == z_lo: no cell)."""
+def chunk_table(mu_z: torch.Tensor, rz: torch.Tensor,
+                vox: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dpcx's chunking of the points (``_sort_packed`` and
+    ``_window_metadata``): mu_z, rz [B, N] -> (order [B, Np] int32, the
+    stable depth sort of the points padded to Np, a multiple of the chunk
+    C: sorted position -> original index, pads >= N; band_lo, band_hi
+    [B, Np // C] int32, each chunk's z-band [lo, hi), hi == lo for none).
+    C is a multiple of 128, so every 128 sorted points share one band."""
     B, N = mu_z.shape
     D = vox
     G, C = tiling(N, D)
@@ -97,11 +103,26 @@ def z_ranges(mu_z: torch.Tensor, rz: torch.Tensor,
     ze = hi.clamp(0, D - 1)
     nt = torch.ceil((ze - zb + 1.0) / G)
     nt = torch.where((hi < 0) | (lo > D - 1), torch.zeros_like(nt), nt)
-    z_lo_c = zb.to(torch.int32)
-    z_hi_c = (zb + nt * G).clamp(max=D).to(torch.int32)
+    band_lo = zb.to(torch.int32)
+    band_hi = (zb + nt * G).clamp(max=D).to(torch.int32)
+    return (order.to(torch.int32).contiguous(), band_lo.contiguous(),
+            band_hi.contiguous())
+
+
+@torch.no_grad()
+def z_ranges(mu_z: torch.Tensor, rz: torch.Tensor,
+             vox: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point z-range [z_lo, z_hi) of the cells the point adds to, by
+    the chunk rule of dpcx's Pallas kernel (``chunk_table``'s band of the
+    point's chunk); mu_z, rz [B, N] -> two int32 [B, N] in the original
+    point order (z_hi == z_lo: no cell)."""
+    N = mu_z.shape[1]
+    order, band_lo, band_hi = chunk_table(mu_z, rz, vox)
+    C = order.shape[1] // band_lo.shape[1]
+    order = order.long()
     # chunk -> sorted point -> original point
-    lo_s = z_lo_c.repeat_interleave(C, dim=1)
-    hi_s = z_hi_c.repeat_interleave(C, dim=1)
+    lo_s = band_lo.repeat_interleave(C, dim=1)
+    hi_s = band_hi.repeat_interleave(C, dim=1)
     z_lo = torch.empty_like(lo_s).scatter_(1, order, lo_s)[:, :N]
     z_hi = torch.empty_like(hi_s).scatter_(1, order, hi_s)[:, :N]
     return z_lo.contiguous(), z_hi.contiguous()
@@ -332,20 +353,23 @@ def aniso_density_plain(
     return out[:, 0] if rgb is None else (out[:, 0], out[:, 1:4])
 
 
-def _launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf16=False) -> torch.Tensor:
-    """K6: packed points [B, 13, N], z-ranges [B, N] -> [B, CH, D, D, D]
-    (CH 4 with rgb, else 1). ``bf16``: the bfloat16 operand mode."""
+def _launch_forward(pk, table, vox, with_rgb, bf16=False) -> torch.Tensor:
+    """K6: packed points [B, 13, N], ``chunk_table``'s (order, band_lo,
+    band_hi) -> [B, CH, D, D, D] (CH 4 with rgb, else 1). ``bf16``: the
+    bfloat16 operand mode."""
     from dpcx_torch import _build
 
     B, _, N = pk.shape
     D = vox
+    order, band_lo, band_hi = table
     out = torch.empty((B, 4 if with_rgb else 1, D, D, D),
                       dtype=torch.float32, device=pk.device)
     lib = _build.load()
     with torch.cuda.device(pk.device):
         err = lib.dpcx_aniso_render(
-            pk.data_ptr(), z_lo.data_ptr(), z_hi.data_ptr(), out.data_ptr(),
-            B, N, D, int(with_rgb), int(bf16),
+            pk.data_ptr(), order.data_ptr(), band_lo.data_ptr(),
+            band_hi.data_ptr(), out.data_ptr(), B, N, order.shape[1],
+            band_lo.shape[1], D, int(with_rgb), int(bf16),
             torch.cuda.current_stream(pk.device).cuda_stream,
         )
     name = "aniso_render" + ("_bf16" if bf16 else "")
@@ -355,20 +379,26 @@ def _launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf16=False) -> torch.Tensor:
     return out
 
 
-def _launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb,
+def _launch_backward(pk, table, ct, vox, with_rgb,
                      bf16=False) -> torch.Tensor:
     """K7: the cotangent of the forward's output [B, CH, D, D, D] -> the
     gradient of the packed points [B, 13, N] (colour rows zero without
-    rgb). ``bf16``: the bfloat16 operand mode (raw moments)."""
+    rgb); ``table`` as ``_launch_forward``'s. ``bf16``: the bfloat16
+    operand mode (raw moments)."""
     from dpcx_torch import _build
 
     B, _, N = pk.shape
+    order, band_lo, band_hi = table
+    ct = ct.contiguous()
+    if ct.data_ptr() % 16:  # the kernel stages it in 16-byte copies
+        ct = ct.clone()
     dpk = torch.empty_like(pk)
     lib = _build.load()
     with torch.cuda.device(pk.device):
         err = lib.dpcx_aniso_render_bwd(
-            pk.data_ptr(), z_lo.data_ptr(), z_hi.data_ptr(), ct.data_ptr(),
-            dpk.data_ptr(), B, N, vox, int(with_rgb), int(bf16),
+            pk.data_ptr(), order.data_ptr(), band_lo.data_ptr(),
+            band_hi.data_ptr(), ct.data_ptr(), dpk.data_ptr(), B, N,
+            order.shape[1], band_lo.shape[1], vox, int(with_rgb), int(bf16),
             torch.cuda.current_stream(pk.device).cuda_stream,
         )
     name = "aniso_render_bwd" + ("_bf16" if bf16 else "")
@@ -380,23 +410,24 @@ def _launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb,
 
 class _AnisoSplat(torch.autograd.Function):
     """K6 forward, K7 backward (a one-pass recompute: nothing but the
-    packed points and the z-ranges is kept), in either operand mode. No
-    gradient reaches the z-ranges."""
+    packed points and the chunk table is kept, so the sort runs once a
+    step), in either operand mode. No gradient reaches the table."""
 
     @staticmethod
-    def forward(ctx, pk, z_lo, z_hi, vox, with_rgb, bf16):
-        out = _launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf16)
-        ctx.save_for_backward(pk, z_lo, z_hi)
+    def forward(ctx, pk, order, band_lo, band_hi, vox, with_rgb, bf16):
+        table = (order, band_lo, band_hi)
+        out = _launch_forward(pk, table, vox, with_rgb, bf16)
+        ctx.save_for_backward(pk, *table)
         ctx.vox, ctx.with_rgb, ctx.bf16 = vox, with_rgb, bf16
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        pk, z_lo, z_hi = ctx.saved_tensors
-        dpk = _launch_backward(pk, z_lo, z_hi, dout.contiguous(), ctx.vox,
-                               ctx.with_rgb, ctx.bf16)
-        return dpk, None, None, None, None, None
+        pk, *table = ctx.saved_tensors
+        dpk = _launch_backward(pk, table, dout, ctx.vox, ctx.with_rgb,
+                               ctx.bf16)
+        return dpk, None, None, None, None, None, None
 
 
 def aniso_density(
@@ -434,7 +465,7 @@ def aniso_density(
     for name, t in (("A6", A6), ("w", w), ("rgb", rgb), ("rz", rz)):
         if t is not None and t.device != mu.device:
             raise ValueError(f"{name} is on {t.device}, mu on {mu.device}")
-    z_lo, z_hi = z_ranges(mu[..., 0], rz, vox)
-    out = _AnisoSplat.apply(pack(mu, A6, w, rgb), z_lo, z_hi, vox,
+    out = _AnisoSplat.apply(pack(mu, A6, w, rgb),
+                            *chunk_table(mu[..., 0], rz, vox), vox,
                             rgb is not None, bf16)
     return out[:, 0] if rgb is None else (out[:, 0], out[:, 1:4])

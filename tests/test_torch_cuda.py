@@ -15,7 +15,8 @@ The anisotropic splat kernels (K6/K7 counterparts, ``render/aniso.py``)
 sum without atomics but in another order than the plain version, and the
 density peaks at ~1e2 where one f32 ulp is ~1e-5: their grids are held to
 1e-4 of the largest plain value (at least 1e-4 absolute), their gradients
-to 2e-4 relative L2 (dpcx's own kernel-vs-oracle bound).
+to 2e-4 relative L2 (dpcx's own kernel-vs-oracle bound); two launches on
+the same inputs are bitwise equal.
 """
 
 import numpy as np
@@ -324,6 +325,9 @@ def _splat_inputs(cuda, renders, n, vox, seed, keep=None):
         (3, 1000, 16, True),  # N % 128 != 0: pads in the last chunk
         (2, 2000, 64, True),  # D 64: 16 cells a thread
         (4, 300, 8, False),  # D 8: 1 cell a thread
+        (4, 256, 32, True),  # one chunk, C 256
+        (3, 1000, 64, True),  # D 64 with pads in the last chunk
+        (2, 500, 24, True),  # D 24: rows of 6 threads, 4 x each
     ],
 )
 def test_aniso_kernel_matches_plain(cuda, renders, n, vox, with_rgb):
@@ -347,6 +351,9 @@ def test_aniso_kernel_matches_plain(cuda, renders, n, vox, with_rgb):
     (32, 4096, 32, True),  # the rgb_splats training render
     (4, 1000, 16, False),
     (2, 700, 64, True),
+    (4, 256, 32, True),  # one chunk, C 256: two blocks a render
+    (3, 1000, 64, True),  # quarter-plane stages, pads in the last chunk
+    (2, 500, 24, True),  # D 24: the kernel's any-D form
 ])
 def test_aniso_backward_matches_plain(cuda, renders, n, vox, with_rgb):
     """K7's gradients to (mu, A6, w, rgb) against autograd through the
@@ -582,7 +589,9 @@ SPLAT_GROUPS = (("mu", 0, 3), ("A6", 3, 9), ("w", 9, 10), ("rgb", 10, 13))
 @pytest.mark.parametrize("renders,n,vox,with_rgb", [
     (4, 1000, 32, True),
     (4, 1000, 32, False),  # density only
-    (2, 700, 64, True),  # D 64: two x columns a lane, basis errors up to 8
+    (2, 700, 64, True),  # D 64: quarter-plane stages, basis errors up to 8
+    (3, 1000, 64, True),  # D 64 with pads in the last chunk
+    (4, 256, 32, True),  # one chunk, C 256
 ])
 def test_aniso_bf16_kernels_match_plain(cuda, renders, n, vox, with_rgb):
     """K6 and K7 in bfloat16 operand mode against the plain bfloat16
@@ -596,13 +605,14 @@ def test_aniso_bf16_kernels_match_plain(cuda, renders, n, vox, with_rgb):
                                        keep=0.1)
     pk = aniso.pack(mu, A6, w, rgb if with_rgb else None)
     z_lo, z_hi = aniso.z_ranges(mu[..., 0], rz, vox)
+    table = aniso.chunk_table(mu[..., 0], rz, vox)
     ct = torch.randn(renders, 4 if with_rgb else 1, vox, vox, vox,
                      device=cuda, generator=torch.Generator(
                          device=cuda).manual_seed(vox))
     before = dict(aniso.LAUNCHES)
-    fwd = {bf: aniso._launch_forward(pk, z_lo, z_hi, vox, with_rgb, bf)
+    fwd = {bf: aniso._launch_forward(pk, table, vox, with_rgb, bf)
            for bf in (True, False)}
-    bwd = {bf: aniso._launch_backward(pk, z_lo, z_hi, ct, vox, with_rgb, bf)
+    bwd = {bf: aniso._launch_backward(pk, table, ct, vox, with_rgb, bf)
            for bf in (True, False)}
     torch.cuda.synchronize()
     made = {k: v - before[k] for k, v in aniso.LAUNCHES.items()}
@@ -642,3 +652,23 @@ def test_aniso_f32_backward_reference_is_the_derivative(cuda):
                                          True)
     for label, a, b in SPLAT_GROUPS:
         assert _rel_l2(got[:, a:b], want[:, a:b]) <= 2e-4, label
+
+
+@pytest.mark.parametrize("renders,n,vox", [(8, 4096, 32), (3, 1000, 64)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_aniso_kernels_repeat_bitwise(cuda, renders, n, vox, bf16):
+    """K6 and K7 sum without atomics in a fixed order: two launches on the
+    same inputs give bitwise-equal outputs, in either operand mode."""
+    mu, A6, w, rgb, rz = _splat_inputs(cuda, renders, n, vox, n + vox,
+                                       keep=0.1)
+    pk = aniso.pack(mu, A6, w, rgb)
+    table = aniso.chunk_table(mu[..., 0], rz, vox)
+    ct = torch.randn(renders, 4, vox, vox, vox, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(n))
+    fwd = [aniso._launch_forward(pk, table, vox, True, bf16)
+           for _ in range(2)]
+    bwd = [aniso._launch_backward(pk, table, ct, vox, True, bf16)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fwd[0].abs().max() > 0 and bwd[0].abs().max() > 0
+    assert torch.equal(fwd[0], fwd[1]) and torch.equal(bwd[0], bwd[1])
