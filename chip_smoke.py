@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --splat-times TREE
+    python3 chip_smoke.py --render-times TREE
 
 The second form times only K6, K7 and the rgb_splats training step of
 the checkout at TREE (splat_times), for an A/B of a splat kernel change
-against an older commit. The first runs these phases, each of which
-raises on failure (exit code non-zero):
+against an older commit; the third, the same for the D > 64 renderer
+kernels (K3, K4 + K5) and the multicat_128 step (render_times). The
+first runs these phases, each of which raises on failure (exit code
+non-zero):
 
 1. build    — compile the CUDA kernels from dpcx_torch/csrc with nvcc,
               and print each kernel's stack frame and spills (ptxas).
@@ -201,10 +204,13 @@ SPLAT_GRAD_RTOL = 2e-4  # K7 vs plain: relative L2, dpcx's own bound for
 # the kernels of csrc/fused_render.cu, as torch.profiler names them
 K1_STAGES = ("splat_kernel", "blur_yx_kernel", "zblur_drc_kernel")
 # every kernel of csrc/*.cu: what the profiler check (check_profile) sums
-RENDER_KERNELS = ("splat_kernel", "blur_yx_kernel", "zblur_kernel",
-                  "zblur_drc_kernel", "zblur_drc_bwd_kernel",
-                  "drc_bwd_kernel", "zblock_transpose_kernel",
-                  "splat_bwd_kernel", "aniso_fwd_kernel", "aniso_bwd_kernel")
+RENDER_KERNELS = ("splat_kernel", "blur_yx_kernel", "blur_slab_kernel",
+                  "blur_z_kernel", "zblur_drc_kernel", "zblur_drc_bwd_kernel",
+                  "drc_bwd_kernel", "splat_bwd_kernel", "aniso_fwd_kernel",
+                  "aniso_bwd_kernel")
+# the names an older checkout's D > 64 z pass and z transpose had (before
+# blur_z_kernel), which render_times also sums when it times such a tree
+OLD_RENDER_KERNELS = ("zblur_kernel", "zblock_transpose_kernel")
 # their C entry points (csrc/*.cu), which launch_event_ms times
 C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
              "dpcx_fused_render_bwd_recompute", "dpcx_aniso_render",
@@ -382,14 +388,15 @@ def launch_event_ms(fn, runs: int = 10) -> float:
 
 
 def device_profile(fn, label: str, runs: int = 20, top: int = 8,
-                   host_top: int = 0,
-                   check: bool = True) -> list[tuple[str, float]]:
+                   host_top: int = 0, check: bool = True,
+                   names: tuple[str, ...] = RENDER_KERNELS
+                   ) -> list[tuple[str, float]]:
     """Print torch.profiler's device microseconds per call of fn(), summed
     and per kernel (memsets and copies included), beside the host
     microseconds per call measured without the profiler, and with
     ``host_top`` the host ops of the most self CPU time; return the
     per-kernel list, largest first. With ``check`` fn launches csrc
-    kernels, and the profiler's time of them (RENDER_KERNELS) is held
+    kernels, and the profiler's time of them (``names``) is held
     against launch_event_ms: below half of it the profile is taken once
     more, and still short, this raises (the profiler has dropped
     records)."""
@@ -423,7 +430,7 @@ def device_profile(fn, label: str, runs: int = 20, top: int = 8,
         assert event_us > 0, f"{label}: no csrc kernel launched"
         for attempt in (1, 2):
             prof_us = sum(us for name, us in kernels
-                          if any(k in name for k in RENDER_KERNELS))
+                          if any(k in name for k in names))
             print(f"profile check {label} (attempt {attempt}): csrc kernels "
                   f"{prof_us:.1f} us per call by torch.profiler, "
                   f"{event_us:.1f} us by CUDA events around their C entry "
@@ -736,17 +743,19 @@ def training_step_fn(cfg, ds):
 
 
 # kernel-name pieces -> the layer a training step's device time belongs
-# to; the first match wins, blur_yx_kernel (forward and backward both
-# launch it once a step) is split half and half. The renderer's forward is
-# K1 at D <= 64 and the counterpart of K3 above; its backward K2, or K4 + K5
+# to; the first match wins, blur_yx_kernel and blur_slab_kernel (forward
+# and backward both launch one once a step) are split half and half. The
+# renderer's forward is K1 at D <= 64 and the counterpart of K3 above; its
+# backward K2, or K4 + K5
 RENDER_FWD, RENDER_BWD = ("renderer forward (K1 / K3)",
                           "renderer backward (K2 / K4 + K5)")
 STEP_LAYERS = (
     ("splat renderer backward (K7)", ("aniso_bwd_kernel",)),
     ("splat renderer forward (K6)", ("aniso_fwd_kernel",)),
-    (RENDER_BWD, ("drc_bwd_kernel", "zblock_transpose_kernel",
+    (RENDER_BWD, ("drc_bwd_kernel", "blur_z_kernel<true",
                   "splat_bwd_kernel")),
-    (RENDER_FWD, ("zblur_drc_kernel", "zblur_kernel", "splat_kernel")),
+    (RENDER_FWD, ("zblur_drc_kernel", "blur_z_kernel<false",
+                  "splat_kernel")),
     ("Adam (foreach)", ("multi_tensor_apply",)),
     ("GEMMs", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
     ("convs", ("conv", "cudnn", "dgrad", "wgrad", "implicit")),
@@ -761,7 +770,7 @@ def print_step_breakdown(kernels: list[tuple[str, float]],
     layers = {name: 0.0 for name, _ in STEP_LAYERS}
     layers["other (elementwise, reductions, indexing)"] = 0.0
     for key, us in kernels:
-        if "blur_yx_kernel" in key:
+        if "blur_yx_kernel" in key or "blur_slab_kernel" in key:
             layers[RENDER_FWD] += us / 2
             layers[RENDER_BWD] += us / 2
             continue
@@ -1784,6 +1793,40 @@ def phase_pred_pose(cli, fused, tmp: Path):
     return cfg, bf, ds, launches, bf_launches
 
 
+def import_tree(tree: Path, label: str, keep) -> str:
+    """For an A/B run: put the checkout at TREE (this one, or an older
+    commit unpacked with `git archive` into a directory .gitignore lists)
+    first on the path, build and load its dpcx_torch, print ptxas's report
+    of its kernels whose name ``keep`` accepts, and return the card line."""
+    sys.path.insert(0, str(tree.resolve()))
+    import dpcx_torch
+    from dpcx_torch import _build
+
+    assert Path(dpcx_torch.__file__).resolve().is_relative_to(
+        tree.resolve()), dpcx_torch.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    _build.build()
+    _build.load()
+    for name, frame, spill, regs, smem in ptxas_report(
+            _build.build_log().read_text()):
+        if keep(name):
+            print(f"{label} {tree}: ptxas {name}: {regs} registers, "
+                  f"{smem} bytes shared memory, {frame} bytes stack frame, "
+                  f"{spill} bytes spilled", flush=True)
+    return card
+
+
+def step_stats(cfg, ds) -> dict:
+    """Host-clock median, 10th and 90th percentiles of 30 training steps
+    of cfg on ds, after 3."""
+    steps = host_times(training_step_fn(cfg, ds), runs=30, warmup=3)
+    return dict(step_ms_median=statistics.median(steps),
+                step_ms_p10=float(np.percentile(steps, 10)),
+                step_ms_p90=float(np.percentile(steps, 90)))
+
+
 def splat_times(tree: Path) -> int:
     """``--splat-times TREE``: the A/B of a change to the splat kernels, for
     the checkout at TREE (this one, or an older commit unpacked with `git
@@ -1795,26 +1838,11 @@ def splat_times(tree: Path) -> int:
     (through the wrapper and autograd, which every tree's launchers
     share) and the host-clock median, 10th and 90th percentiles of 30
     rgb_splats training steps (after 3) on 32 synthetic models."""
-    sys.path.insert(0, str(tree.resolve()))
-    import dpcx_torch
-    from dpcx_torch import _build
+    card = import_tree(tree, "splat times", lambda name: "aniso" in name)
     from dpcx_torch.config import load_config
     from dpcx_torch.data.dataset import load_or_make
     from dpcx_torch.render import aniso
 
-    assert Path(dpcx_torch.__file__).resolve().is_relative_to(
-        tree.resolve()), dpcx_torch.__file__
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    _build.build()
-    _build.load()
-    for name, frame, spill, regs, smem in ptxas_report(
-            _build.build_log().read_text()):
-        if "aniso" in name:
-            print(f"splat times {tree}: ptxas {name}: {regs} registers, "
-                  f"{smem} bytes shared memory, {frame} bytes stack frame, "
-                  f"{spill} bytes spilled", flush=True)
     case = splat_inputs(32, 4096, 32, SEED + 10, True)
     ct = torch.tensor(np.random.default_rng(SEED + 20).normal(
         size=(32, 4, 32, 32, 32)), dtype=torch.float32, device=DEVICE)
@@ -1842,11 +1870,85 @@ def splat_times(tree: Path) -> int:
                                     ("k7_device_us", bwd, "aniso_bwd_kernel")):
                 rec[key] = sum(us for name, us in device_profile(
                     fn, f"{kernel} {mode} {tree}") if kernel in name)
-            steps = host_times(training_step_fn(
-                cfg.replace(pallas_acc_dtype=mode), ds), runs=30, warmup=3)
-            rec.update(step_ms_median=statistics.median(steps),
-                       step_ms_p10=float(np.percentile(steps, 10)),
-                       step_ms_p90=float(np.percentile(steps, 90)),
+            rec.update(step_stats(cfg.replace(pallas_acc_dtype=mode), ds),
+                       card=card)
+            print(json.dumps(rec), flush=True)
+    return 0
+
+
+def stage_name(key: str) -> str:
+    """A profiler kernel name cut to its function and template arguments,
+    e.g. blur_slab_kernel<true>."""
+    m = re.search(r"(\w+_kernel(?:_mma)?(?:<[^>(]*>)?)", key)
+    return m.group(1) if m else key
+
+
+def render_times(tree: Path) -> int:
+    """``--render-times TREE``: the A/B of a change to the D > 64 renderer
+    kernels (K3, K4 + K5), for the checkout at TREE, as splat_times does
+    for the splats (one process per tree, in turns: old, new, new, old).
+    Prints ptxas's report of the tree's csrc/fused_render.cu kernels, then
+    for each operand mode one JSON line at phase 3/3c's multicat_128
+    render (16 x 16000, D 128, R 16, dropout weights, no depth): the
+    torch.profiler device us per call of the forward launch (K3), the
+    backward launch on the saved grid and the recompute launch (K4 + K5),
+    each in all and per kernel (the y/x pass, the z pass, the z transpose,
+    the walks, the splats, the memset), and the host-clock median, 10th
+    and 90th percentiles of 30 multicat_128 training steps (after 3) on 32
+    synthetic models."""
+    card = import_tree(tree, "render times",
+                       lambda name: "aniso" not in name)
+    from dpcx_torch.config import load_config
+    from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.render import fused, gauss
+    from dpcx_torch.render.voxelize import pc_point_dropout_weights
+
+    cfg = load_config(MULTICAT).validate()
+    renders, n, vox = 16, cfg.pc_num_points, cfg.vox_size
+    radius = gauss.kernel_radius(
+        max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
+        cfg.gauss_kernel_truncate)
+    rng = np.random.default_rng(SEED)
+    ndc = torch.from_numpy(seeded_ndc(rng, renders, n)).to(DEVICE)
+    pw = pc_point_dropout_weights(
+        torch.Generator(device=DEVICE).manual_seed(SEED + 3), renders, n,
+        0.1)
+    dsil = torch.from_numpy(rng.normal(size=(renders, vox, vox)).astype(
+        np.float32)).to(DEVICE)
+    sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
+    coords = ((ndc.flip(1) + 0.5) * vox - 0.5).contiguous()
+    taps = gauss.gauss_kernel_1d(sigma, radius).contiguous()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
+        cfg = cfg.replace(data_dir=str(Path(tmp) / "data"),
+                          checkpoint_dir=str(Path(tmp) / "run"))
+        ds = load_or_make(cfg, MODELS, seed=cfg.seed, device=DEVICE)
+        for mode in ("float32", "bfloat16"):
+            bf16 = mode == "bfloat16"
+            grid = fused._launch_forward(coords, pw, taps, radius, vox, False,
+                                         bf16)[2]
+            launches = {
+                "k3": lambda: fused._launch_forward(
+                    coords, pw, taps, radius, vox, False, bf16),
+                "k5_saved_grid": lambda: fused._launch_backward(
+                    coords, pw, taps, radius, grid, dsil, None, vox, False,
+                    True, bf16),
+                "k5_recompute": lambda: fused._launch_backward(
+                    coords, pw, taps, radius, None, dsil, None, vox, False,
+                    True, bf16),
+            }
+            rec = {"tree": str(tree), "mode": mode, "renders": renders,
+                   "points": n, "vox": vox, "radius": radius}
+            for key, fn in launches.items():
+                kernels = device_profile(
+                    fn, f"{key} {mode} {tree}",
+                    names=RENDER_KERNELS + OLD_RENDER_KERNELS)
+                stages: dict[str, float] = {}
+                for name, us in kernels:
+                    stage = stage_name(name)
+                    stages[stage] = stages.get(stage, 0.0) + us
+                rec[f"{key}_device_us"] = sum(stages.values())
+                rec[f"{key}_stages_us"] = stages
+            rec.update(step_stats(cfg.replace(pallas_acc_dtype=mode), ds),
                        card=card)
             print(json.dumps(rec), flush=True)
     return 0
@@ -1857,6 +1959,10 @@ def main() -> int:
     ap.add_argument("--splat-times", metavar="TREE", type=Path,
                     help="time only K6, K7 and the rgb_splats step of the "
                          "checkout at TREE (see splat_times)")
+    ap.add_argument("--render-times", metavar="TREE", type=Path,
+                    help="time only the D > 64 renderer kernels (K3, K4 + "
+                         "K5) and the multicat_128 step of the checkout at "
+                         "TREE (see render_times)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1864,6 +1970,8 @@ def main() -> int:
         return 2
     if args.splat_times is not None:
         return splat_times(args.splat_times)
+    if args.render_times is not None:
+        return render_times(args.render_times)
 
     from dpcx_torch import _build, cli
     from dpcx_torch.config import load_config, save_config

@@ -23,19 +23,30 @@
 //   (a) splat: one thread per point, 8 atomicAdds into a zeroed f32 grid
 //       [R, D, D, D] in device memory (R = renders). Bound by atomics:
 //       8 per point, contended where many points share a cell.
-//   (b) blur y and x: one block per (render, z-slab); the D x D slab and
-//       the x-blurred copy sit in shared memory, and the y-blurred result is
-//       written back in place. At D = 128 that is 128 KiB of shared memory
-//       (above the 48 KiB default, so the launcher raises the kernel's
-//       limit), one block per SM, run with 1024 threads; D <= 64 keeps
-//       256 threads and 32 KiB.
+//   (b) blur y and x: one block per (render, z-slab). D <= 64: the D x D
+//       slab and the x- (or y-) blurred copy sit in shared memory, the
+//       second pass is written back in place (256 threads, <= 32 KiB).
+//       D > 64 (blur_slab_kernel): one slab buffer of padded(D) rows of
+//       slab_pitch(D) floats (66 KiB at D 128: 128 x 132), so three blocks
+//       share an SM and one block's loads overlap another's arithmetic;
+//       the slab arrives by cp.async, all of it in flight at once.
+//       Register blocking (blur_run): a thread forms a run of 8
+//       consecutive outputs from aligned chunks of 8 inputs and the 15
+//       taps they meet, 6-12 shared loads (16-byte ones where the data is
+//       contiguous) per 64 FMAs instead of one load per FMA. The x pass
+//       runs 32 rows at a time (a lane a row), holds its runs in registers
+//       until every warp has read those rows, and writes them back into
+//       the buffer; the y pass (a lane a column) writes straight to device
+//       memory.
 //   (c) blur z fused with DRC: one thread per ray (render, y, x) walks z,
 //       forms each z-blurred occupancy from its 2R+1 neighbours (a warp
 //       reads 32 neighbouring x, so the reads coalesce and mostly hit L1),
 //       and carries T, sil and depth in registers. No z-blocking and no
 //       carried state between blocks: a ray is one thread's loop.
 // (b) and (c) are bound by bytes: the grid is written once by (a) and (b)
-// and read twice, by (b) and (c); at D = 128 that is 8 MiB per render.
+// and read twice, by (b) and (c); at D = 128 that is 8 MiB per render, and
+// one pass over 16 renders (134 MB read, 134 MB written) takes at least
+// 0.080 ms at 3.35 TB/s against 0.031 ms for its FMAs at 67 TFLOP/s.
 //
 // Backward. Replaces dpcx/render/pallas_kernel.py::_fused_bwd_kernel (K2,
 // D <= 64) and the two passes of the depth-blocked backward,
@@ -84,16 +95,16 @@
 //               dpcx's hats relu(1 - |g - c|) (both);
 //   blur        each pass's input rounded. K1: y, then x, then z
 //               (blur_yx_kernel<true, true> blurs y first, zblur_drc_kernel
-//               rounds each tap input). K3: z, then x, then y (zblur_kernel
-//               first, in place, then blur_yx_kernel<true, false>), and the
-//               DRC walk reads the fully blurred grid. The f32 mode keeps x,
-//               y, z: there the order does not change the result;
+//               rounds each tap input). K3: z, then x, then y (blur_z_kernel
+//               <false> first, in place, then blur_slab_kernel<true>), and
+//               the DRC walk reads the fully blurred grid. The f32 mode
+//               keeps x, y, z: there the order does not change the result;
 //   DRC         f32;
 //   backward    the DRC cotangent in f32 (the suffix form). K2: rounded
 //               before the z transpose, then y, x (inputs rounded), then dG
 //               rounded. K5: x, then y (inputs rounded), then the banded z
 //               transpose of each z-block of dpcx's Dz rows
-//               (zblock_transpose_kernel): the block's partial sums are
+//               (blur_z_kernel<true>): the block's partial sums are
 //               rounded, and a row in the halo of several blocks sums their
 //               rounded partials in f32, which is dG (read unrounded), as
 //               _blocked_bwd_kernel writes each block's transpose into its
@@ -101,7 +112,16 @@
 //               splat_bwd_kernel<true> rounds h_y, h_x and
 //               a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)) (not the forward's
 //               rnd(h_z pw)); h_z, dh_z and pw enter unrounded.
-// Bound: as the f32 mode (CUDA cores; the tensor cores are later work).
+// The register-blocked passes (blur_run) sum each output's taps in
+// ascending order as the one-tap loops did; a tap past the grid or past
+// the window meets a zero (padded input or padded tap), and an FMA with a
+// zero product leaves a sum bit for bit as it was, so the results are the
+// loops' own.
+// Bound: as the f32 mode, by bytes (CUDA cores; the tensor cores are later
+// work). blur_z_kernel stages a [D, 32] tile of whole z columns of one
+// (render, y) in shared memory (16 KiB at D 128) by cp.async along x,
+// blurs it with blur_run and writes the columns back in place: no
+// per-thread column.
 //
 // The launchers run on the caller's stream, allocate nothing, and return
 // the first CUDA error (0 on success).
@@ -116,8 +136,12 @@ namespace {
 constexpr int kMaxVox = 128;
 constexpr int kMaxTaps = 2 * (kMaxVox - 1) + 1;  // radius <= D - 1
 constexpr int kThreads = 256;
-constexpr int kWideThreads = 1024;  // blur_yx at D > 64: one block per SM
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kRun = 8;  // outputs a thread forms along the blur axis
+constexpr int kTapPad = 2 * kRun;  // zero taps staged on either side
+constexpr int kSlabThreads = 256;  // blur_slab_kernel, blur_z_kernel
+constexpr int kSlabWarps = kSlabThreads / 32;
+constexpr int kTileW = 32;  // blur_z_kernel: x columns a tile
 constexpr int kFusedMaxVox = 64;  // above: dpcx's depth-blocked K3-K5
 
 // The operand mode: f32; the bf16 mode of K1/K2 (D <= 64); the bf16 mode of
@@ -205,13 +229,13 @@ __global__ void splat_kernel(const float* __restrict__ coords,
   }
 }
 
-// (b) one block per (render, z): blur the slab along two axes, in place.
-// out[i] = sum_t in[i + t] * taps[t + radius], zero outside the grid. kYFirst
-// blurs y, then x (K1's bf16 mode: dpcx's kronA @ x, then @ kmat); else x,
-// then y (the f32 mode, and K3's bf16 mode: _blur_yx_interior). bf16 rounds
-// each pass's input and the taps.
+// (b) at D <= 64, one block per (render, z): blur the slab along two axes,
+// in place. out[i] = sum_t in[i + t] * taps[t + radius], zero outside the
+// grid. kYFirst blurs y, then x (K1's bf16 mode: dpcx's kronA @ x, then @
+// kmat); else x, then y (the f32 mode). bf16 rounds each pass's input and
+// the taps.
 template <bool kBf16, bool kYFirst>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kThreads)
     blur_yx_kernel(float* __restrict__ grid, const float* __restrict__ taps,
                    int radius, int d) {
   extern __shared__ float smem[];
@@ -249,29 +273,272 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-// K3's bf16 mode: one thread per ray (render, y, x) blurs its column along z
-// first, in place: the column, each value rounded, goes to a per-thread
-// array (512 B at D 128, local memory), and the blurred column back.
-__global__ void zblur_kernel(float* __restrict__ grid,
-                             const float* __restrict__ taps, int radius,
-                             int renders, int d) {
-  __shared__ float k[kMaxTaps];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-    k[i] = rnd(taps[i]);
+// Shared floats stage_taps fills: the 2R + 1 taps, kTapPad zeros before
+// and after, and up to 3 more so that every chunk's taps start at a
+// multiple of 4 floats.
+__host__ __device__ constexpr int staged_taps(int radius) {
+  return 2 * radius + 1 + 2 * kTapPad + 4;
+}
+
+// Where tap 0 sits in the staged taps: the taps of a chunk whose first
+// input is a multiple of kRun after z0 start at first_tap + R - (kRun - 1)
+// + a multiple of kRun, which this puts at a multiple of 4 floats.
+__device__ __forceinline__ int first_tap(int radius) {
+  return kTapPad + ((kRun - 1 - radius) & 3);
+}
+
+// The taps staged by the block into ks (16-byte aligned): tap(t) at
+// ks[first_tap + R + t], zero elsewhere; bf16: rounded; kFlip: reversed,
+// tap(z - i) in the transpose's tap(i - z) slot.
+template <bool kBf16, bool kFlip>
+__device__ void stage_taps(float* ks, const float* taps, int radius) {
+  const int n = 2 * radius + 1, t0 = first_tap(radius);
+  for (int i = threadIdx.x; i < staged_taps(radius); i += blockDim.x) {
+    const int t = i - t0;
+    ks[i] = t >= 0 && t < n ? operand<kBf16>(taps[kFlip ? n - 1 - t : t])
+                            : 0.f;
+  }
+}
+
+// A run of kRun outputs along one line of d cells, out[j] for the cell
+// z0 + j (z0 a multiple of kRun): sum_t in(z0 + j + t) tap(t), t from -R
+// to R in ascending order, inputs outside [0, d) zero; ks from
+// stage_taps. The inputs come in chunks of kRun aligned to a multiple of
+// kRun (load(i, c) fills c with inputs i..i + kRun - 1, zero past d), with
+// the 2 kRun - 1 taps the chunk meets (four 16-byte loads), all in
+// registers. kBlocks (K5's bf16 z transpose): the sum is split at
+// multiples of zb (a multiple of kRun), each part is rounded to bfloat16,
+// and the parts are summed in f32 in block order.
+template <bool kBlocks, typename Load>
+__device__ __forceinline__ void blur_run(Load load, const float* ks,
+                                         int radius, int d, int z0, int zb,
+                                         float (&out)[kRun]) {
+  float acc[kRun];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) out[j] = acc[j] = 0.f;
+  const int lo = max(z0 - radius, 0) & ~(kRun - 1);
+  const int hi = min(z0 + kRun - 1 + radius, d - 1);
+  const float4* kb = reinterpret_cast<const float4*>(
+      ks + first_tap(radius) + radius - (kRun - 1) + lo - z0);
+  // unrolled by two: a chunk's loads overlap the previous chunk's FMAs
+#pragma unroll 2
+  for (int ic = lo; ic <= hi; ic += kRun, kb += kRun / 4) {
+    if constexpr (kBlocks) {
+      if (ic % zb == 0) {
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          out[j] += rnd(acc[j]);
+          acc[j] = 0.f;
+        }
+      }
+    }
+    float c[kRun];
+    load(ic, c);
+    // kk[q] is tap(m - j) for q = m - j + kRun - 1
+    float kk[2 * kRun];
+#pragma unroll
+    for (int q = 0; q < kRun / 2; ++q) {
+      const float4 v = kb[q];
+      kk[4 * q] = v.x;
+      kk[4 * q + 1] = v.y;
+      kk[4 * q + 2] = v.z;
+      kk[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        acc[j] = fmaf(c[m], kk[m - j + kRun - 1], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    out[j] = kBlocks ? out[j] + rnd(acc[j]) : acc[j];
+  }
+}
+
+// 16 bytes from device to shared memory without registers (cp.async: the
+// copies of a whole tile are in flight at once); copy_wait waits for the
+// thread's own copies.
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// round the 4 floats at v to bfloat16 in place
+__device__ __forceinline__ void round4(float* v) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) v[m] = rnd(v[m]);
+}
+
+// d rounded up to a whole run: the rows and columns the buffers hold
+__host__ __device__ constexpr int padded(int d) {
+  return (d + kRun - 1) / kRun * kRun;
+}
+
+// The slab buffer's row pitch: padded(d) + 4 floats keeps rows 16-byte
+// aligned, and a quarter warp's 8 lanes on 8 rows read 16 bytes each from
+// 32 different banks.
+__host__ __device__ constexpr int slab_pitch(int d) { return padded(d) + 4; }
+
+// (b) at D > 64, one block per (render, z): blur the slab along x, then y
+// (the f32 mode, K3's bf16 forward and K5's bf16 transpose), in place, in
+// one padded(D) x slab_pitch(D) shared buffer, zero past D. bf16 rounds
+// the taps, the slab as it is staged and the x pass's outputs before the
+// y pass reads them.
+template <bool kBf16>
+__global__ void __launch_bounds__(kSlabThreads, 3)
+    blur_slab_kernel(float* __restrict__ grid, const float* __restrict__ taps,
+                     int radius, int d) {
+  extern __shared__ float4 smem4[];
+  float* a = reinterpret_cast<float*>(smem4);  // the slab
+  const int p = slab_pitch(d), dp = padded(d);
+  float* ks = a + dp * p;  // the taps
+  stage_taps<kBf16, false>(ks, taps, radius);
+  float* slab = grid + static_cast<int64_t>(blockIdx.x) * d * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (d % 4 == 0) {  // rows of whole 16-byte pieces: copy them in flight
+    for (int y = warp; y < dp; y += kSlabWarps) {
+      for (int x = 4 * lane; x < dp; x += 128) {
+        if (y < d && x < d) {
+          copy16(a + y * p + x, slab + y * d + x);
+        } else {
+          *reinterpret_cast<float4*>(a + y * p + x) = {0.f, 0.f, 0.f, 0.f};
+        }
+      }
+    }
+    copy_wait();
+    if constexpr (kBf16) {
+      for (int y = warp; y < d; y += kSlabWarps) {
+        for (int x = 4 * lane; x < d; x += 128) round4(a + y * p + x);
+      }
+    }
+  } else {
+    for (int y = warp; y < dp; y += kSlabWarps) {
+      for (int x = lane; x < dp; x += 32) {
+        a[y * p + x] = y < d && x < d ? operand<kBf16>(slab[y * d + x]) : 0.f;
+      }
+    }
   }
   __syncthreads();
+  const int runs = dp / kRun;  // 9..16: at most two a warp
+  const int r0 = warp, r1 = warp + kSlabWarps;
+  // x: 32 rows at a time, a lane a row, warp w its runs w and w + 8; every
+  // warp reads the rows before any writes them back
+  for (int y0 = 0; y0 < d; y0 += 32) {
+    const int y = y0 + lane;
+    float* row = a + y * p;
+    const auto load = [row](int i, float (&c)[kRun]) {
+#pragma unroll
+      for (int m = 0; m < kRun; m += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(row + i + m);
+        c[m] = v.x;
+        c[m + 1] = v.y;
+        c[m + 2] = v.z;
+        c[m + 3] = v.w;
+      }
+    };
+    float o0[kRun], o1[kRun];
+    const bool live = y < d;
+    if (live) {
+      blur_run<false>(load, ks, radius, d, r0 * kRun, 0, o0);
+      if (r1 < runs) blur_run<false>(load, ks, radius, d, r1 * kRun, 0, o1);
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        if (r0 * kRun + j < d) row[r0 * kRun + j] = operand<kBf16>(o0[j]);
+        if (r1 < runs && r1 * kRun + j < d) {
+          row[r1 * kRun + j] = operand<kBf16>(o1[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // y: a lane a column of 32, a warp a run of rows, into the slab
+  const int tiles = (d + 31) / 32;
+  for (int item = warp; item < tiles * runs; item += kSlabWarps) {
+    const int x = item % tiles * 32 + lane, z0 = item / tiles * kRun;
+    if (x >= d) continue;
+    float o[kRun];
+    blur_run<false>(
+        [a, p, x](int i, float (&c)[kRun]) {
+#pragma unroll
+          for (int m = 0; m < kRun; ++m) c[m] = a[(i + m) * p + x];
+        },
+        ks, radius, d, z0, 0, o);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      if (z0 + j < d) slab[(z0 + j) * d + x] = o[j];
+    }
+  }
+}
+
+// K3's bf16 z pass (kBlocks false) and K5's bf16 banded z transpose per
+// z-block of zb rows (kBlocks), in place: one block per (render, y, 32
+// consecutive x) stages the tile of whole z columns, each value rounded,
+// in shared memory (zero past D in x), and a lane blurs its column's runs
+// of 8 with rounded taps. The transpose: block k (rows [k zb, k zb + zb))
+// reaches raw rows [k zb - R, k zb + zb + R); row r takes, from each block
+// whose raw range holds it, rnd(sum over the block's rows i of
+// c_i tap(r - i)), and sums those in f32.
+template <bool kBlocks>
+__global__ void __launch_bounds__(kSlabThreads)
+    blur_z_kernel(float* __restrict__ grid, const float* __restrict__ taps,
+                  int radius, int d, int zb) {
+  extern __shared__ float4 smem4[];
+  float* t = reinterpret_cast<float*>(smem4);  // [padded(D), kTileW]
+  const int dp = padded(d);
+  float* ks = t + dp * kTileW;
+  stage_taps<true, kBlocks>(ks, taps, radius);
+  const int tiles = (d + kTileW - 1) / kTileW;
   const int64_t dd = static_cast<int64_t>(d) * d;
-  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (ray >= renders * dd) return;
-  const int64_t r = ray / dd;
-  float* col = grid + r * dd * d + (ray - r * dd);
-  float c[kMaxVox];
-  for (int z = 0; z < d; ++z) c[z] = rnd(col[z * dd]);
-  for (int z = 0; z < d; ++z) {
-    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += c[z + t] * k[t + radius];
-    col[z * dd] = s;
+  const int64_t ry = blockIdx.x / tiles;  // render * d + y
+  const int64_t r = ry / d;
+  const int x0 = static_cast<int>(blockIdx.x % tiles) * kTileW;
+  float* base = grid + r * dd * d + (ry - r * d) * d + x0;
+  // D % 8 == 0 (the bf16 mode above D 64), so dp is D and a z row of the
+  // tile is 8 whole 16-byte pieces, in flight at once; past D, zeros
+  {
+    const int f = 4 * (threadIdx.x & 7);
+    for (int z = threadIdx.x >> 3; z < d; z += kSlabThreads / 8) {
+      if (x0 + f < d) {
+        copy16(t + z * kTileW + f, base + z * dd + f);
+      } else {
+        *reinterpret_cast<float4*>(t + z * kTileW + f) = {0.f, 0.f, 0.f, 0.f};
+      }
+    }
+    copy_wait();
+    for (int z = threadIdx.x >> 3; z < d; z += kSlabThreads / 8) {
+      round4(t + z * kTileW + f);
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool live = x0 + lane < d;
+  float* col = base + lane;
+  if (!live) return;
+  const int runs = dp / kRun;
+  for (int run = warp; run < runs; run += kSlabWarps) {
+    const int z0 = run * kRun;
+    float o[kRun];
+    blur_run<kBlocks>(
+        [t, lane](int i, float (&c)[kRun]) {
+#pragma unroll
+          for (int m = 0; m < kRun; ++m) c[m] = t[(i + m) * kTileW + lane];
+        },
+        ks, radius, d, z0, zb, o);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      if (z0 + j < d) col[(z0 + j) * dd] = o[j];
+    }
   }
 }
 
@@ -411,40 +678,6 @@ __global__ void drc_bwd_kernel(const float* __restrict__ grid,
   }
 }
 
-// (e') K5's bf16 mode, after the y/x transpose: one thread per ray, the
-// banded z transpose per z-block of zb rows, in place. Block k (rows
-// [k zb, k zb + zb)) reaches raw rows [k zb - R, k zb + zb + R); row r takes,
-// from each block whose raw range holds it, rnd(sum over the block's rows i
-// of c_i tap(r - i)), with c the column rounded, and sums those in f32.
-__global__ void zblock_transpose_kernel(float* __restrict__ dgrid,
-                                        const float* __restrict__ taps,
-                                        int radius, int renders, int d,
-                                        int zb) {
-  __shared__ float k[kMaxTaps];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-    k[i] = rnd(taps[i]);
-  }
-  __syncthreads();
-  const int64_t dd = static_cast<int64_t>(d) * d;
-  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (ray >= renders * dd) return;
-  const int64_t r = ray / dd;
-  float* col = dgrid + r * dd * d + (ray - r * dd);
-  float c[kMaxVox];
-  for (int z = 0; z < d; ++z) c[z] = rnd(col[z * dd]);
-  for (int z = 0; z < d; ++z) {
-    const int lo = max(z - radius, 0), hi = min(z + radius, d - 1);
-    float s = 0.f;
-    for (int b0 = lo / zb * zb; b0 <= hi; b0 += zb) {
-      const int i1 = min(hi, b0 + zb - 1);
-      float part = 0.f;
-      for (int i = max(lo, b0); i <= i1; ++i) part += c[i] * k[z - i + radius];
-      s += rnd(part);
-    }
-    col[z * dd] = s;
-  }
-}
-
 // (f) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
 // dweights is not null, dw into dweights [R, N]. Reduced as the Pallas
 // kernel does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
@@ -538,22 +771,64 @@ unsigned ray_blocks(int renders, int d) {
   return static_cast<unsigned>((rays + kThreads - 1) / kThreads);
 }
 
-// (b) on every slab of grid [R, D, D, D], in place.
-template <bool kBf16, bool kYFirst>
-cudaError_t launch_blur_yx(float* grid, const float* taps, int radius,
-                           int renders, int d, cudaStream_t s) {
-  const size_t smem =
-      (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
+// (b) at D > 64 on every slab of grid [R, D, D, D], in place: three blocks
+// an SM at D 128 (67,860 bytes each with the taps at R 16), which needs the
+// shared-memory carveout at its largest and the kernel's limit raised
+// above the 48 KiB default.
+template <bool kBf16>
+cudaError_t launch_blur_slab(float* grid, const float* taps, int radius,
+                             int renders, int d, cudaStream_t s) {
+  const size_t smem = (static_cast<size_t>(padded(d)) * slab_pitch(d) +
+                       staged_taps(radius)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      blur_slab_kernel<kBf16>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
   if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        blur_yx_kernel<kBf16, kYFirst>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(blur_slab_kernel<kBf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int threads = d > 64 ? kWideThreads : kThreads;
-  blur_yx_kernel<kBf16, kYFirst>
-      <<<static_cast<unsigned>(renders * d), threads, smem, s>>>(
-          grid, taps, radius, d);
+  blur_slab_kernel<kBf16><<<static_cast<unsigned>(renders * d), kSlabThreads,
+                            smem, s>>>(grid, taps, radius, d);
+  return cudaGetLastError();
+}
+
+// (b) on every slab of grid [R, D, D, D], in place, in the order of the
+// mode: y then x for K1's bf16 mode, else x then y (blur_slab_kernel above
+// D 64; at most 32 KiB of shared memory at D <= 64).
+cudaError_t launch_blur_yx(Mode m, float* grid, const float* taps,
+                           int radius, int renders, int d, cudaStream_t s) {
+  if (d > kFusedMaxVox) {
+    return m == Mode::kF32
+               ? launch_blur_slab<false>(grid, taps, radius, renders, d, s)
+               : launch_blur_slab<true>(grid, taps, radius, renders, d, s);
+  }
+  const size_t smem =
+      (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
+  const unsigned blocks = static_cast<unsigned>(renders * d);
+  if (m == Mode::kBf16) {
+    blur_yx_kernel<true, true><<<blocks, kThreads, smem, s>>>(grid, taps,
+                                                              radius, d);
+  } else {
+    blur_yx_kernel<false, false><<<blocks, kThreads, smem, s>>>(grid, taps,
+                                                                radius, d);
+  }
+  return cudaGetLastError();
+}
+
+// K3's bf16 z pass or K5's bf16 z transpose (kBlocks), in place.
+template <bool kBlocks>
+cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
+                          int renders, int d, cudaStream_t s) {
+  const size_t smem =
+      (static_cast<size_t>(padded(d)) * kTileW + staged_taps(radius)) *
+      sizeof(float);
+  const unsigned blocks = static_cast<unsigned>(
+      renders * d * ((d + kTileW - 1) / kTileW));
+  blur_z_kernel<kBlocks><<<blocks, kSlabThreads, smem, s>>>(
+      grid, taps, radius, d, z_block(d));
   return cudaGetLastError();
 }
 
@@ -578,19 +853,11 @@ cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  switch (m) {
-    case Mode::kF32:
-      return launch_blur_yx<false, false>(grid, taps, radius, renders, d, s);
-    case Mode::kBf16:
-      return launch_blur_yx<true, true>(grid, taps, radius, renders, d, s);
-    case Mode::kBf16Blocked:
-      zblur_kernel<<<ray_blocks(renders, d), kThreads, 0, s>>>(
-          grid, taps, radius, renders, d);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-      return launch_blur_yx<true, false>(grid, taps, radius, renders, d, s);
+  if (m == Mode::kBf16Blocked) {
+    err = launch_blur_z<false>(grid, taps, radius, renders, d, s);
+    if (err != cudaSuccess) return err;
   }
-  return cudaErrorInvalidValue;
+  return launch_blur_yx(m, grid, taps, radius, renders, d, s);
 }
 
 // (c): the DRC (after the z-blur, where the grid is only x/y-blurred).
@@ -632,11 +899,9 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
                                                renders, d, with_depth);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = launch_blur_yx<true, false>(dgrid, taps, radius, renders, d, s);
+    err = launch_blur_yx(m, dgrid, taps, radius, renders, d, s);
     if (err != cudaSuccess) return err;
-    zblock_transpose_kernel<<<blocks, kThreads, 0, s>>>(
-        dgrid, taps, radius, renders, d, z_block(d));
-    err = cudaGetLastError();
+    err = launch_blur_z<true>(dgrid, taps, radius, renders, d, s);
     if (err != cudaSuccess || n == 0) return err;
     splat_bwd_kernel<true, false><<<point_blocks, kThreads, 0, s>>>(
         coords, weights, dgrid, dcoords, dweights, renders, n, d);
@@ -657,9 +922,7 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = bf16 ? launch_blur_yx<true, true>(dgrid, taps, radius, renders, d, s)
-             : launch_blur_yx<false, false>(dgrid, taps, radius, renders, d,
-                                            s);
+  err = launch_blur_yx(m, dgrid, taps, radius, renders, d, s);
   if (err != cudaSuccess || n == 0) return err;
   if (bf16) {
     splat_bwd_kernel<true, true><<<point_blocks, kThreads, 0, s>>>(

@@ -1,0 +1,147 @@
+"""The sum order of the register-blocked blur passes of the D > 64 renderer,
+on the CPU.
+
+``csrc/fused_render.cu::blur_run`` gives a thread a run of 8 consecutive
+outputs of one line (a row, a column or a z column of the grid). It walks
+the line's inputs in chunks of 8 aligned to a multiple of 8, each with the
+15 taps the chunk meets; an input past the grid is 0, and a tap past the
+window is a padded 0. The one-tap loops it replaced summed only the
+in-range taps. The two orders agree bit for bit because a zero product
+leaves a sum as it was and both add each output's taps in ascending order.
+K5's bfloat16 z transpose also splits each sum at multiples of the z-block
+(dpcx's Dz), rounds each part and adds the parts in f32.
+
+Both orders are written out here in torch, over many lines at once, and
+held against each other bit for bit: in the bfloat16 mode (rounded inputs
+and taps, whose products are exact in f32, so a multiply and an add give
+the kernel's FMA) and in float32 with a multiply and an add in both. The
+bfloat16 z pass and z transpose are also held against the plain version
+(``render/fused.py``: ``_blur`` along z, ``_zblock_transpose``): the
+z pass within 1e-5 of the largest plain value (another f32 sum order),
+the transpose within chip_smoke.py's gradient limits, 2^-8 of the largest
+and 1e-3 in relative L2 (a rounded partial can flip where two f32 sums in
+other orders straddle a bfloat16 boundary).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dpcx_torch.render import fused
+from dpcx_torch.render.gauss import blur_matrix, gauss_kernel_1d
+
+RUN = 8  # outputs a thread forms (fused_render.cu kRun)
+BF16_FWD_SHARE, BF16_SHARE, BF16_GRAD_L2 = 1e-5, 2.0**-8, 1e-3
+
+
+def one_tap_order(c, k, radius, zb=None):
+    """The one-tap loops: out[:, z] sums c[:, z + t] k[t + R] over the
+    in-range t in ascending order; with ``zb`` (the parent's z transpose)
+    per z-block of the input, each part rounded, tap index z - i + R."""
+    L, d = c.shape
+    out = torch.zeros_like(c)
+    for z in range(d):
+        lo, hi = max(z - radius, 0), min(z + radius, d - 1)
+        s = torch.zeros(L)
+        if zb is None:
+            for i in range(lo, hi + 1):
+                s = s + c[:, i] * k[i - z + radius]
+        else:
+            for b0 in range(lo // zb * zb, hi + 1, zb):
+                part = torch.zeros(L)
+                for i in range(max(lo, b0), min(hi, b0 + zb - 1) + 1):
+                    part = part + c[:, i] * k[z - i + radius]
+                s = s + fused._rnd(part)
+        out[:, z] = s
+    return out
+
+
+def run_order(c, k, radius, zb=None):
+    """blur_run: runs of RUN outputs, inputs in aligned chunks of RUN with
+    zeros past the grid, taps staged between 2 RUN zeros each side (with
+    ``zb``: reversed, and the parts flushed at multiples of zb)."""
+    L, d = c.shape
+    n = 2 * radius + 1
+    pad = torch.zeros(2 * RUN)
+    ks = torch.cat([pad, k.flip(0) if zb is not None else k, pad])
+    out = torch.zeros_like(c)
+    for z0 in range(0, d, RUN):
+        acc = [torch.zeros(L) for _ in range(RUN)]
+        res = [torch.zeros(L) for _ in range(RUN)]
+        lo = max(z0 - radius, 0) & ~(RUN - 1)
+        hi = min(z0 + RUN - 1 + radius, d - 1)
+        for ic in range(lo, hi + 1, RUN):
+            if zb is not None and ic % zb == 0:
+                res = [r + fused._rnd(a) for r, a in zip(res, acc)]
+                acc = [torch.zeros(L) for _ in range(RUN)]
+            cc = [c[:, ic + m] if ic + m < d else torch.zeros(L)
+                  for m in range(RUN)]
+            base = 2 * RUN + radius + ic - z0 - (RUN - 1)
+            kk = ks[base:base + 2 * RUN - 1]
+            assert base >= 0 and base + 2 * RUN - 1 <= n + 4 * RUN
+            for m in range(RUN):
+                for j in range(RUN):
+                    acc[j] = acc[j] + cc[m] * kk[m - j + RUN - 1]
+        for j in range(RUN):
+            if z0 + j < d:
+                out[:, z0 + j] = (res[j] + fused._rnd(acc[j])
+                                  if zb is not None else acc[j])
+    return out
+
+
+def _lines(d, count, seed, sparse=True):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(count, d)) * (rng.random((count, d)) < 0.3
+                                       if sparse else 1.0)
+    return torch.tensor(c, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("d,radius", [(72, 9), (72, 71), (128, 16),
+                                      (100, 30), (65, 3)])
+def test_runs_sum_as_the_one_tap_loop_f32(d, radius):
+    """float32, multiply then add in both orders: bit for bit."""
+    c = _lines(d, 48, d + radius)
+    k = gauss_kernel_1d(torch.tensor(0.05 * d), radius)
+    assert torch.equal(run_order(c, k, radius), one_tap_order(c, k, radius))
+
+
+@pytest.mark.parametrize("d,radius,blocks", [(72, 9, False), (72, 9, True),
+                                             (72, 71, True), (80, 10, True),
+                                             (128, 16, False),
+                                             (128, 16, True)])
+def test_runs_sum_as_the_one_tap_loop_bf16(d, radius, blocks):
+    """bfloat16 (rounded inputs and taps): the z pass, and the z transpose
+    with its rounded per-block partials, bit for bit."""
+    c = fused._rnd(_lines(d, 48, d + radius + 1))
+    k = fused._rnd(gauss_kernel_1d(torch.tensor(0.05 * d), radius))
+    zb = fused.blocked_dz(d) if blocks else None
+    assert torch.equal(run_order(c, k, radius, zb),
+                       one_tap_order(c, k, radius, zb))
+
+
+@pytest.mark.parametrize("d,radius", [(72, 9), (96, 12), (128, 16)])
+def test_runs_match_the_plain_z_pass_and_transpose(d, radius):
+    """The bfloat16 z pass and z transpose in run order against the plain
+    version's, on the z columns of a [1, D, 2, 8] grid."""
+    rng = np.random.default_rng(d)
+    g = torch.tensor(rng.normal(size=(1, d, 2, 8)), dtype=torch.float32)
+    sigma = torch.tensor(0.05 * d)
+    K = fused._rnd(blur_matrix(sigma, d, radius).float())
+    k = fused._rnd(gauss_kernel_1d(sigma, radius))
+    lines = fused._rnd(g).permute(0, 2, 3, 1).reshape(-1, d)
+
+    def as_grid(out):
+        return out.reshape(1, 2, 8, d).permute(0, 3, 1, 2)
+
+    z_plain = fused._blur(g, K, "z", fused._rnd)
+    z_runs = as_grid(run_order(lines, k, radius))
+    peak = z_plain.abs().max().item()
+    assert (z_runs - z_plain).abs().max().item() <= BF16_FWD_SHARE * peak
+    zb = fused.blocked_dz(d)
+    t_plain = fused._zblock_transpose(g, K, zb, radius)
+    t_runs = as_grid(run_order(lines, k, radius, zb))
+    peak = t_plain.abs().max().item()
+    assert (t_runs - t_plain).abs().max().item() <= BF16_SHARE * peak
+    rel = (torch.linalg.vector_norm(t_runs - t_plain)
+           / torch.linalg.vector_norm(t_plain)).item()
+    assert rel <= BF16_GRAD_L2

@@ -50,6 +50,7 @@ def cuda():
         (1, 1, 8, 1, True, False, 0.45),
         (2, 4000, 72, 9, True, True, 0.6),  # D > 64, points past both ends
         (4, 16000, 128, 16, False, True, 0.6),  # the multicat_128 step
+        (2, 4000, 98, 30, True, True, 0.6),  # D % 4 != 0 above 64
     ],
 )
 def test_kernel_matches_plain(cuda, renders, n, vox, radius, with_depth,
@@ -196,6 +197,7 @@ def test_pallas_renderer_on_card(cuda):
         (4, 16000, 128, 16, True, 0.6),
         (3, 3000, 72, 9, True, 0.7),  # points past both z ends
         (2, 2000, 72, 71, False, 0.55),  # the widest radius
+        (2, 2000, 98, 12, True, 0.6),  # D % 4 != 0: runs and bands ragged
     ],
 )
 def test_blocked_backward_matches_plain(cuda, save_grid, renders, n, vox,
@@ -240,7 +242,7 @@ def test_blocked_backward_matches_plain(cuda, save_grid, renders, n, vox,
 
 
 def test_blur_yx_launch_at_d128(cuda):
-    """At D 128 blur_yx_kernel needs 128 KiB of shared memory and more
+    """At D 128 blur_slab_kernel needs 66 KiB of shared memory and more
     with the widest radius (above the 48 KiB default): the launch is
     accepted and the result right."""
     rng = np.random.default_rng(128)
@@ -255,6 +257,27 @@ def test_blur_yx_launch_at_d128(cuda):
                                                  with_depth=True)
         torch.testing.assert_close(s_k, s_p, atol=ATOL, rtol=0)
         torch.testing.assert_close(d_k, d_p, atol=ATOL, rtol=0)
+
+
+def test_blur_yx_launch_at_d128_bf16(cuda):
+    """test_blur_yx_launch_at_d128 in bfloat16 operand mode (K3's z pass
+    and blur_slab_kernel<true>): the forward at R 16 and the widest R 127
+    within BF16_FWD_SHARE of the largest plain value."""
+    rng = np.random.default_rng(129)
+    ndc = torch.tensor(rng.uniform(-0.5, 0.5, (2, 3, 3000)),
+                       dtype=torch.float32, device=cuda)
+    for radius in (16, 127):
+        sigma = torch.tensor(0.02 * 128 * (1 + radius / 16), device=cuda)
+        with torch.no_grad():
+            k = fused.fused_project_t(ndc, 128, sigma, radius,
+                                      with_depth=True, acc_dtype="bfloat16")
+        torch.cuda.synchronize()
+        p = fused.fused_project_reference(ndc, 128, sigma, radius,
+                                          with_depth=True,
+                                          acc_dtype="bfloat16")
+        for a, b in zip(k, p):
+            peak = b.abs().max().item()
+            assert (a - b).abs().max().item() <= BF16_FWD_SHARE * peak
 
 
 @pytest.mark.parametrize("vox,save_grid,bf16", [(32, True, False),
@@ -491,6 +514,7 @@ BF16_FWD_SHARE, BF16_GRAD_L2 = 1e-5, 1e-3  # chip_smoke.py phase 3c's
         (3, 3000, 72, 9, True, True),  # z-blocks of 8: up to 4 per halo row
         (2, 2000, 80, 10, False, True),  # z-blocks of 16
         (2, 2000, 96, 12, True, False),  # z-blocks of 32
+        (2, 2000, 72, 71, True, True),  # the widest radius, z-blocks of 8
     ],
 )
 def test_bf16_blocked_kernels_match_plain(cuda, save_grid, renders, n, vox,
