@@ -7,13 +7,16 @@
 
 The second form times only K6, K7 and the rgb_splats training step of
 the checkout at TREE (splat_times), for an A/B of a splat kernel change
-against an older commit; the third, the same for the D > 64 renderer
-kernels (K3, K4 + K5) and the multicat_128 step (render_times). The
+against an older commit; the third, the same for the renderer kernels
+(K1, K2 at the car_64_depth and chair_pred_pose renders; K3, K4 + K5 at
+the multicat_128 one) and those configs' steps (render_times). The
 first runs these phases, each of which raises on failure (exit code
 non-zero):
 
 1. build    — compile the CUDA kernels from dpcx_torch/csrc with nvcc,
-              and print each kernel's stack frame and spills (ptxas).
+              and print each kernel's stack frame and spills (ptxas);
+              fail where a blur pass or a DRC walk (NO_FRAME_KERNELS) has
+              either.
 2. kernel   — the fused splat->blur->DRC forward against its plain
               PyTorch version on the card: K1 at the car_64_depth training
               render shape (32 renders x 16000 points, D 64, with depth),
@@ -156,6 +159,7 @@ could take for the same work), and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import io
 import json
 import re
@@ -202,15 +206,22 @@ BF16_FWD_SHARE, BF16_SHARE, BF16_GRAD_L2 = 1e-5, 2.0**-8, 1e-3
 SPLAT_GRAD_RTOL = 2e-4  # K7 vs plain: relative L2, dpcx's own bound for
 # its Pallas backward against the dense oracle
 # the kernels of csrc/fused_render.cu, as torch.profiler names them
-K1_STAGES = ("splat_kernel", "blur_yx_kernel", "zblur_drc_kernel")
+K1_STAGES = ("splat_kernel", "blur_slab_kernel", "blur_z_kernel",
+             "zblur_drc_kernel")
 # every kernel of csrc/*.cu: what the profiler check (check_profile) sums
-RENDER_KERNELS = ("splat_kernel", "blur_yx_kernel", "blur_slab_kernel",
-                  "blur_z_kernel", "zblur_drc_kernel", "zblur_drc_bwd_kernel",
+RENDER_KERNELS = ("splat_kernel", "blur_slab_kernel", "blur_z_kernel",
+                  "zblur_drc_kernel", "zblur_drc_bwd_kernel",
                   "drc_bwd_kernel", "splat_bwd_kernel", "aniso_fwd_kernel",
                   "aniso_bwd_kernel")
-# the names an older checkout's D > 64 z pass and z transpose had (before
-# blur_z_kernel), which render_times also sums when it times such a tree
-OLD_RENDER_KERNELS = ("zblur_kernel", "zblock_transpose_kernel")
+# the names an older checkout's kernels had (the D > 64 z pass and z
+# transpose before blur_z_kernel; the D <= 64 y/x pass before
+# blur_slab_kernel), which render_times also sums when it times such a tree
+OLD_RENDER_KERNELS = ("zblur_kernel", "zblock_transpose_kernel",
+                      "blur_yx_kernel")
+# the renderer's blur passes and walks, which keep no per-thread array:
+# phase 1 fails if ptxas gives one a stack frame or spills
+NO_FRAME_KERNELS = ("blur_slab_kernel", "blur_z_kernel", "zblur_drc_kernel",
+                    "drc_bwd_kernel")
 # their C entry points (csrc/*.cu), which launch_event_ms times
 C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
              "dpcx_fused_render_bwd_recompute", "dpcx_aniso_render",
@@ -640,10 +651,12 @@ def render_bound(renders, n, vox, radius, with_depth, weights, backward,
     or backward call: the larger of its operations over the card's peak
     rate for their type and its bytes (each input read once, each output
     written once) over PEAK_BYTES_PER_S. The forward's outputs are the
-    images alone: the x/y-blurred grid the kernels keep for the backward is
-    their choice, not the function's. The backward takes the lesser of two
-    ways to it: reading such a grid, or recomputing it (the splat and the
-    y/x blur again, no grid bytes). In f32 every operation counts at
+    images alone: the grid the kernels keep for the backward is their
+    choice, not the function's. The backward takes the lesser of two ways
+    to it: reading the fully blurred grid (its bytes, then the three blur
+    transposes; an x/y-blurred grid would cost a fourth pass, the z-blur
+    again), or recomputing it (the splat and three blur passes again, no
+    grid bytes). In f32 every operation counts at
     PEAK_F32_FLOPS. ``bf16``: K1/K2's bfloat16 mode, whose Pallas kernels
     run the splat, the blur passes and the splat backward's products as
     bf16 matmuls: those operations over PEAK_BF16_FLOPS, DRC and its
@@ -669,13 +682,13 @@ def render_bound(renders, n, vox, radius, with_depth, weights, backward,
         return least(SPLAT_OPS * pts + 3 * blur_pass,
                      (DRC_OPS + depth_ops) * cells,
                      point_bytes + taps_bytes + image_bytes)
-    # z-blur again, its transpose, the y and x transposes, DRC backward,
-    # splat backward; on a read grid, or with the splat and y/x blur redone
-    mm_ops = 4 * blur_pass + SPLAT_BWD_OPS * pts
+    # DRC backward, the z, y and x transposes, splat backward; on the read
+    # grid, or with the splat and the three blur passes redone
+    mm_ops = 3 * blur_pass + SPLAT_BWD_OPS * pts
     f32_ops = (DRC_BWD_OPS + depth_ops) * cells
     nbytes = 2 * point_bytes + taps_bytes + image_bytes
     return min(least(mm_ops, f32_ops, nbytes + 4 * cells),
-               least(mm_ops + SPLAT_OPS * pts + 2 * blur_pass, f32_ops,
+               least(mm_ops + SPLAT_OPS * pts + 3 * blur_pass, f32_ops,
                      nbytes))
 
 
@@ -743,10 +756,11 @@ def training_step_fn(cfg, ds):
 
 
 # kernel-name pieces -> the layer a training step's device time belongs
-# to; the first match wins, blur_yx_kernel and blur_slab_kernel (forward
-# and backward both launch one once a step) are split half and half. The
-# renderer's forward is K1 at D <= 64 and the counterpart of K3 above; its
-# backward K2, or K4 + K5
+# to; the first match wins, blur_slab_kernel (forward and backward both
+# launch one once a step) is split half and half. The renderer's forward
+# is K1 at D <= 64 and the counterpart of K3 above, with the z pass
+# blur_z_kernel<false, ...>; its backward K2, or K4 + K5, with the z
+# transpose blur_z_kernel<true, ...>
 RENDER_FWD, RENDER_BWD = ("renderer forward (K1 / K3)",
                           "renderer backward (K2 / K4 + K5)")
 STEP_LAYERS = (
@@ -770,7 +784,7 @@ def print_step_breakdown(kernels: list[tuple[str, float]],
     layers = {name: 0.0 for name, _ in STEP_LAYERS}
     layers["other (elementwise, reductions, indexing)"] = 0.0
     for key, us in kernels:
-        if "blur_yx_kernel" in key or "blur_slab_kernel" in key:
+        if "blur_slab_kernel" in key:
             layers[RENDER_FWD] += us / 2
             layers[RENDER_BWD] += us / 2
             continue
@@ -1883,19 +1897,92 @@ def stage_name(key: str) -> str:
     return m.group(1) if m else key
 
 
+def lattice_coords(renders: int, vox: int, seed: int) -> torch.Tensor:
+    """Grid coordinates [R, 3, N] on the card of one point in each 2 x 2 x 2
+    block of cells, at a seeded offset in [0, 1) from the block's first
+    cell: every cell takes at most one splat contribution, so the atomics'
+    order cannot change a sum, and a renderer's outputs are a function of
+    its sum order alone."""
+    rng = np.random.default_rng(seed)
+    base = np.stack(np.meshgrid(*[np.arange(0, vox - 1, 2)] * 3,
+                                indexing="ij")).reshape(3, -1)
+    g = base[None] + rng.uniform(0, 1, (renders, 3, base.shape[1]))
+    return torch.tensor(g, dtype=torch.float32, device=DEVICE).contiguous()
+
+
+def outputs_sha(fused, renders: int, vox: int, radius: int,
+                with_depth: bool, bf16: bool) -> str:
+    """sha256 of the forward's sil (and depth) and of the saved-grid and
+    recompute backwards' gradients on lattice_coords (weights and
+    cotangents seeded), after checking that two runs agree: equal digests
+    for two trees show their kernels compute the same bits."""
+    from dpcx_torch.render import gauss
+
+    coords = lattice_coords(renders, vox, SEED + vox)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pw = torch.rand(renders, coords.shape[2], device=DEVICE,
+                    generator=gen) * 2
+    dsil = torch.randn(renders, vox, vox, device=DEVICE, generator=gen)
+    ddepth = (torch.randn(renders, vox, vox, device=DEVICE, generator=gen)
+              if with_depth else None)
+    taps = gauss.gauss_kernel_1d(torch.tensor(0.05 * vox, device=DEVICE),
+                                 radius).contiguous()
+
+    def digest() -> str:
+        sil, depth, grid = fused._launch_forward(coords, pw, taps, radius,
+                                                 vox, with_depth, bf16)
+        outs = [sil, depth]
+        for g in (grid, None):
+            outs += fused._launch_backward(coords, pw, taps, radius, g, dsil,
+                                           ddepth, vox, with_depth, True,
+                                           bf16)
+        h = hashlib.sha256()
+        for t in outs:
+            if t is not None:
+                h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    first = digest()
+    assert digest() == first, "a repeated launch gave other bits"
+    return first[:16]
+
+
+def fwd_errors(fused, ndc, vox, sigma, radius, pw, with_depth, mode,
+               runs: int = 8) -> list[float]:
+    """The distinct largest errors of ``runs`` forward launches against the
+    plain version on the same inputs: more than one where the splat's
+    atomics add a cell's contributions in another order from launch to
+    launch."""
+    want = fused.fused_project_reference(ndc, vox, sigma, radius, pw,
+                                         with_depth, acc_dtype=mode)
+    errs = set()
+    for _ in range(runs):
+        with torch.no_grad():
+            got = fused.fused_project_t(ndc, vox, sigma, radius, pw,
+                                        with_depth, acc_dtype=mode)
+        errs.add(max((a - b).abs().max().item() for a, b in zip(got, want)
+                     if a is not None))
+    return sorted(errs)
+
+
 def render_times(tree: Path) -> int:
-    """``--render-times TREE``: the A/B of a change to the D > 64 renderer
-    kernels (K3, K4 + K5), for the checkout at TREE, as splat_times does
-    for the splats (one process per tree, in turns: old, new, new, old).
-    Prints ptxas's report of the tree's csrc/fused_render.cu kernels, then
-    for each operand mode one JSON line at phase 3/3c's multicat_128
-    render (16 x 16000, D 128, R 16, dropout weights, no depth): the
-    torch.profiler device us per call of the forward launch (K3), the
-    backward launch on the saved grid and the recompute launch (K4 + K5),
-    each in all and per kernel (the y/x pass, the z pass, the z transpose,
-    the walks, the splats, the memset), and the host-clock median, 10th
-    and 90th percentiles of 30 multicat_128 training steps (after 3) on 32
-    synthetic models."""
+    """``--render-times TREE``: the A/B of a change to the renderer kernels
+    (K1, K2 at D <= 64; K3, K4 + K5 above), for the checkout at TREE, as
+    splat_times does for the splats (one process per tree, in turns: old,
+    new, new, old). Prints ptxas's report of the tree's
+    csrc/fused_render.cu kernels, then one JSON line for each render and
+    operand mode, at the car_64_depth render (32 x 16000, D 64, R 8,
+    depth), the chair_pred_pose one (256 x 2048, D 32, R 6) and the
+    multicat_128 one (16 x 16000, D 128, R 16), each with seeded clouds and
+    dropout weights: the torch.profiler device us per call of the forward
+    launch, the backward launch on the saved grid and the recompute
+    launch, each in all and per kernel (stage), the forward's and the
+    backward's render_bound, outputs_sha (equal for two trees whose
+    kernels compute the same bits) and fwd_errors on the seeded clouds
+    with the dropout weights and with phase 2's uniform ones; and the
+    host-clock median, 10th and 90th percentiles of 30 training steps
+    (after 3) on 32 synthetic models: car_64_depth in float32,
+    chair_pred_pose in bfloat16, multicat_128 in both."""
     card = import_tree(tree, "render times",
                        lambda name: "aniso" not in name)
     from dpcx_torch.config import load_config
@@ -1903,54 +1990,85 @@ def render_times(tree: Path) -> int:
     from dpcx_torch.render import fused, gauss
     from dpcx_torch.render.voxelize import pc_point_dropout_weights
 
-    cfg = load_config(MULTICAT).validate()
-    renders, n, vox = 16, cfg.pc_num_points, cfg.vox_size
-    radius = gauss.kernel_radius(
-        max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
-        cfg.gauss_kernel_truncate)
-    rng = np.random.default_rng(SEED)
-    ndc = torch.from_numpy(seeded_ndc(rng, renders, n)).to(DEVICE)
-    pw = pc_point_dropout_weights(
-        torch.Generator(device=DEVICE).manual_seed(SEED + 3), renders, n,
-        0.1)
-    dsil = torch.from_numpy(rng.normal(size=(renders, vox, vox)).astype(
-        np.float32)).to(DEVICE)
-    sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
-    coords = ((ndc.flip(1) + 0.5) * vox - 0.5).contiguous()
-    taps = gauss.gauss_kernel_1d(sigma, radius).contiguous()
+    # an older tree's wrapper has no counter for a D <= 64 recompute
+    for suffix in ("", "_bf16"):
+        fused.LAUNCHES.setdefault(f"fused_render_bwd_recompute{suffix}", 0)
+    renders_of = {"car_64_depth": 32, "chair_pred_pose": 256,
+                  "multicat_128": 16}
+    steps_of = {"car_64_depth": ("float32",),
+                "chair_pred_pose": ("bfloat16",),
+                "multicat_128": ("float32", "bfloat16")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ab_") as tmp:
-        cfg = cfg.replace(data_dir=str(Path(tmp) / "data"),
-                          checkpoint_dir=str(Path(tmp) / "run"))
-        ds = load_or_make(cfg, MODELS, seed=cfg.seed, device=DEVICE)
-        for mode in ("float32", "bfloat16"):
-            bf16 = mode == "bfloat16"
-            grid = fused._launch_forward(coords, pw, taps, radius, vox, False,
-                                         bf16)[2]
-            launches = {
-                "k3": lambda: fused._launch_forward(
-                    coords, pw, taps, radius, vox, False, bf16),
-                "k5_saved_grid": lambda: fused._launch_backward(
-                    coords, pw, taps, radius, grid, dsil, None, vox, False,
-                    True, bf16),
-                "k5_recompute": lambda: fused._launch_backward(
-                    coords, pw, taps, radius, None, dsil, None, vox, False,
-                    True, bf16),
-            }
-            rec = {"tree": str(tree), "mode": mode, "renders": renders,
-                   "points": n, "vox": vox, "radius": radius}
-            for key, fn in launches.items():
-                kernels = device_profile(
-                    fn, f"{key} {mode} {tree}",
-                    names=RENDER_KERNELS + OLD_RENDER_KERNELS)
-                stages: dict[str, float] = {}
-                for name, us in kernels:
-                    stage = stage_name(name)
-                    stages[stage] = stages.get(stage, 0.0) + us
-                rec[f"{key}_device_us"] = sum(stages.values())
-                rec[f"{key}_stages_us"] = stages
-            rec.update(step_stats(cfg.replace(pallas_acc_dtype=mode), ds),
-                       card=card)
-            print(json.dumps(rec), flush=True)
+        for label, path in (("car_64_depth", CONFIG),
+                            ("chair_pred_pose", PRED_POSE),
+                            ("multicat_128", MULTICAT)):
+            cfg = load_config(path).validate()
+            renders, n, vox = (renders_of[label], cfg.pc_num_points,
+                               cfg.vox_size)
+            wd = cfg.proj_depth
+            radius = gauss.kernel_radius(
+                max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
+                cfg.gauss_kernel_truncate)
+            rng = np.random.default_rng(SEED)
+            ndc = torch.from_numpy(seeded_ndc(rng, renders, n)).to(DEVICE)
+            # phase 2's weights (its very inputs at the car_64_depth render)
+            pw_uniform = torch.from_numpy(rng.uniform(
+                0.0, 1.0, (renders, n)).astype(np.float32)).to(DEVICE)
+            pw = pc_point_dropout_weights(
+                torch.Generator(device=DEVICE).manual_seed(SEED + 3),
+                renders, n, 0.1)
+            dsil, ddepth = (torch.from_numpy(rng.normal(
+                size=(renders, vox, vox)).astype(np.float32)).to(DEVICE)
+                for _ in range(2))
+            ddepth = ddepth if wd else None
+            sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
+            coords = ((ndc.flip(1) + 0.5) * vox - 0.5).contiguous()
+            taps = gauss.gauss_kernel_1d(sigma, radius).contiguous()
+            cfg = cfg.replace(data_dir=str(Path(tmp) / label / "data"),
+                              checkpoint_dir=str(Path(tmp) / label / "run"))
+            ds = load_or_make(cfg, MODELS, seed=cfg.seed, device=DEVICE)
+            for mode in ("float32", "bfloat16"):
+                bf16 = mode == "bfloat16"
+                grid = fused._launch_forward(coords, pw, taps, radius, vox,
+                                             wd, bf16)[2]
+                launches = {
+                    "fwd": lambda: fused._launch_forward(
+                        coords, pw, taps, radius, vox, wd, bf16),
+                    "bwd_saved_grid": lambda: fused._launch_backward(
+                        coords, pw, taps, radius, grid, dsil, ddepth, vox,
+                        wd, True, bf16),
+                    "bwd_recompute": lambda: fused._launch_backward(
+                        coords, pw, taps, radius, None, dsil, ddepth, vox,
+                        wd, True, bf16),
+                }
+                rec = {"tree": str(tree), "render": label, "mode": mode,
+                       "renders": renders, "points": n, "vox": vox,
+                       "radius": radius, "with_depth": wd,
+                       "bound_ms": {key: render_bound(
+                           renders, n, vox, radius, wd, True, key == "bwd",
+                           bf16) for key in ("fwd", "bwd")}}
+                for key, fn in launches.items():
+                    kernels = device_profile(
+                        fn, f"{label} {key} {mode} {tree}",
+                        names=RENDER_KERNELS + OLD_RENDER_KERNELS)
+                    stages: dict[str, float] = {}
+                    for name, us in kernels:
+                        stage = stage_name(name)
+                        stages[stage] = stages.get(stage, 0.0) + us
+                    rec[f"{key}_device_us"] = sum(stages.values())
+                    rec[f"{key}_stages_us"] = stages
+                rec["outputs_sha"] = outputs_sha(fused, 3, vox, radius, wd,
+                                                 bf16)
+                rec["fwd_errors"] = {
+                    label_w: fwd_errors(fused, ndc, vox, sigma, radius, w, wd,
+                                        mode)
+                    for label_w, w in (("dropout", pw),
+                                       ("uniform", pw_uniform))}
+                if mode in steps_of[label]:
+                    rec.update(step_stats(
+                        cfg.replace(pallas_acc_dtype=mode), ds))
+                rec["card"] = card
+                print(json.dumps(rec), flush=True)
     return 0
 
 
@@ -1960,9 +2078,9 @@ def main() -> int:
                     help="time only K6, K7 and the rgb_splats step of the "
                          "checkout at TREE (see splat_times)")
     ap.add_argument("--render-times", metavar="TREE", type=Path,
-                    help="time only the D > 64 renderer kernels (K3, K4 + "
-                         "K5) and the multicat_128 step of the checkout at "
-                         "TREE (see render_times)")
+                    help="time only the renderer kernels (K1-K5) and the "
+                         "car_64_depth, chair_pred_pose and multicat_128 "
+                         "steps of the checkout at TREE (see render_times)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1993,11 +2111,15 @@ def main() -> int:
     _build.load()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    framed = []
     for name, frame, spill, regs, smem in ptxas_report(
             _build.build_log().read_text()):
         print(f"build: ptxas {name}: {regs} registers, {smem} bytes shared "
               f"memory, {frame} bytes stack frame, {spill} bytes spilled",
               flush=True)
+        if name.split("<")[0] in NO_FRAME_KERNELS and (frame or spill):
+            framed.append(name)
+    assert not framed, f"stack frame or spills in {framed}"
 
     cfg = load_config(CONFIG).validate()
     assert cfg.renderer == "pallas" and cfg.proj_depth

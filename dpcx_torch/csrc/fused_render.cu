@@ -23,30 +23,36 @@
 //   (a) splat: one thread per point, 8 atomicAdds into a zeroed f32 grid
 //       [R, D, D, D] in device memory (R = renders). Bound by atomics:
 //       8 per point, contended where many points share a cell.
-//   (b) blur y and x: one block per (render, z-slab). D <= 64: the D x D
-//       slab and the x- (or y-) blurred copy sit in shared memory, the
-//       second pass is written back in place (256 threads, <= 32 KiB).
-//       D > 64 (blur_slab_kernel): one slab buffer of padded(D) rows of
-//       slab_pitch(D) floats (66 KiB at D 128: 128 x 132), so three blocks
-//       share an SM and one block's loads overlap another's arithmetic;
-//       the slab arrives by cp.async, all of it in flight at once.
-//       Register blocking (blur_run): a thread forms a run of 8
-//       consecutive outputs from aligned chunks of 8 inputs and the 15
-//       taps they meet, 6-12 shared loads (16-byte ones where the data is
-//       contiguous) per 64 FMAs instead of one load per FMA. The x pass
-//       runs 32 rows at a time (a lane a row), holds its runs in registers
-//       until every warp has read those rows, and writes them back into
-//       the buffer; the y pass (a lane a column) writes straight to device
-//       memory.
-//   (c) blur z fused with DRC: one thread per ray (render, y, x) walks z,
-//       forms each z-blurred occupancy from its 2R+1 neighbours (a warp
-//       reads 32 neighbouring x, so the reads coalesce and mostly hit L1),
-//       and carries T, sil and depth in registers. No z-blocking and no
-//       carried state between blocks: a ray is one thread's loop.
-// (b) and (c) are bound by bytes: the grid is written once by (a) and (b)
-// and read twice, by (b) and (c); at D = 128 that is 8 MiB per render, and
-// one pass over 16 renders (134 MB read, 134 MB written) takes at least
-// 0.080 ms at 3.35 TB/s against 0.031 ms for its FMAs at 67 TFLOP/s.
+//   (b) blur y and x (blur_slab_kernel): one block per (render, z) holds
+//       the slab in one buffer of padded(D) rows of slab_pitch(D) floats
+//       (17 KiB at D 64, 66 KiB at D 128, where three blocks share an SM
+//       and one block's loads overlap another's arithmetic), staged by
+//       cp.async, all of it in flight at once. Register blocking
+//       (blur_run): a thread forms a run of 8 consecutive outputs from
+//       aligned chunks of 8 inputs and the 15 taps they meet, 6-12 shared
+//       loads (16-byte ones where the data is contiguous) per 64 FMAs
+//       instead of one load per FMA. A block has a warp for each run of a
+//       line at D <= 64 (padded(D) / 8 warps) and 8 warps above. The first
+//       pass runs in place, 32 lines at a time (a lane a line), and holds
+//       its runs in registers until every warp has read those lines. The
+//       second writes to device memory: the y pass straight (a lane a
+//       column); the x pass (K1's bf16 order, y first) in place, then the
+//       slab is copied out.
+//   (c) blur z (blur_z_kernel), in place, at every D in the bf16 mode and
+//       at D <= 64 in f32: one block per (render, y, 32 consecutive x)
+//       stages a [padded(D), 32] tile of whole z columns in shared memory
+//       and blurs it with blur_run, a warp a run; no per-thread column.
+//   (d) DRC (zblur_drc_kernel): one thread per ray (render, y, x) walks z
+//       and carries T, sil and depth in registers; a warp reads 32
+//       neighbouring x, so the reads coalesce. On the fully blurred grid it
+//       reads one value a z step. In f32 above D 64 there is no z pass:
+//       the walk forms each z-blurred occupancy from its 2R+1 neighbours
+//       (kZBlur; they mostly hit L1).
+// (b)-(d) are bound by bytes: the grid is written by (a), read and written
+// by (b) and (c), and read by (d); at D 64 a pass over 32 renders reads and
+// writes 33.5 MB each way, at least 0.020 ms at 3.35 TB/s; at D 128 over
+// 16 renders, 134 MB each way, 0.080 ms against 0.031 ms for its FMAs at
+// 67 TFLOP/s.
 //
 // Backward. Replaces dpcx/render/pallas_kernel.py::_fused_bwd_kernel (K2,
 // D <= 64) and the two passes of the depth-blocked backward,
@@ -54,34 +60,39 @@
 // and ::_blocked_bwd_kernel (K5: dL/do_z, the blur transposes, the splat
 // backward): the gradient of (sil, depth) with respect to each point's
 // (z, y, x, w) in grid units. The TPU kernels recompute the grid because a
-// second D^3 buffer does not fit in VMEM. Here the forward's x/y-blurred
-// grid may stay in device memory as the residual (dpcx_fused_render_bwd;
-// the saved-grid mode), or the backward re-splats and re-blurs into fresh
-// scratch first (dpcx_fused_render_bwd_recompute; the recompute mode that
-// remat selects). Then:
-//   (d) z-blur + DRC backward + z-blur transpose: one thread per ray walks
-//       z up to form T_z, then down with the suffix
+// second D^3 buffer does not fit in VMEM. Here the forward's grid may stay
+// in device memory as the residual (dpcx_fused_render_bwd; the saved-grid
+// mode), or the backward re-splats and re-blurs into fresh scratch first
+// (dpcx_fused_render_bwd_recompute; the recompute mode that remat
+// selects). On the fully blurred grid:
+//   (e) DRC backward (drc_bwd_kernel): one thread per ray walks z up to
+//       form T_z, then down with the suffix
 //         S_{D-1} = ddepth * 1.0,  S_{z-1} = o_z phi_z + (1 - o_z) S_z,
 //         dL/do_z = T_z (phi_z - S_z),  phi_z = dsil + ddepth d_z,
-//       zero where the forward clipped (o_raw >= 1 - 1e-5). The reference
-//       forms the same quantity as T_z phi_z - (Total - prefix_z) / (1 - o_z),
-//       where K4's Total is a separate pass; here Total is the suffix S after
-//       the last step of the downward walk (S_{-1}), so K4 needs no pass of
-//       its own, and the suffix form needs no division by (1 - o) down to
-//       1e-5 and no difference of two nearly equal f32 sums. The taps are
-//       symmetric, so the z-blur's transpose is the same z-blur. The ray's
-//       o and T live in two per-thread arrays sized by a template bound:
-//       512 B at D <= 64, 1 KiB at D <= 128 (local memory, bound by bytes).
-//   (e) y/x blur transpose: (b) again, in place on the cotangent grid (the
-//       two axes commute and each pass is its own transpose).
-//   (f) splat backward: one thread per point gathers the cotangent at its
+//       zero where the forward clipped (o_raw >= 1 - 1e-5), into dgrid. The
+//       reference forms the same quantity as T_z phi_z - (Total - prefix_z)
+//       / (1 - o_z), where K4's Total is a separate pass; here Total is the
+//       suffix S after the last step of the downward walk (S_{-1}), so K4
+//       needs no pass of its own, and the suffix form needs no division by
+//       (1 - o) down to 1e-5 and no difference of two nearly equal f32
+//       sums. T_z waits in shared memory at D <= 64 ([D][128] floats, 32 KiB
+//       at D 64: the grid is read twice and dgrid written once), in dgrid's
+//       column above (K5's bf16 mode).
+//   (f) the blur transposes, in place on dgrid: the z transpose
+//       (blur_z_kernel<true, ...>, which reads the taps reversed, tap(z - i);
+//       dpcx's taps are symmetric) and the y/x transpose (blur_slab_kernel;
+//       the two axes commute and each pass is its own transpose).
+//   (g) splat backward: one thread per point gathers the cotangent at its
 //       in-grid corners, no atomics: dw = sum h_z h_y h_x dG and
 //       d(g_a) = w sum dh_a (other hats) dG, summed in the Pallas kernel's
 //       grouping (below), dh = -1 / +1 on the low / high corner, and dh = 0
 //       along an axis whose coordinate is an exact integer, as the
 //       reference's _dhat_t gives (a floor-based form would be one-sided
 //       there).
-// (d) and (f) are bound by bytes like (c) and the forward splat.
+// In f32 above D 64 the grid is x/y-blurred, and zblur_drc_bwd_kernel runs
+// the z-blur, (e) and the z transpose in one walk a ray, from two per-thread
+// arrays (1 KiB of local memory), before the y/x transpose and (g).
+// (e) and (g) are bound by bytes like (d) and the forward splat.
 //
 // Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16"). The Pallas
 // kernels cast their matmul operands to bfloat16 and accumulate in f32;
@@ -93,35 +104,34 @@
 //   taps        rounded (kmat, kronA, kronB, kronz, kronzT are cast);
 //   splat       a corner adds f32(rnd(rnd(h_z pw) rnd(h_y))) rnd(h_x), with
 //               dpcx's hats relu(1 - |g - c|) (both);
-//   blur        each pass's input rounded. K1: y, then x, then z
-//               (blur_yx_kernel<true, true> blurs y first, zblur_drc_kernel
-//               rounds each tap input). K3: z, then x, then y (blur_z_kernel
-//               <false> first, in place, then blur_slab_kernel<true>), and
-//               the DRC walk reads the fully blurred grid. The f32 mode
+//   blur        each pass's input rounded. K1: y, then x
+//               (blur_slab_kernel<true, true>: the staged slab and the y
+//               pass's outputs rounded), then z (blur_z_kernel<false, true,
+//               false>: the staged tile rounded). K3: z, then x, then y
+//               (blur_z_kernel first, then blur_slab_kernel<true, false>).
+//               The DRC walk reads the fully blurred grid. The f32 mode
 //               keeps x, y, z: there the order does not change the result;
 //   DRC         f32;
-//   backward    the DRC cotangent in f32 (the suffix form). K2: rounded
-//               before the z transpose, then y, x (inputs rounded), then dG
-//               rounded. K5: x, then y (inputs rounded), then the banded z
-//               transpose of each z-block of dpcx's Dz rows
-//               (blur_z_kernel<true>): the block's partial sums are
-//               rounded, and a row in the halo of several blocks sums their
-//               rounded partials in f32, which is dG (read unrounded), as
-//               _blocked_bwd_kernel writes each block's transpose into its
+//   backward    the DRC cotangent in f32 (the suffix form). K2: rounded as
+//               the z transpose stages it, then y, x (inputs rounded), then
+//               dG rounded. K5: x, then y (inputs rounded), then the banded
+//               z transpose of each z-block of dpcx's Dz rows
+//               (blur_z_kernel<true, true, true>): the block's partial sums
+//               are rounded, and a row in the halo of several blocks sums
+//               their rounded partials in f32, which is dG (read unrounded),
+//               as _blocked_bwd_kernel writes each block's transpose into its
 //               own scratch and rounds what its splat backward reads. Then
 //               splat_bwd_kernel<true> rounds h_y, h_x and
 //               a = rnd(rnd(rnd(h_z) rnd(pw)) rnd(h_y)) (not the forward's
 //               rnd(h_z pw)); h_z, dh_z and pw enter unrounded.
 // The register-blocked passes (blur_run) sum each output's taps in
-// ascending order as the one-tap loops did; a tap past the grid or past
-// the window meets a zero (padded input or padded tap), and an FMA with a
-// zero product leaves a sum bit for bit as it was, so the results are the
-// loops' own.
-// Bound: as the f32 mode, by bytes (CUDA cores; the tensor cores are later
-// work). blur_z_kernel stages a [D, 32] tile of whole z columns of one
-// (render, y) in shared memory (16 KiB at D 128) by cp.async along x,
-// blurs it with blur_run and writes the columns back in place: no
-// per-thread column.
+// ascending order as the one-tap loops they replaced did; a tap past the
+// grid or past the window meets a zero (padded input or padded tap), and an
+// FMA with a zero product leaves a sum bit for bit as it was, so the
+// results are the loops' own. A z pass stores the f32 value the fused walks
+// formed in registers, so the walks on the stored grid give their results
+// too. Bound: as the f32 mode, by bytes (CUDA cores; the tensor cores are
+// later work).
 //
 // The launchers run on the caller's stream, allocate nothing, and return
 // the first CUDA error (0 on success).
@@ -143,6 +153,7 @@ constexpr int kSlabThreads = 256;  // blur_slab_kernel, blur_z_kernel
 constexpr int kSlabWarps = kSlabThreads / 32;
 constexpr int kTileW = 32;  // blur_z_kernel: x columns a tile
 constexpr int kFusedMaxVox = 64;  // above: dpcx's depth-blocked K3-K5
+constexpr int kDrcThreads = 128;  // drc_bwd_kernel<true>: 32 KiB of T at D 64
 
 // The operand mode: f32; the bf16 mode of K1/K2 (D <= 64); the bf16 mode of
 // K3-K5 (D > 64), whose rounding points differ (the header).
@@ -226,50 +237,6 @@ __global__ void splat_kernel(const float* __restrict__ coords,
         }
       }
     }
-  }
-}
-
-// (b) at D <= 64, one block per (render, z): blur the slab along two axes,
-// in place. out[i] = sum_t in[i + t] * taps[t + radius], zero outside the
-// grid. kYFirst blurs y, then x (K1's bf16 mode: dpcx's kronA @ x, then @
-// kmat); else x, then y (the f32 mode). bf16 rounds each pass's input and
-// the taps.
-template <bool kBf16, bool kYFirst>
-__global__ void __launch_bounds__(kThreads)
-    blur_yx_kernel(float* __restrict__ grid, const float* __restrict__ taps,
-                   int radius, int d) {
-  extern __shared__ float smem[];
-  float* a = smem;          // [D, D] the slab
-  float* b = smem + d * d;  // [D, D] after the first pass
-  float* k = b + d * d;     // [2R + 1] taps
-  const int ntaps = 2 * radius + 1;
-  const int dd = d * d;
-  // the first pass runs along y (stride D) or x (stride 1)
-  const int s1 = kYFirst ? d : 1, s2 = kYFirst ? 1 : d;
-  float* slab = grid + static_cast<int64_t>(blockIdx.x) * dd;
-  for (int i = threadIdx.x; i < ntaps; i += blockDim.x) {
-    k[i] = operand<kBf16>(taps[i]);
-  }
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    a[i] = operand<kBf16>(slab[i]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const int y = i / d, x = i - y * d;
-    const int c = kYFirst ? y : x;
-    const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += a[i + t * s1] * k[t + radius];
-    b[i] = operand<kBf16>(s);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < dd; i += blockDim.x) {
-    const int y = i / d, x = i - y * d;
-    const int c = kYFirst ? x : y;
-    const int lo = max(-radius, -c), hi = min(radius, d - 1 - c);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += b[i + t * s2] * k[t + radius];
-    slab[i] = s;
   }
 }
 
@@ -387,12 +354,77 @@ __host__ __device__ constexpr int padded(int d) {
 // 32 different banks.
 __host__ __device__ constexpr int slab_pitch(int d) { return padded(d) + 4; }
 
-// (b) at D > 64, one block per (render, z): blur the slab along x, then y
-// (the f32 mode, K3's bf16 forward and K5's bf16 transpose), in place, in
-// one padded(D) x slab_pitch(D) shared buffer, zero past D. bf16 rounds
-// the taps, the slab as it is staged and the x pass's outputs before the
-// y pass reads them.
-template <bool kBf16>
+// The threads of a blur_slab_kernel or blur_z_kernel block: a warp for
+// each run of a line at D <= 64 (padded(D) / kRun warps), kSlabWarps above.
+__host__ __device__ constexpr int slab_threads(int d) {
+  return 32 * (padded(d) / kRun < kSlabWarps ? padded(d) / kRun : kSlabWarps);
+}
+
+// One pass of the slab in place in its shared buffer a (pitch p, zero past
+// D): along x (kAlongX; a lane a row, 16-byte loads) or along y (a lane a
+// column). 32 lines at a time, warp w forms its runs w and w + nw of each
+// line (nw warps, at most 2 nw runs; kOneRun: at most nw, run w alone,
+// which frees the second run's registers) and holds them in registers
+// until every warp has read those lines, then writes them back, rounded
+// with kRound. Lines are independent, so the next 32 need no second
+// barrier; the caller's __syncthreads ends the pass.
+template <bool kAlongX, bool kRound, bool kOneRun>
+__device__ __forceinline__ void pass_in_place(float* a, int p, const float* ks,
+                                              int radius, int d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, runs = padded(d) / kRun;
+  const int r0 = warp, r1 = warp + nw;
+  for (int l0 = 0; l0 < d; l0 += 32) {
+    const int l = l0 + lane;  // the lane's row (x pass) or column (y pass)
+    const auto load = [a, p, l](int i, float (&c)[kRun]) {
+      if constexpr (kAlongX) {
+#pragma unroll
+        for (int m = 0; m < kRun; m += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(a + l * p + i + m);
+          c[m] = v.x;
+          c[m + 1] = v.y;
+          c[m + 2] = v.z;
+          c[m + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < kRun; ++m) c[m] = a[(i + m) * p + l];
+      }
+    };
+    float o0[kRun], o1[kOneRun ? 1 : kRun];
+    const bool live = l < d;
+    if (live) {
+      if (r0 < runs) blur_run<false>(load, ks, radius, d, r0 * kRun, 0, o0);
+      if constexpr (!kOneRun) {
+        if (r1 < runs) blur_run<false>(load, ks, radius, d, r1 * kRun, 0, o1);
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        const int i0 = r0 * kRun + j, i1 = r1 * kRun + j;
+        if (r0 < runs && i0 < d) {
+          a[kAlongX ? l * p + i0 : i0 * p + l] = operand<kRound>(o0[j]);
+        }
+        if constexpr (!kOneRun) {
+          if (r1 < runs && i1 < d) {
+            a[kAlongX ? l * p + i1 : i1 * p + l] = operand<kRound>(o1[j]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// (b) one block per (render, z): blur the slab along two axes, in place in
+// one padded(D) x slab_pitch(D) shared buffer, zero past D, and write it
+// back. kFused: K1/K2's launch at D <= 64, where the block has a warp for
+// each run of a line. x then y (the f32 mode, K3's bf16 forward and K5's
+// bf16 transpose), or y then x (K1/K2's bf16 mode, kBf16 and kFused:
+// dpcx's kronA @ x, then @ kmat). bf16 rounds the taps, the slab as it is
+// staged and the first pass's outputs, and nothing else.
+template <bool kBf16, bool kFused>
 __global__ void __launch_bounds__(kSlabThreads, 3)
     blur_slab_kernel(float* __restrict__ grid, const float* __restrict__ taps,
                      int radius, int d) {
@@ -403,68 +435,55 @@ __global__ void __launch_bounds__(kSlabThreads, 3)
   stage_taps<kBf16, false>(ks, taps, radius);
   float* slab = grid + static_cast<int64_t>(blockIdx.x) * d * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int pieces = dp / 4;  // 16-byte pieces a buffer row
   if (d % 4 == 0) {  // rows of whole 16-byte pieces: copy them in flight
-    for (int y = warp; y < dp; y += kSlabWarps) {
-      for (int x = 4 * lane; x < dp; x += 128) {
-        if (y < d && x < d) {
-          copy16(a + y * p + x, slab + y * d + x);
-        } else {
-          *reinterpret_cast<float4*>(a + y * p + x) = {0.f, 0.f, 0.f, 0.f};
-        }
+    for (int i = threadIdx.x; i < dp * pieces; i += blockDim.x) {
+      const int y = i / pieces, x = 4 * (i - y * pieces);
+      if (y < d && x < d) {
+        copy16(a + y * p + x, slab + y * d + x);
+      } else {
+        *reinterpret_cast<float4*>(a + y * p + x) = {0.f, 0.f, 0.f, 0.f};
       }
     }
     copy_wait();
     if constexpr (kBf16) {
-      for (int y = warp; y < d; y += kSlabWarps) {
-        for (int x = 4 * lane; x < d; x += 128) round4(a + y * p + x);
+      for (int i = threadIdx.x; i < dp * pieces; i += blockDim.x) {
+        round4(a + i / pieces * p + 4 * (i % pieces));
       }
     }
   } else {
-    for (int y = warp; y < dp; y += kSlabWarps) {
+    for (int y = warp; y < dp; y += nw) {
       for (int x = lane; x < dp; x += 32) {
         a[y * p + x] = y < d && x < d ? operand<kBf16>(slab[y * d + x]) : 0.f;
       }
     }
   }
   __syncthreads();
-  const int runs = dp / kRun;  // 9..16: at most two a warp
-  const int r0 = warp, r1 = warp + kSlabWarps;
-  // x: 32 rows at a time, a lane a row, warp w its runs w and w + 8; every
-  // warp reads the rows before any writes them back
-  for (int y0 = 0; y0 < d; y0 += 32) {
-    const int y = y0 + lane;
-    float* row = a + y * p;
-    const auto load = [row](int i, float (&c)[kRun]) {
-#pragma unroll
-      for (int m = 0; m < kRun; m += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(row + i + m);
-        c[m] = v.x;
-        c[m + 1] = v.y;
-        c[m + 2] = v.z;
-        c[m + 3] = v.w;
-      }
-    };
-    float o0[kRun], o1[kRun];
-    const bool live = y < d;
-    if (live) {
-      blur_run<false>(load, ks, radius, d, r0 * kRun, 0, o0);
-      if (r1 < runs) blur_run<false>(load, ks, radius, d, r1 * kRun, 0, o1);
-    }
+  if constexpr (kBf16 && kFused) {
+    pass_in_place<false, kBf16, true>(a, p, ks, radius, d);
     __syncthreads();
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        if (r0 * kRun + j < d) row[r0 * kRun + j] = operand<kBf16>(o0[j]);
-        if (r1 < runs && r1 * kRun + j < d) {
-          row[r1 * kRun + j] = operand<kBf16>(o1[j]);
-        }
+    pass_in_place<true, false, true>(a, p, ks, radius, d);
+    __syncthreads();
+    if (d % 4 == 0) {
+      const int row = d / 4;  // 16-byte pieces a slab row
+      for (int i = threadIdx.x; i < d * row; i += blockDim.x) {
+        const int y = i / row, x = 4 * (i - y * row);
+        *reinterpret_cast<float4*>(slab + y * d + x) =
+            *reinterpret_cast<const float4*>(a + y * p + x);
+      }
+    } else {
+      for (int i = threadIdx.x; i < d * d; i += blockDim.x) {
+        slab[i] = a[i / d * p + i % d];
       }
     }
+    return;
   }
+  pass_in_place<true, kBf16, kFused>(a, p, ks, radius, d);
   __syncthreads();
   // y: a lane a column of 32, a warp a run of rows, into the slab
-  const int tiles = (d + 31) / 32;
-  for (int item = warp; item < tiles * runs; item += kSlabWarps) {
+  const int tiles = (d + 31) / 32, runs = dp / kRun;
+  for (int item = warp; item < tiles * runs; item += nw) {
     const int x = item % tiles * 32 + lane, z0 = item / tiles * kRun;
     if (x >= d) continue;
     float o[kRun];
@@ -481,15 +500,17 @@ __global__ void __launch_bounds__(kSlabThreads, 3)
   }
 }
 
-// K3's bf16 z pass (kBlocks false) and K5's bf16 banded z transpose per
-// z-block of zb rows (kBlocks), in place: one block per (render, y, 32
-// consecutive x) stages the tile of whole z columns, each value rounded,
-// in shared memory (zero past D in x), and a lane blurs its column's runs
-// of 8 with rounded taps. The transpose: block k (rows [k zb, k zb + zb))
-// reaches raw rows [k zb - R, k zb + zb + R); row r takes, from each block
-// whose raw range holds it, rnd(sum over the block's rows i of
-// c_i tap(r - i)), and sums those in f32.
-template <bool kBlocks>
+// (c) the z pass (K1's and K3's) or the z transpose (kTranspose: K2's, and
+// with kBlocks K5's bf16 banded one per z-block of zb rows), in place: one
+// block per (render, y, 32 consecutive x) stages the tile of whole z
+// columns in shared memory (bf16: each value rounded; zero past D), and a
+// warp blurs a run of 8 of each of its lanes' columns with the taps (bf16:
+// rounded; the transpose reads them reversed, tap(z - i)). The banded
+// transpose: block k (rows [k zb, k zb + zb)) reaches raw rows
+// [k zb - R, k zb + zb + R); row r takes, from each block whose raw range
+// holds it, rnd(sum over the block's rows i of c_i tap(r - i)), and sums
+// those in f32.
+template <bool kTranspose, bool kBf16, bool kBlocks>
 __global__ void __launch_bounds__(kSlabThreads)
     blur_z_kernel(float* __restrict__ grid, const float* __restrict__ taps,
                   int radius, int d, int zb) {
@@ -497,36 +518,42 @@ __global__ void __launch_bounds__(kSlabThreads)
   float* t = reinterpret_cast<float*>(smem4);  // [padded(D), kTileW]
   const int dp = padded(d);
   float* ks = t + dp * kTileW;
-  stage_taps<true, kBlocks>(ks, taps, radius);
+  stage_taps<kBf16, kTranspose>(ks, taps, radius);
   const int tiles = (d + kTileW - 1) / kTileW;
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ry = blockIdx.x / tiles;  // render * d + y
   const int64_t r = ry / d;
   const int x0 = static_cast<int>(blockIdx.x % tiles) * kTileW;
   float* base = grid + r * dd * d + (ry - r * d) * d + x0;
-  // D % 8 == 0 (the bf16 mode above D 64), so dp is D and a z row of the
-  // tile is 8 whole 16-byte pieces, in flight at once; past D, zeros
-  {
+  if (d % 4 == 0) {
+    // a z row of the tile is 8 pieces of 16 bytes, whole inside or past D,
+    // all in flight at once
     const int f = 4 * (threadIdx.x & 7);
-    for (int z = threadIdx.x >> 3; z < d; z += kSlabThreads / 8) {
-      if (x0 + f < d) {
+    for (int z = threadIdx.x >> 3; z < dp; z += blockDim.x >> 3) {
+      if (z < d && x0 + f < d) {
         copy16(t + z * kTileW + f, base + z * dd + f);
       } else {
         *reinterpret_cast<float4*>(t + z * kTileW + f) = {0.f, 0.f, 0.f, 0.f};
       }
     }
     copy_wait();
-    for (int z = threadIdx.x >> 3; z < d; z += kSlabThreads / 8) {
-      round4(t + z * kTileW + f);
+    if constexpr (kBf16) {
+      for (int z = threadIdx.x >> 3; z < d; z += blockDim.x >> 3) {
+        round4(t + z * kTileW + f);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < dp * kTileW; i += blockDim.x) {
+      const int z = i / kTileW, x = i % kTileW;
+      t[i] = z < d && x0 + x < d ? operand<kBf16>(base[z * dd + x]) : 0.f;
     }
   }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool live = x0 + lane < d;
+  if (x0 + lane >= d) return;
   float* col = base + lane;
-  if (!live) return;
   const int runs = dp / kRun;
-  for (int run = warp; run < runs; run += kSlabWarps) {
+  for (int run = warp; run < runs; run += blockDim.x >> 5) {
     const int z0 = run * kRun;
     float o[kRun];
     blur_run<kBlocks>(
@@ -542,10 +569,10 @@ __global__ void __launch_bounds__(kSlabThreads)
   }
 }
 
-// (c) one thread per ray (render, y, x): z-blur on the fly (kZBlur; bf16:
-// each tap input rounded), then DRC in f32. Without kZBlur the grid is the
-// fully blurred one (K3's bf16 mode) and the taps are not read.
-template <bool kBf16, bool kZBlur>
+// (d) one thread per ray (render, y, x): DRC in f32 on the fully blurred
+// grid, or, with kZBlur (f32 above D 64), on the x/y-blurred one, whose
+// z-blur it forms on the fly (the taps are read only then).
+template <bool kZBlur>
 __global__ void zblur_drc_kernel(const float* __restrict__ grid,
                                  const float* __restrict__ taps, int radius,
                                  float* __restrict__ sil,
@@ -554,7 +581,7 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   __shared__ float k[kMaxTaps];
   if constexpr (kZBlur) {
     for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-      k[i] = operand<kBf16>(taps[i]);
+      k[i] = taps[i];
     }
   }
   __syncthreads();
@@ -569,9 +596,7 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
     float o = 0.f;
     if constexpr (kZBlur) {
       const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
-      for (int t = lo; t <= hi; ++t) {
-        o += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
-      }
+      for (int t = lo; t <= hi; ++t) o += col[(z + t) * dd] * k[t + radius];
     } else {
       o = col[z * dd];
     }
@@ -585,12 +610,10 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   if (with_depth) depth[ray] = dep + 1.f * trans;
 }
 
-// (d) one thread per ray: z-blur of the y/x-blurred grid, DRC backward, and
-// the z-blur's transpose into dgrid. dsil, ddepth [R, D, D]; ddepth may be
-// null (a zero cotangent). kMaxD bounds D and sizes the per-ray arrays, so
-// the D <= 64 instantiation keeps a 512 B frame. bf16: the z-blur's inputs
-// and taps are rounded as in (c), and dL/do before its transpose.
-template <int kMaxD, bool kBf16>
+// (e) in f32 above D 64, one thread per ray: z-blur of the x/y-blurred
+// grid, DRC backward, and the z-blur's transpose into dgrid. dsil, ddepth
+// [R, D, D]; ddepth may be null (a zero cotangent). The ray's raw
+// occupancy and T live in two per-thread arrays (1 KiB of local memory).
 __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      const float* __restrict__ taps,
                                      int radius,
@@ -598,9 +621,9 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
                                      const float* __restrict__ ddepth,
                                      float* __restrict__ dgrid, int renders,
                                      int d, int with_depth) {
-  __shared__ float k[2 * kMaxD - 1];
+  __shared__ float k[kMaxTaps];
   for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-    k[i] = operand<kBf16>(taps[i]);
+    k[i] = taps[i];
   }
   __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
@@ -611,15 +634,13 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
   const float* col = grid + off;
   const float fd = static_cast<float>(d);
   constexpr float kTop = 1.f - 1e-5f;
-  float o[kMaxD];  // raw occupancy, then dL/do_raw
-  float tr[kMaxD];  // transmittance before z
+  float o[kMaxVox];  // raw occupancy, then dL/do_raw
+  float tr[kMaxVox];  // transmittance before z
   float trans = 1.f;
   for (int z = 0; z < d; ++z) {
     const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
     float s = 0.f;
-    for (int t = lo; t <= hi; ++t) {
-      s += operand<kBf16>(col[(z + t) * dd]) * k[t + radius];
-    }
+    for (int t = lo; t <= hi; ++t) s += col[(z + t) * dd] * k[t + radius];
     o[z] = s;
     tr[z] = trans;
     trans *= 1.f - fminf(fmaxf(s, 0.f), kTop);
@@ -631,7 +652,7 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
     const float raw = o[z];
     const float oc = fminf(fmaxf(raw, 0.f), kTop);
     const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
-    o[z] = operand<kBf16>(raw < kTop ? tr[z] * (phi - suffix) : 0.f);
+    o[z] = raw < kTop ? tr[z] * (phi - suffix) : 0.f;
     suffix = oc * phi + (1.f - oc) * suffix;
   }
   float* dcol = dgrid + off;
@@ -643,15 +664,17 @@ __global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
   }
 }
 
-// (d) in K5's bf16 mode: the grid is the fully blurred one, so one thread per
-// ray runs the DRC backward alone, into dgrid: the walk up stores T_z in
-// dgrid's column, the walk down (the suffix form, f32) replaces it by dL/do
-// (zero where the forward clipped). No per-thread array.
+// (e) on the fully blurred grid, one thread per ray, into dgrid: the walk up
+// keeps T_z, in shared memory (kSharedT: [D][blockDim.x] floats, at D <=
+// 64) or in dgrid's column; the walk down (the suffix form, f32) writes
+// dL/do there (zero where the forward clipped). No per-thread array.
+template <bool kSharedT>
 __global__ void drc_bwd_kernel(const float* __restrict__ grid,
                                const float* __restrict__ dsil,
                                const float* __restrict__ ddepth,
                                float* __restrict__ dgrid, int renders, int d,
                                int with_depth) {
+  extern __shared__ float tz[];  // kSharedT: T_z of the block's rays
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (ray >= renders * dd) return;
@@ -659,11 +682,18 @@ __global__ void drc_bwd_kernel(const float* __restrict__ grid,
   const int64_t off = r * dd * d + (ray - r * dd);
   const float* col = grid + off;
   float* dcol = dgrid + off;
+  const auto t_at = [&](int z) -> float& {
+    if constexpr (kSharedT) {
+      return tz[z * blockDim.x + threadIdx.x];
+    } else {
+      return dcol[z * dd];
+    }
+  };
   const float fd = static_cast<float>(d);
   constexpr float kTop = 1.f - 1e-5f;
   float trans = 1.f;
   for (int z = 0; z < d; ++z) {
-    dcol[z * dd] = trans;
+    t_at(z) = trans;
     trans *= 1.f - fminf(fmaxf(col[z * dd], 0.f), kTop);
   }
   const float gs = dsil[ray];
@@ -673,12 +703,12 @@ __global__ void drc_bwd_kernel(const float* __restrict__ grid,
     const float raw = col[z * dd];
     const float oc = fminf(fmaxf(raw, 0.f), kTop);
     const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
-    dcol[z * dd] = raw < kTop ? dcol[z * dd] * (phi - suffix) : 0.f;
+    dcol[z * dd] = raw < kTop ? t_at(z) * (phi - suffix) : 0.f;
     suffix = oc * phi + (1.f - oc) * suffix;
   }
 }
 
-// (f) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
+// (g) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
 // dweights is not null, dw into dweights [R, N]. Reduced as the Pallas
 // kernel does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
 // v = sum_x dG h_x, per x corner t1 = sum_zy dG a with a = (h_z pw) h_y;
@@ -765,61 +795,46 @@ bool bad_args(int renders, int n, int d, int radius, int bf16) {
          (mode_of(bf16, d) == Mode::kBf16Blocked && z_block(d) == 0);
 }
 
-// one thread per ray (render, y, x)
-unsigned ray_blocks(int renders, int d) {
+// one thread per ray (render, y, x), in blocks of `threads`
+unsigned ray_blocks(int renders, int d, int threads = kThreads) {
   const int64_t rays = static_cast<int64_t>(renders) * d * d;
-  return static_cast<unsigned>((rays + kThreads - 1) / kThreads);
+  return static_cast<unsigned>((rays + threads - 1) / threads);
 }
 
-// (b) at D > 64 on every slab of grid [R, D, D, D], in place: three blocks
-// an SM at D 128 (67,860 bytes each with the taps at R 16), which needs the
-// shared-memory carveout at its largest and the kernel's limit raised
-// above the 48 KiB default.
+// Whether the grid the forward leaves for the DRC walk and the backward is
+// fully blurred: in every mode but f32 above D 64 (x/y-blurred there).
+bool full_blur(Mode m, int d) { return m != Mode::kF32 || d <= kFusedMaxVox; }
+
+// (b) on every slab of grid [R, D, D, D], in place, in the mode's order
+// (the fused form at D <= 64): three blocks an SM at D 128 (67,860 bytes
+// each with the taps at R 16), which needs the shared-memory carveout at
+// its largest and the kernel's limit raised above the 48 KiB default;
+// 17 KiB at D 64.
 template <bool kBf16>
 cudaError_t launch_blur_slab(float* grid, const float* taps, int radius,
                              int renders, int d, cudaStream_t s) {
   const size_t smem = (static_cast<size_t>(padded(d)) * slab_pitch(d) +
                        staged_taps(radius)) * sizeof(float);
+  const auto kernel = d <= kFusedMaxVox ? blur_slab_kernel<kBf16, true>
+                                        : blur_slab_kernel<kBf16, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      blur_slab_kernel<kBf16>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(blur_slab_kernel<kBf16>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  blur_slab_kernel<kBf16><<<static_cast<unsigned>(renders * d), kSlabThreads,
-                            smem, s>>>(grid, taps, radius, d);
+  kernel<<<static_cast<unsigned>(renders * d), slab_threads(d), smem, s>>>(
+      grid, taps, radius, d);
   return cudaGetLastError();
 }
 
-// (b) on every slab of grid [R, D, D, D], in place, in the order of the
-// mode: y then x for K1's bf16 mode, else x then y (blur_slab_kernel above
-// D 64; at most 32 KiB of shared memory at D <= 64).
-cudaError_t launch_blur_yx(Mode m, float* grid, const float* taps,
-                           int radius, int renders, int d, cudaStream_t s) {
-  if (d > kFusedMaxVox) {
-    return m == Mode::kF32
-               ? launch_blur_slab<false>(grid, taps, radius, renders, d, s)
-               : launch_blur_slab<true>(grid, taps, radius, renders, d, s);
-  }
-  const size_t smem =
-      (2 * static_cast<size_t>(d) * d + 2 * radius + 1) * sizeof(float);
-  const unsigned blocks = static_cast<unsigned>(renders * d);
-  if (m == Mode::kBf16) {
-    blur_yx_kernel<true, true><<<blocks, kThreads, smem, s>>>(grid, taps,
-                                                              radius, d);
-  } else {
-    blur_yx_kernel<false, false><<<blocks, kThreads, smem, s>>>(grid, taps,
-                                                                radius, d);
-  }
-  return cudaGetLastError();
-}
-
-// K3's bf16 z pass or K5's bf16 z transpose (kBlocks), in place.
-template <bool kBlocks>
+// (c) the z pass, or the z transpose (kTranspose), in place, in the
+// operand mode's form (kBf16; kBlocks: K5's banded transpose).
+template <bool kTranspose, bool kBf16, bool kBlocks = false>
 cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
                           int renders, int d, cudaStream_t s) {
   const size_t smem =
@@ -827,13 +842,15 @@ cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
       sizeof(float);
   const unsigned blocks = static_cast<unsigned>(
       renders * d * ((d + kTileW - 1) / kTileW));
-  blur_z_kernel<kBlocks><<<blocks, kSlabThreads, smem, s>>>(
-      grid, taps, radius, d, z_block(d));
+  blur_z_kernel<kTranspose, kBf16, kBlocks>
+      <<<blocks, slab_threads(d), smem, s>>>(grid, taps, radius, d,
+                                             z_block(d));
   return cudaGetLastError();
 }
 
-// (a) + (b): the grid the DRC walk reads, into the scratch grid: x/y-blurred
-// (f32, K1's bf16), or fully blurred with the z pass first (K3's bf16).
+// (a) + (b) + (c): the grid the DRC walk reads, into the scratch grid:
+// fully blurred (K1: y/x, then z; K3's bf16 mode: z first), or x/y-blurred
+// in f32 above D 64.
 cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
@@ -853,36 +870,39 @@ cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (m == Mode::kBf16Blocked) {
-    err = launch_blur_z<false>(grid, taps, radius, renders, d, s);
-    if (err != cudaSuccess) return err;
+  switch (m) {
+    case Mode::kF32:
+      err = launch_blur_slab<false>(grid, taps, radius, renders, d, s);
+      if (err != cudaSuccess || !full_blur(m, d)) return err;
+      return launch_blur_z<false, false>(grid, taps, radius, renders, d, s);
+    case Mode::kBf16:
+      err = launch_blur_slab<true>(grid, taps, radius, renders, d, s);
+      if (err != cudaSuccess) return err;
+      return launch_blur_z<false, true>(grid, taps, radius, renders, d, s);
+    case Mode::kBf16Blocked:
+      err = launch_blur_z<false, true>(grid, taps, radius, renders, d, s);
+      if (err != cudaSuccess) return err;
+      return launch_blur_slab<true>(grid, taps, radius, renders, d, s);
   }
-  return launch_blur_yx(m, grid, taps, radius, renders, d, s);
+  return cudaErrorInvalidValue;
 }
 
-// (c): the DRC (after the z-blur, where the grid is only x/y-blurred).
+// (d): the DRC, with the z-blur on the fly where the grid is x/y-blurred.
 cudaError_t launch_drc(Mode m, const float* grid, const float* taps,
                        int radius, float* sil, float* depth, int renders,
                        int d, int with_depth, cudaStream_t s) {
   const unsigned blocks = ray_blocks(renders, d);
-  switch (m) {
-    case Mode::kF32:
-      zblur_drc_kernel<false, true><<<blocks, kThreads, 0, s>>>(
-          grid, taps, radius, sil, depth, renders, d, with_depth);
-      break;
-    case Mode::kBf16:
-      zblur_drc_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-          grid, taps, radius, sil, depth, renders, d, with_depth);
-      break;
-    case Mode::kBf16Blocked:
-      zblur_drc_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-          grid, taps, radius, sil, depth, renders, d, with_depth);
-      break;
+  if (full_blur(m, d)) {
+    zblur_drc_kernel<false><<<blocks, kThreads, 0, s>>>(
+        grid, taps, radius, sil, depth, renders, d, with_depth);
+  } else {
+    zblur_drc_kernel<true><<<blocks, kThreads, 0, s>>>(
+        grid, taps, radius, sil, depth, renders, d, with_depth);
   }
   return cudaGetLastError();
 }
 
-// (d) + (e) + (f) on the grid launch_grid makes.
+// (e) + (f) + (g) on the grid launch_grid makes.
 cudaError_t launch_bwd_stages(Mode m, const float* coords,
                               const float* weights, const float* taps,
                               int radius, const float* grid,
@@ -890,46 +910,66 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
                               float* dgrid, float* dcoords, float* dweights,
                               int renders, int n, int d, int with_depth,
                               cudaStream_t s) {
-  const unsigned blocks = ray_blocks(renders, d);
-  const unsigned point_blocks = static_cast<unsigned>(
-      splat_blocks(static_cast<int64_t>(renders) * n));
   cudaError_t err;
-  if (m == Mode::kBf16Blocked) {
-    drc_bwd_kernel<<<blocks, kThreads, 0, s>>>(grid, dsil, ddepth, dgrid,
-                                               renders, d, with_depth);
+  if (!full_blur(m, d)) {  // the z-blur, (e) and the z transpose in one walk
+    zblur_drc_bwd_kernel<<<ray_blocks(renders, d), kThreads, 0, s>>>(
+        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    err = launch_blur_yx(m, dgrid, taps, radius, renders, d, s);
-    if (err != cudaSuccess) return err;
-    err = launch_blur_z<true>(dgrid, taps, radius, renders, d, s);
-    if (err != cudaSuccess || n == 0) return err;
-    splat_bwd_kernel<true, false><<<point_blocks, kThreads, 0, s>>>(
-        coords, weights, dgrid, dcoords, dweights, renders, n, d);
-    return cudaGetLastError();
-  }
-  const bool bf16 = m == Mode::kBf16;
-  if (d <= kFusedMaxVox) {
-    if (bf16) {
-      zblur_drc_bwd_kernel<kFusedMaxVox, true><<<blocks, kThreads, 0, s>>>(
-          grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
-    } else {
-      zblur_drc_bwd_kernel<kFusedMaxVox, false><<<blocks, kThreads, 0, s>>>(
-          grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+    if (err == cudaSuccess) {
+      err = launch_blur_slab<false>(dgrid, taps, radius, renders, d, s);
     }
   } else {
-    zblur_drc_bwd_kernel<kMaxVox, false><<<blocks, kThreads, 0, s>>>(
-        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
+    if (d <= kFusedMaxVox) {
+      drc_bwd_kernel<true>
+          <<<ray_blocks(renders, d, kDrcThreads), kDrcThreads,
+             static_cast<size_t>(d) * kDrcThreads * sizeof(float), s>>>(
+              grid, dsil, ddepth, dgrid, renders, d, with_depth);
+    } else {
+      drc_bwd_kernel<false><<<ray_blocks(renders, d), kThreads, 0, s>>>(
+          grid, dsil, ddepth, dgrid, renders, d, with_depth);
+    }
+    err = cudaGetLastError();
+    if (err == cudaSuccess) {
+      switch (m) {  // the transposes in the mode's order
+        case Mode::kF32:
+          err = launch_blur_z<true, false>(dgrid, taps, radius, renders, d, s);
+          if (err == cudaSuccess) {
+            err = launch_blur_slab<false>(dgrid, taps, radius, renders, d,
+                                          s);
+          }
+          break;
+        case Mode::kBf16:
+          err = launch_blur_z<true, true>(dgrid, taps, radius, renders, d, s);
+          if (err == cudaSuccess) {
+            err = launch_blur_slab<true>(dgrid, taps, radius, renders, d, s);
+          }
+          break;
+        case Mode::kBf16Blocked:
+          err = launch_blur_slab<true>(dgrid, taps, radius, renders, d, s);
+          if (err == cudaSuccess) {
+            err = launch_blur_z<true, true, true>(dgrid, taps, radius,
+                                                  renders, d, s);
+          }
+          break;
+      }
+    }
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  err = launch_blur_yx(m, dgrid, taps, radius, renders, d, s);
   if (err != cudaSuccess || n == 0) return err;
-  if (bf16) {
-    splat_bwd_kernel<true, true><<<point_blocks, kThreads, 0, s>>>(
-        coords, weights, dgrid, dcoords, dweights, renders, n, d);
-  } else {
-    splat_bwd_kernel<false, false><<<point_blocks, kThreads, 0, s>>>(
-        coords, weights, dgrid, dcoords, dweights, renders, n, d);
+  const unsigned blocks = static_cast<unsigned>(
+      splat_blocks(static_cast<int64_t>(renders) * n));
+  switch (m) {
+    case Mode::kF32:
+      splat_bwd_kernel<false, false><<<blocks, kThreads, 0, s>>>(
+          coords, weights, dgrid, dcoords, dweights, renders, n, d);
+      break;
+    case Mode::kBf16:  // K2 rounds dG
+      splat_bwd_kernel<true, true><<<blocks, kThreads, 0, s>>>(
+          coords, weights, dgrid, dcoords, dweights, renders, n, d);
+      break;
+    case Mode::kBf16Blocked:
+      splat_bwd_kernel<true, false><<<blocks, kThreads, 0, s>>>(
+          coords, weights, dgrid, dcoords, dweights, renders, n, d);
+      break;
   }
   return cudaGetLastError();
 }
@@ -937,7 +977,7 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
 }  // namespace
 
 // Forward. grid: scratch [R, D, D, D] f32 that holds the grid the DRC walk
-// read afterwards (x/y-blurred; fully blurred in K3's bf16 mode); sil,
+// read afterwards (fully blurred; x/y-blurred in f32 above D 64); sil,
 // depth: [R, D, D] f32 (depth may be null when with_depth is 0); bf16: the
 // operand mode (1: bfloat16; above D 64, D % 8 == 0). Returns a cudaError_t
 // as int.

@@ -1,5 +1,4 @@
-"""The sum order of the register-blocked blur passes of the D > 64 renderer,
-on the CPU.
+"""The sum order of the renderer's register-blocked blur passes, on the CPU.
 
 ``csrc/fused_render.cu::blur_run`` gives a thread a run of 8 consecutive
 outputs of one line (a row, a column or a z column of the grid). It walks
@@ -21,6 +20,17 @@ z pass within 1e-5 of the largest plain value (another f32 sum order),
 the transpose within chip_smoke.py's gradient limits, 2^-8 of the largest
 and 1e-3 in relative L2 (a rounded partial can flip where two f32 sums in
 other orders straddle a bfloat16 boundary).
+
+At D <= 64 (K1/K2) the kernels once fused the z-blur into the per-ray
+DRC walks (``zblur_drc_kernel`` formed each z-blurred value from its 2R + 1
+neighbours, ``zblur_drc_bwd_kernel`` re-formed them, walked the suffix and
+wrote the z transpose from per-thread arrays) after one-tap y/x passes. They
+now run a z pass (``blur_z_kernel``) and walk the stored, fully blurred
+grid, and the backward runs ``drc_bwd_kernel`` and then the z transpose as
+a z pass of dL/do with the taps reversed (dpcx's taps are symmetric). Both
+routes are written out whole, over every ray of a grid, and held against
+each other bit for bit: sil, depth and the cotangent grid after the three
+transposes, in both operand modes (bfloat16: y, then x, then z).
 """
 
 import numpy as np
@@ -56,14 +66,15 @@ def one_tap_order(c, k, radius, zb=None):
     return out
 
 
-def run_order(c, k, radius, zb=None):
+def run_order(c, k, radius, zb=None, flip=False):
     """blur_run: runs of RUN outputs, inputs in aligned chunks of RUN with
     zeros past the grid, taps staged between 2 RUN zeros each side (with
-    ``zb``: reversed, and the parts flushed at multiples of zb)."""
+    ``zb``: reversed, and the parts flushed at multiples of zb; ``flip``:
+    reversed, the transpose's tap(z - i))."""
     L, d = c.shape
     n = 2 * radius + 1
     pad = torch.zeros(2 * RUN)
-    ks = torch.cat([pad, k.flip(0) if zb is not None else k, pad])
+    ks = torch.cat([pad, k.flip(0) if flip or zb is not None else k, pad])
     out = torch.zeros_like(c)
     for z0 in range(0, d, RUN):
         acc = [torch.zeros(L) for _ in range(RUN)]
@@ -145,3 +156,126 @@ def test_runs_match_the_plain_z_pass_and_transpose(d, radius):
     rel = (torch.linalg.vector_norm(t_runs - t_plain)
            / torch.linalg.vector_norm(t_plain)).item()
     assert rel <= BF16_GRAD_L2
+
+
+# K1/K2 at D <= 64: the parent's fused walks against the split route
+
+
+def _along(fn, g, axis):
+    """fn over the lines of grid g [R, Z, Y, X] along ``axis`` (1 z, 2 y,
+    3 x)."""
+    moved = g.movedim(axis, -1)
+    return fn(moved.reshape(-1, g.shape[axis])).reshape(moved.shape) \
+        .movedim(-1, axis)
+
+
+def _yx(g, k, radius, bf16, blur):
+    """The y/x pass in the mode's order with ``blur`` (one_tap_order or
+    run_order): float32 x then y; bfloat16 y then x, the staged slab and the
+    first pass's outputs rounded."""
+    def one(t):
+        return blur(t, k, radius)
+
+    if bf16:
+        return _along(one, fused._rnd(_along(one, fused._rnd(g), 2)), 3)
+    return _along(one, _along(one, g, 3), 2)
+
+
+def _walk(o):
+    """The DRC walk of zblur_drc_kernel over rays [L, D] of z-blurred
+    occupancy -> (sil, depth)."""
+    L, d = o.shape
+    trans, s, dep = torch.ones(L), torch.zeros(L), torch.zeros(L)
+    for z in range(d):
+        oc = o[:, z].clamp(0.0, 1.0 - 1e-5)
+        p = oc * trans
+        s = s + p
+        dep = dep + ((z + 0.5) / d - 0.5) * p
+        trans = trans * (1.0 - oc)
+    return s, dep + trans
+
+
+def _drc_bwd(o, gs, gd):
+    """The DRC backward's suffix form over rays [L, D] -> dL/do [L, D],
+    zero where the forward clipped."""
+    L, d = o.shape
+    top = torch.tensor(1.0 - 1e-5, dtype=torch.float32)
+    tr, trans = [], torch.ones(L)
+    for z in range(d):
+        tr.append(trans)
+        trans = trans * (1.0 - o[:, z].clamp(0.0, top))
+    out, suffix = torch.zeros(L, d), gd * 1.0
+    for z in range(d - 1, -1, -1):
+        raw = o[:, z]
+        oc = raw.clamp(0.0, top)
+        phi = gs + gd * ((z + 0.5) / d - 0.5)
+        out[:, z] = torch.where(raw < top, tr[z] * (phi - suffix), 0.0)
+        suffix = oc * phi + (1.0 - oc) * suffix
+    return out
+
+
+def _rays(g):
+    """[R, Z, Y, X] -> the rays [R Y X, Z]."""
+    return g.permute(0, 2, 3, 1).reshape(-1, g.shape[1])
+
+
+def _grid(rays, g):
+    R, d = g.shape[0], g.shape[1]
+    return rays.reshape(R, d, d, d).permute(0, 3, 1, 2)
+
+
+def parent_route(g, k, radius, bf16, gs, gd):
+    """blur_yx_kernel, zblur_drc_kernel<bf16, true>, then
+    zblur_drc_bwd_kernel<64, bf16> (one-tap z-blur of the y/x-blurred
+    grid, inputs rounded in bf16; dL/do rounded before its one-tap z
+    transpose) and blur_yx_kernel on dgrid."""
+    rnd = fused._rnd if bf16 else (lambda t: t)
+    yx = _yx(g, k, radius, bf16, one_tap_order)
+    o = one_tap_order(_rays(rnd(yx)), k, radius)
+    sil, depth = _walk(o)
+    dodz = rnd(_drc_bwd(o, gs, gd))
+    dgrid = _grid(one_tap_order(dodz, k, radius), g)
+    return sil, depth, _yx(dgrid, k, radius, bf16, one_tap_order)
+
+
+def split_route(g, k, radius, bf16, gs, gd):
+    """blur_slab_kernel<bf16, bf16>, blur_z_kernel<false, bf16, false> in
+    place (the staged tile rounded in bf16), zblur_drc_kernel<false> on the
+    stored grid; then drc_bwd_kernel<true>, blur_z_kernel<true, bf16,
+    false> (dL/do rounded as it is staged, taps reversed) and
+    blur_slab_kernel on dgrid. Also returns the stored grid."""
+    rnd = fused._rnd if bf16 else (lambda t: t)
+    yx = _yx(g, k, radius, bf16, run_order)
+    full = _grid(run_order(_rays(rnd(yx)), k, radius), g)  # stored
+    sil, depth = _walk(_rays(full))
+    dodz = _drc_bwd(_rays(full), gs, gd)
+    dgrid = _grid(run_order(rnd(dodz), k, radius, flip=True), g)
+    return sil, depth, _yx(dgrid, k, radius, bf16, run_order), full
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d,radius", [(8, 7), (20, 1), (20, 3), (20, 19),
+                                      (24, 5), (24, 23), (32, 6), (32, 31),
+                                      (64, 8), (64, 63)])
+def test_split_route_is_the_fused_walks(d, radius, bf16):
+    """K1/K2 at D <= 64: the new route (y/x pass, z pass, walks on the
+    stored grid, z transpose of dL/do) against the parent's fused walks and
+    one-tap loops, bit for bit: sil, depth and the cotangent grid."""
+    rng = np.random.default_rng(d * 64 + radius)
+    R = 2
+    # sparse occupancy with dense clumps: some rays saturate and clip
+    g = rng.exponential(4.0, size=(R, d, d, d)) * (
+        rng.random((R, d, d, d)) < 0.25)
+    g = torch.tensor(g, dtype=torch.float32)
+    gs = torch.tensor(rng.normal(size=R * d * d), dtype=torch.float32)
+    gd = torch.tensor(rng.normal(size=R * d * d), dtype=torch.float32)
+    k = gauss_kernel_1d(torch.tensor(0.05 * d + 0.1 * radius), radius)
+    assert torch.equal(k, k.flip(0))  # the transpose's reversed taps
+    if bf16:
+        k = fused._rnd(k)
+    want = parent_route(g, k, radius, bf16, gs, gd)
+    *got, full = split_route(g, k, radius, bf16, gs, gd)
+    clipped = (full >= 1.0 - 1e-5).float().mean().item()
+    assert 0.0 < clipped < 1.0  # the walks clip some cells and not others
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

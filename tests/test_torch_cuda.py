@@ -51,6 +51,8 @@ def cuda():
         (2, 4000, 72, 9, True, True, 0.6),  # D > 64, points past both ends
         (4, 16000, 128, 16, False, True, 0.6),  # the multicat_128 step
         (2, 4000, 98, 30, True, True, 0.6),  # D % 4 != 0 above 64
+        (256, 2048, 32, 6, False, True, 0.6),  # the chair_pred_pose render
+        (2, 600, 8, 7, True, True, 0.6),  # one run a line, the widest R
     ],
 )
 def test_kernel_matches_plain(cuda, renders, n, vox, radius, with_depth,
@@ -133,6 +135,9 @@ def _assert_grads_close(got, plain, ndc, vox):
         (4, 1000, 16, 2, True, False, 0.7),
         (3, 777, 24, 3, False, False, 0.45),
         (2, 5000, 64, 63, True, True, 0.55),  # the widest radius
+        (256, 2048, 32, 6, False, True, 0.6),  # the chair_pred_pose render
+        (2, 600, 8, 7, True, True, 0.6),  # one run a line, the widest R
+        (3, 777, 20, 19, True, False, 0.5),  # D % 8 != 0, the widest R
     ],
 )
 def test_backward_kernel_matches_plain(cuda, renders, n, vox, radius,
@@ -457,6 +462,9 @@ BF16_SHARE = 2.0**-8  # of the largest plain value: the splat's atomics
         (256, 2048, 32, 6, False, True),  # the chair_pred_pose render
         (4, 1000, 16, 2, True, False),
         (3, 777, 20, 3, False, True),  # D % 8 != 0, odd N
+        (2, 600, 8, 7, True, True),  # one run a line, the widest R
+        (3, 777, 20, 19, True, False),  # D % 8 != 0, the widest R
+        (2, 5000, 64, 63, True, True),  # the widest radius at D 64
     ],
 )
 def test_bf16_kernels_match_plain(cuda, renders, n, vox, radius, with_depth,
@@ -603,6 +611,56 @@ def test_bf16_order_follows_the_grid_size(cuda):
     peak = k1.abs().max().item()
     assert (sil - k1).abs().max().item() <= BF16_FWD_SHARE * peak
     assert (sil - k3).abs().max().item() > BF16_FWD_SHARE * peak
+
+
+def _lattice_coords(cuda, renders, vox, seed):
+    """Grid coordinates [R, 3, N] of one point in each 2 x 2 x 2 block of
+    cells, at a random offset in [0, 1) from the block's first cell: every
+    cell takes at most one splat contribution, so the atomics' order
+    cannot change a sum."""
+    rng = np.random.default_rng(seed)
+    base = np.stack(np.meshgrid(*[np.arange(0, vox - 1, 2)] * 3,
+                                indexing="ij")).reshape(3, -1)
+    g = base[None] + rng.uniform(0, 1, (renders, 3, base.shape[1]))
+    return torch.tensor(g, dtype=torch.float32, device=cuda).contiguous()
+
+
+@pytest.mark.parametrize("vox,radius,with_depth", [(8, 7, True),
+                                                   (20, 3, False),
+                                                   (32, 6, False),
+                                                   (64, 8, True),
+                                                   (64, 63, True)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_kernels_repeat_bitwise(cuda, vox, radius, with_depth, bf16):
+    """K1 and K2 at D <= 64 sum in a fixed order wherever no two points
+    share a cell: two launches of the forward, of the backward on the
+    saved grid and of the recompute backward give bitwise-equal outputs,
+    and the recompute equals the saved-grid backward, in either operand
+    mode."""
+    from dpcx_torch.render.gauss import gauss_kernel_1d
+
+    renders = 3
+    coords = _lattice_coords(cuda, renders, vox, vox + radius)
+    n = coords.shape[2]
+    gen = torch.Generator(device=cuda).manual_seed(vox)
+    pw = torch.rand(renders, n, device=cuda, generator=gen) * 2
+    dsil = torch.randn(renders, vox, vox, device=cuda, generator=gen)
+    ddepth = (torch.randn(renders, vox, vox, device=cuda, generator=gen)
+              if with_depth else None)
+    taps = gauss_kernel_1d(torch.tensor(0.05 * vox + 0.1 * radius,
+                                        device=cuda), radius).contiguous()
+    fwd = [fused._launch_forward(coords, pw, taps, radius, vox, with_depth,
+                                 bf16) for _ in range(2)]
+    bwd = [fused._launch_backward(coords, pw, taps, radius, grid, dsil,
+                                  ddepth, vox, with_depth, True, bf16)
+           for grid in (fwd[0][2], fwd[1][2], None, None)]
+    torch.cuda.synchronize()
+    assert fwd[0][0].abs().max() > 0 and bwd[0][0].abs().max() > 0
+    for a, b in zip(fwd[0], fwd[1]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    for out in bwd[1:]:
+        for a, b in zip(bwd[0], out):
+            assert torch.equal(a, b)
 
 
 # K6/K7's bfloat16 mode against its plain version, per row group of the
