@@ -210,18 +210,19 @@ K1_STAGES = ("splat_kernel", "blur_slab_kernel", "blur_z_kernel",
              "zblur_drc_kernel")
 # every kernel of csrc/*.cu: what the profiler check (check_profile) sums
 RENDER_KERNELS = ("splat_kernel", "blur_slab_kernel", "blur_z_kernel",
-                  "zblur_drc_kernel", "zblur_drc_bwd_kernel",
-                  "drc_bwd_kernel", "splat_bwd_kernel", "aniso_fwd_kernel",
-                  "aniso_bwd_kernel")
+                  "zblur_drc_kernel", "drc_bwd_kernel", "drc_bwd_tile_kernel",
+                  "splat_bwd_kernel", "aniso_fwd_kernel", "aniso_bwd_kernel")
 # the names an older checkout's kernels had (the D > 64 z pass and z
 # transpose before blur_z_kernel; the D <= 64 y/x pass before
-# blur_slab_kernel), which render_times also sums when it times such a tree
+# blur_slab_kernel; the f32 walk of the z-blur, DRC backward and z
+# transpose before drc_bwd_tile_kernel and blur_z_kernel), which
+# render_times also sums when it times such a tree
 OLD_RENDER_KERNELS = ("zblur_kernel", "zblock_transpose_kernel",
-                      "blur_yx_kernel")
+                      "blur_yx_kernel", "zblur_drc_bwd_kernel")
 # the renderer's blur passes and walks, which keep no per-thread array:
 # phase 1 fails if ptxas gives one a stack frame or spills
 NO_FRAME_KERNELS = ("blur_slab_kernel", "blur_z_kernel", "zblur_drc_kernel",
-                    "drc_bwd_kernel")
+                    "drc_bwd_kernel", "drc_bwd_tile_kernel")
 # their C entry points (csrc/*.cu), which launch_event_ms times
 C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
              "dpcx_fused_render_bwd_recompute", "dpcx_aniso_render",
@@ -653,10 +654,9 @@ def render_bound(renders, n, vox, radius, with_depth, weights, backward,
     written once) over PEAK_BYTES_PER_S. The forward's outputs are the
     images alone: the grid the kernels keep for the backward is their
     choice, not the function's. The backward takes the lesser of two ways
-    to it: reading the fully blurred grid (its bytes, then the three blur
-    transposes; an x/y-blurred grid would cost a fourth pass, the z-blur
-    again), or recomputing it (the splat and three blur passes again, no
-    grid bytes). In f32 every operation counts at
+    to it: reading the fully blurred grid the forward saves (its bytes,
+    then the three blur transposes), or recomputing it (the splat and three
+    blur passes again, no grid bytes). In f32 every operation counts at
     PEAK_F32_FLOPS. ``bf16``: K1/K2's bfloat16 mode, whose Pallas kernels
     run the splat, the blur passes and the splat backward's products as
     bf16 matmuls: those operations over PEAK_BF16_FLOPS, DRC and its
@@ -759,15 +759,16 @@ def training_step_fn(cfg, ds):
 # to; the first match wins, blur_slab_kernel (forward and backward both
 # launch one once a step) is split half and half. The renderer's forward
 # is K1 at D <= 64 and the counterpart of K3 above, with the z pass
-# blur_z_kernel<false, ...>; its backward K2, or K4 + K5, with the z
+# blur_z_kernel<false, ...>; its backward K2, or K4 + K5, with the DRC
+# backward drc_bwd_kernel (drc_bwd_tile_kernel above D 64) and the z
 # transpose blur_z_kernel<true, ...>
 RENDER_FWD, RENDER_BWD = ("renderer forward (K1 / K3)",
                           "renderer backward (K2 / K4 + K5)")
 STEP_LAYERS = (
     ("splat renderer backward (K7)", ("aniso_bwd_kernel",)),
     ("splat renderer forward (K6)", ("aniso_fwd_kernel",)),
-    (RENDER_BWD, ("drc_bwd_kernel", "blur_z_kernel<true",
-                  "splat_bwd_kernel")),
+    (RENDER_BWD, ("drc_bwd_kernel", "drc_bwd_tile_kernel",
+                  "blur_z_kernel<true", "splat_bwd_kernel")),
     (RENDER_FWD, ("zblur_drc_kernel", "blur_z_kernel<false",
                   "splat_kernel")),
     ("Adam (foreach)", ("multi_tensor_apply",)),

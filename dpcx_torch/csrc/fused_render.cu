@@ -38,16 +38,14 @@
 //       second writes to device memory: the y pass straight (a lane a
 //       column); the x pass (K1's bf16 order, y first) in place, then the
 //       slab is copied out.
-//   (c) blur z (blur_z_kernel), in place, at every D in the bf16 mode and
-//       at D <= 64 in f32: one block per (render, y, 32 consecutive x)
-//       stages a [padded(D), 32] tile of whole z columns in shared memory
-//       and blurs it with blur_run, a warp a run; no per-thread column.
+//   (c) blur z (blur_z_kernel), in place, at every D and in both modes:
+//       one block per (render, y, 32 consecutive x) stages a [padded(D),
+//       32] tile of whole z columns in shared memory and blurs it with
+//       blur_run, a warp a run; no per-thread column.
 //   (d) DRC (zblur_drc_kernel): one thread per ray (render, y, x) walks z
-//       and carries T, sil and depth in registers; a warp reads 32
-//       neighbouring x, so the reads coalesce. On the fully blurred grid it
-//       reads one value a z step. In f32 above D 64 there is no z pass:
-//       the walk forms each z-blurred occupancy from its 2R+1 neighbours
-//       (kZBlur; they mostly hit L1).
+//       on the fully blurred grid, one value a z step, and carries T, sil
+//       and depth in registers; a warp reads 32 neighbouring x, so the
+//       reads coalesce.
 // (b)-(d) are bound by bytes: the grid is written by (a), read and written
 // by (b) and (c), and read by (d); at D 64 a pass over 32 renders reads and
 // writes 33.5 MB each way, at least 0.020 ms at 3.35 TB/s; at D 128 over
@@ -75,9 +73,13 @@
 //       suffix S after the last step of the downward walk (S_{-1}), so K4
 //       needs no pass of its own, and the suffix form needs no division by
 //       (1 - o) down to 1e-5 and no difference of two nearly equal f32
-//       sums. T_z waits in shared memory at D <= 64 ([D][128] floats, 32 KiB
-//       at D 64: the grid is read twice and dgrid written once), in dgrid's
-//       column above (K5's bf16 mode).
+//       sums. At D <= 64 (drc_bwd_kernel) T_z waits in shared memory
+//       ([D][128] floats, 32 KiB at D 64: the grid is read twice and dgrid
+//       written once). Above (drc_bwd_tile_kernel) a warp stages a tile of
+//       32 whole z columns in shared memory with 16-byte cp.async copies
+//       and keeps every 8th T_z beside it; the walk down forms the 7
+//       between again from it by the same products, so the grid is read
+//       once and dgrid written once, coalesced across x.
 //   (f) the blur transposes, in place on dgrid: the z transpose
 //       (blur_z_kernel<true, ...>, which reads the taps reversed, tap(z - i);
 //       dpcx's taps are symmetric) and the y/x transpose (blur_slab_kernel;
@@ -89,9 +91,6 @@
 //       along an axis whose coordinate is an exact integer, as the
 //       reference's _dhat_t gives (a floor-based form would be one-sided
 //       there).
-// In f32 above D 64 the grid is x/y-blurred, and zblur_drc_bwd_kernel runs
-// the z-blur, (e) and the z transpose in one walk a ray, from two per-thread
-// arrays (1 KiB of local memory), before the y/x transpose and (g).
 // (e) and (g) are bound by bytes like (d) and the forward splat.
 //
 // Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16"). The Pallas
@@ -144,7 +143,6 @@
 namespace {
 
 constexpr int kMaxVox = 128;
-constexpr int kMaxTaps = 2 * (kMaxVox - 1) + 1;  // radius <= D - 1
 constexpr int kThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kRun = 8;  // outputs a thread forms along the blur axis
@@ -153,7 +151,8 @@ constexpr int kSlabThreads = 256;  // blur_slab_kernel, blur_z_kernel
 constexpr int kSlabWarps = kSlabThreads / 32;
 constexpr int kTileW = 32;  // blur_z_kernel: x columns a tile
 constexpr int kFusedMaxVox = 64;  // above: dpcx's depth-blocked K3-K5
-constexpr int kDrcThreads = 128;  // drc_bwd_kernel<true>: 32 KiB of T at D 64
+constexpr int kDrcThreads = 128;  // drc_bwd_kernel: 32 KiB of T at D 64
+constexpr int kDrcTileWarps = 4;  // drc_bwd_tile_kernel: tiles a block
 
 // The operand mode: f32; the bf16 mode of K1/K2 (D <= 64); the bf16 mode of
 // K3-K5 (D > 64), whose rounding points differ (the header).
@@ -363,8 +362,9 @@ __host__ __device__ constexpr int slab_threads(int d) {
 // One pass of the slab in place in its shared buffer a (pitch p, zero past
 // D): along x (kAlongX; a lane a row, 16-byte loads) or along y (a lane a
 // column). 32 lines at a time, warp w forms its runs w and w + nw of each
-// line (nw warps, at most 2 nw runs; kOneRun: at most nw, run w alone,
-// which frees the second run's registers) and holds them in registers
+// line (nw = kSlabWarps, at most 2 nw runs; kOneRun: a warp a run, nw from
+// the block's size, run w alone, which frees the second run's registers)
+// and holds them in registers
 // until every warp has read those lines, then writes them back, rounded
 // with kRound. Lines are independent, so the next 32 need no second
 // barrier; the caller's __syncthreads ends the pass.
@@ -372,7 +372,8 @@ template <bool kAlongX, bool kRound, bool kOneRun>
 __device__ __forceinline__ void pass_in_place(float* a, int p, const float* ks,
                                               int radius, int d) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5, runs = padded(d) / kRun;
+  const int nw = kOneRun ? blockDim.x >> 5 : kSlabWarps;
+  const int runs = padded(d) / kRun;
   const int r0 = warp, r1 = warp + nw;
   for (int l0 = 0; l0 < d; l0 += 32) {
     const int l = l0 + lane;  // the lane's row (x pass) or column (y pass)
@@ -435,10 +436,12 @@ __global__ void __launch_bounds__(kSlabThreads, 3)
   stage_taps<kBf16, false>(ks, taps, radius);
   float* slab = grid + static_cast<int64_t>(blockIdx.x) * d * d;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+  // the block's threads and warps: kSlabThreads above D 64
+  const int nt = kFused ? static_cast<int>(blockDim.x) : kSlabThreads;
+  const int nw = nt >> 5;
   const int pieces = dp / 4;  // 16-byte pieces a buffer row
   if (d % 4 == 0) {  // rows of whole 16-byte pieces: copy them in flight
-    for (int i = threadIdx.x; i < dp * pieces; i += blockDim.x) {
+    for (int i = threadIdx.x; i < dp * pieces; i += nt) {
       const int y = i / pieces, x = 4 * (i - y * pieces);
       if (y < d && x < d) {
         copy16(a + y * p + x, slab + y * d + x);
@@ -448,7 +451,7 @@ __global__ void __launch_bounds__(kSlabThreads, 3)
     }
     copy_wait();
     if constexpr (kBf16) {
-      for (int i = threadIdx.x; i < dp * pieces; i += blockDim.x) {
+      for (int i = threadIdx.x; i < dp * pieces; i += nt) {
         round4(a + i / pieces * p + 4 * (i % pieces));
       }
     }
@@ -570,21 +573,11 @@ __global__ void __launch_bounds__(kSlabThreads)
 }
 
 // (d) one thread per ray (render, y, x): DRC in f32 on the fully blurred
-// grid, or, with kZBlur (f32 above D 64), on the x/y-blurred one, whose
-// z-blur it forms on the fly (the taps are read only then).
-template <bool kZBlur>
+// grid.
 __global__ void zblur_drc_kernel(const float* __restrict__ grid,
-                                 const float* __restrict__ taps, int radius,
                                  float* __restrict__ sil,
                                  float* __restrict__ depth, int renders,
                                  int d, int with_depth) {
-  __shared__ float k[kMaxTaps];
-  if constexpr (kZBlur) {
-    for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-      k[i] = taps[i];
-    }
-  }
-  __syncthreads();
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (ray >= renders * dd) return;
@@ -593,14 +586,7 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   const float fd = static_cast<float>(d);
   float trans = 1.f, s = 0.f, dep = 0.f;
   for (int z = 0; z < d; ++z) {
-    float o = 0.f;
-    if constexpr (kZBlur) {
-      const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
-      for (int t = lo; t <= hi; ++t) o += col[(z + t) * dd] * k[t + radius];
-    } else {
-      o = col[z * dd];
-    }
-    o = fminf(fmaxf(o, 0.f), 1.f - 1e-5f);
+    const float o = fminf(fmaxf(col[z * dd], 0.f), 1.f - 1e-5f);
     const float p = o * trans;
     s += p;
     if (with_depth) dep += ((static_cast<float>(z) + 0.5f) / fd - 0.5f) * p;
@@ -610,71 +596,16 @@ __global__ void zblur_drc_kernel(const float* __restrict__ grid,
   if (with_depth) depth[ray] = dep + 1.f * trans;
 }
 
-// (e) in f32 above D 64, one thread per ray: z-blur of the x/y-blurred
-// grid, DRC backward, and the z-blur's transpose into dgrid. dsil, ddepth
-// [R, D, D]; ddepth may be null (a zero cotangent). The ray's raw
-// occupancy and T live in two per-thread arrays (1 KiB of local memory).
-__global__ void zblur_drc_bwd_kernel(const float* __restrict__ grid,
-                                     const float* __restrict__ taps,
-                                     int radius,
-                                     const float* __restrict__ dsil,
-                                     const float* __restrict__ ddepth,
-                                     float* __restrict__ dgrid, int renders,
-                                     int d, int with_depth) {
-  __shared__ float k[kMaxTaps];
-  for (int i = threadIdx.x; i < 2 * radius + 1; i += blockDim.x) {
-    k[i] = taps[i];
-  }
-  __syncthreads();
-  const int64_t dd = static_cast<int64_t>(d) * d;
-  const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (ray >= renders * dd) return;
-  const int64_t r = ray / dd;
-  const int64_t off = r * dd * d + (ray - r * dd);
-  const float* col = grid + off;
-  const float fd = static_cast<float>(d);
-  constexpr float kTop = 1.f - 1e-5f;
-  float o[kMaxVox];  // raw occupancy, then dL/do_raw
-  float tr[kMaxVox];  // transmittance before z
-  float trans = 1.f;
-  for (int z = 0; z < d; ++z) {
-    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += col[(z + t) * dd] * k[t + radius];
-    o[z] = s;
-    tr[z] = trans;
-    trans *= 1.f - fminf(fmaxf(s, 0.f), kTop);
-  }
-  const float gs = dsil[ray];
-  const float gd = (with_depth && ddepth != nullptr) ? ddepth[ray] : 0.f;
-  float suffix = gd * 1.f;  // background depth 1.0 past the volume
-  for (int z = d - 1; z >= 0; --z) {
-    const float raw = o[z];
-    const float oc = fminf(fmaxf(raw, 0.f), kTop);
-    const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
-    o[z] = raw < kTop ? tr[z] * (phi - suffix) : 0.f;
-    suffix = oc * phi + (1.f - oc) * suffix;
-  }
-  float* dcol = dgrid + off;
-  for (int z = 0; z < d; ++z) {
-    const int lo = max(-radius, -z), hi = min(radius, d - 1 - z);
-    float s = 0.f;
-    for (int t = lo; t <= hi; ++t) s += o[z + t] * k[t + radius];
-    dcol[z * dd] = s;
-  }
-}
-
-// (e) on the fully blurred grid, one thread per ray, into dgrid: the walk up
-// keeps T_z, in shared memory (kSharedT: [D][blockDim.x] floats, at D <=
-// 64) or in dgrid's column; the walk down (the suffix form, f32) writes
-// dL/do there (zero where the forward clipped). No per-thread array.
-template <bool kSharedT>
+// (e) at D <= 64, on the fully blurred grid, one thread per ray, into
+// dgrid: the walk up keeps T_z in shared memory ([D][blockDim.x] floats);
+// the walk down (the suffix form, f32) writes dL/do there (zero where the
+// forward clipped). No per-thread array.
 __global__ void drc_bwd_kernel(const float* __restrict__ grid,
                                const float* __restrict__ dsil,
                                const float* __restrict__ ddepth,
                                float* __restrict__ dgrid, int renders, int d,
                                int with_depth) {
-  extern __shared__ float tz[];  // kSharedT: T_z of the block's rays
+  extern __shared__ float tz[];  // T_z of the block's rays
   const int64_t dd = static_cast<int64_t>(d) * d;
   const int64_t ray = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (ray >= renders * dd) return;
@@ -682,18 +613,12 @@ __global__ void drc_bwd_kernel(const float* __restrict__ grid,
   const int64_t off = r * dd * d + (ray - r * dd);
   const float* col = grid + off;
   float* dcol = dgrid + off;
-  const auto t_at = [&](int z) -> float& {
-    if constexpr (kSharedT) {
-      return tz[z * blockDim.x + threadIdx.x];
-    } else {
-      return dcol[z * dd];
-    }
-  };
+  float* t = tz + threadIdx.x;  // T_z at t[z blockDim.x]
   const float fd = static_cast<float>(d);
   constexpr float kTop = 1.f - 1e-5f;
   float trans = 1.f;
   for (int z = 0; z < d; ++z) {
-    t_at(z) = trans;
+    t[z * blockDim.x] = trans;
     trans *= 1.f - fminf(fmaxf(col[z * dd], 0.f), kTop);
   }
   const float gs = dsil[ray];
@@ -703,8 +628,116 @@ __global__ void drc_bwd_kernel(const float* __restrict__ grid,
     const float raw = col[z * dd];
     const float oc = fminf(fmaxf(raw, 0.f), kTop);
     const float phi = gs + gd * ((static_cast<float>(z) + 0.5f) / fd - 0.5f);
-    dcol[z * dd] = raw < kTop ? t_at(z) * (phi - suffix) : 0.f;
-    suffix = oc * phi + (1.f - oc) * suffix;
+    dcol[z * dd] = raw < kTop ? t[z * blockDim.x] * (phi - suffix) : 0.f;
+    // oc phi + (1 - oc) suffix as one FMA on the first product, written
+    // out: nvcc fuses either product of such a sum as the code around it
+    // leads it, and the results are held to this one bit for bit
+    suffix = fmaf(oc, phi, (1.f - oc) * suffix);
+  }
+}
+
+// Shared floats of one drc_bwd_tile_kernel tile: the [padded(D), 32] tile
+// of the grid and every kRun-th T_z of its 32 rays, [padded(D) / kRun, 32].
+__host__ __device__ constexpr int drc_tile_floats(int d) {
+  return (padded(d) + padded(d) / kRun) * kTileW;
+}
+
+// (e) at D > 64, drc_bwd_kernel's arithmetic in its order, into dgrid: a
+// warp a tile of 32 whole z columns (one render, one y, 32 consecutive x,
+// as blur_z_kernel tiles them), a lane a ray, kDrcTileWarps tiles a block.
+// The warp stages its tile in shared memory (16-byte cp.async copies, or
+// one float a lane where D % 4 != 0; zero past D); the d_z of the block
+// wait in a shared table. The walk up keeps T at every kRun-th z
+// (checkpoints, 2 KiB a tile at D 128 against 16 KiB for every T_z, so
+// three blocks of 4 tiles share an SM); the walk down takes the column in
+// chunks of kRun from the top, forms the chunk's T_z again from its
+// checkpoint by the walk up's very products, and writes dL/do (zero where
+// the forward clipped), a z row of 32 floats a step across the warp. The
+// chunks live in registers: no per-thread array in local memory.
+__global__ void __launch_bounds__(32 * kDrcTileWarps)
+    drc_bwd_tile_kernel(const float* __restrict__ grid,
+                        const float* __restrict__ dsil,
+                        const float* __restrict__ ddepth,
+                        float* __restrict__ dgrid, int renders, int d,
+                        int with_depth) {
+  extern __shared__ float4 smem4[];
+  const int dp = padded(d);
+  float* dz = reinterpret_cast<float*>(smem4);  // [padded(D)] d_z
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* t = dz + dp + warp * drc_tile_floats(d);  // [padded(D), kTileW]
+  float* ck = t + dp * kTileW;  // [padded(D) / kRun, kTileW] T checkpoints
+  const float fd = static_cast<float>(d);
+  for (int z = threadIdx.x; z < dp; z += blockDim.x) {
+    dz[z] = (static_cast<float>(z) + 0.5f) / fd - 0.5f;
+  }
+  __syncthreads();
+  const int tiles = (d + kTileW - 1) / kTileW;
+  const int64_t tile =
+      static_cast<int64_t>(blockIdx.x) * kDrcTileWarps + warp;
+  if (tile >= static_cast<int64_t>(renders) * d * tiles) return;
+  const int64_t dd = static_cast<int64_t>(d) * d;
+  const int64_t ry = tile / tiles;  // render * d + y
+  const int64_t r = ry / d;
+  const int x0 = static_cast<int>(tile % tiles) * kTileW;
+  const int64_t off = r * dd * d + (ry - r * d) * d + x0;
+  const float* base = grid + off;
+  if (d % 4 == 0) {
+    // a z row of the tile is 8 pieces of 16 bytes, whole inside or past D
+    const int f = 4 * (lane & 7);
+    for (int z = lane >> 3; z < dp; z += 4) {
+      if (z < d && x0 + f < d) {
+        copy16(t + z * kTileW + f, base + z * dd + f);
+      } else {
+        *reinterpret_cast<float4*>(t + z * kTileW + f) = {0.f, 0.f, 0.f, 0.f};
+      }
+    }
+    copy_wait();
+  } else {
+#pragma unroll 8
+    for (int z = 0; z < dp; ++z) {
+      t[z * kTileW + lane] = z < d && x0 + lane < d ? base[z * dd + lane] : 0.f;
+    }
+  }
+  __syncwarp();
+  if (x0 + lane >= d) return;
+  constexpr float kTop = 1.f - 1e-5f;
+  // the walk up: T before z, kept at z = 0, kRun, 2 kRun, ...; past D the
+  // staged zeros multiply T by 1
+  float trans = 1.f;
+  for (int z0 = 0; z0 < dp; z0 += kRun) {
+    float c[kRun];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) c[j] = t[(z0 + j) * kTileW + lane];
+    ck[z0 / kRun * kTileW + lane] = trans;
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) trans *= 1.f - fminf(fmaxf(c[j], 0.f), kTop);
+  }
+  const int64_t ray = ry * d + x0 + lane;
+  const float gs = dsil[ray];
+  const float gd = (with_depth && ddepth != nullptr) ? ddepth[ray] : 0.f;
+  float suffix = gd * 1.f;  // background depth 1.0 past the volume
+  float* dcol = dgrid + off + lane;
+  for (int z0 = dp - kRun; z0 >= 0; z0 -= kRun) {
+    float c[kRun], tr[kRun];
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) c[j] = t[(z0 + j) * kTileW + lane];
+    tr[0] = ck[z0 / kRun * kTileW + lane];
+#pragma unroll
+    for (int j = 1; j < kRun; ++j) {
+      tr[j] = tr[j - 1] * (1.f - fminf(fmaxf(c[j - 1], 0.f), kTop));
+    }
+#pragma unroll
+    for (int j = kRun - 1; j >= 0; --j) {
+      const int z = z0 + j;
+      if (z >= d) continue;
+      const float raw = c[j];
+      const float oc = fminf(fmaxf(raw, 0.f), kTop);
+      const float phi = gs + gd * dz[z];
+      dcol[z * dd] = raw < kTop ? tr[j] * (phi - suffix) : 0.f;
+      // drc_bwd_kernel's FMA (left to nvcc, this unrolled loop would fuse
+      // the other product)
+      suffix = fmaf(oc, phi, (1.f - oc) * suffix);
+    }
   }
 }
 
@@ -801,10 +834,6 @@ unsigned ray_blocks(int renders, int d, int threads = kThreads) {
   return static_cast<unsigned>((rays + threads - 1) / threads);
 }
 
-// Whether the grid the forward leaves for the DRC walk and the backward is
-// fully blurred: in every mode but f32 above D 64 (x/y-blurred there).
-bool full_blur(Mode m, int d) { return m != Mode::kF32 || d <= kFusedMaxVox; }
-
 // (b) on every slab of grid [R, D, D, D], in place, in the mode's order
 // (the fused form at D <= 64): three blocks an SM at D 128 (67,860 bytes
 // each with the taps at R 16), which needs the shared-memory carveout at
@@ -848,9 +877,8 @@ cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
   return cudaGetLastError();
 }
 
-// (a) + (b) + (c): the grid the DRC walk reads, into the scratch grid:
-// fully blurred (K1: y/x, then z; K3's bf16 mode: z first), or x/y-blurred
-// in f32 above D 64.
+// (a) + (b) + (c): the fully blurred grid the DRC walk reads, into the
+// scratch grid (y/x, then z; K3's bf16 mode: z first).
 cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
@@ -873,7 +901,7 @@ cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
   switch (m) {
     case Mode::kF32:
       err = launch_blur_slab<false>(grid, taps, radius, renders, d, s);
-      if (err != cudaSuccess || !full_blur(m, d)) return err;
+      if (err != cudaSuccess) return err;
       return launch_blur_z<false, false>(grid, taps, radius, renders, d, s);
     case Mode::kBf16:
       err = launch_blur_slab<true>(grid, taps, radius, renders, d, s);
@@ -887,18 +915,47 @@ cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
   return cudaErrorInvalidValue;
 }
 
-// (d): the DRC, with the z-blur on the fly where the grid is x/y-blurred.
-cudaError_t launch_drc(Mode m, const float* grid, const float* taps,
-                       int radius, float* sil, float* depth, int renders,
-                       int d, int with_depth, cudaStream_t s) {
-  const unsigned blocks = ray_blocks(renders, d);
-  if (full_blur(m, d)) {
-    zblur_drc_kernel<false><<<blocks, kThreads, 0, s>>>(
-        grid, taps, radius, sil, depth, renders, d, with_depth);
-  } else {
-    zblur_drc_kernel<true><<<blocks, kThreads, 0, s>>>(
-        grid, taps, radius, sil, depth, renders, d, with_depth);
+// (d): the DRC walk on the fully blurred grid.
+cudaError_t launch_drc(const float* grid, float* sil, float* depth,
+                       int renders, int d, int with_depth, cudaStream_t s) {
+  zblur_drc_kernel<<<ray_blocks(renders, d), kThreads, 0, s>>>(
+      grid, sil, depth, renders, d, with_depth);
+  return cudaGetLastError();
+}
+
+// (e): drc_bwd_kernel at D <= 64; above, drc_bwd_tile_kernel, whose blocks
+// take 74,240 bytes of shared memory at D 128 (three blocks an SM), which
+// needs the shared-memory carveout at its largest and the kernel's limit
+// raised above the 48 KiB default.
+cudaError_t launch_drc_bwd(const float* grid, const float* dsil,
+                           const float* ddepth, float* dgrid, int renders,
+                           int d, int with_depth, cudaStream_t s) {
+  if (d <= kFusedMaxVox) {
+    drc_bwd_kernel<<<ray_blocks(renders, d, kDrcThreads), kDrcThreads,
+                     static_cast<size_t>(d) * kDrcThreads * sizeof(float),
+                     s>>>(grid, dsil, ddepth, dgrid, renders, d, with_depth);
+    return cudaGetLastError();
   }
+  const size_t smem =
+      (static_cast<size_t>(padded(d)) +
+       static_cast<size_t>(kDrcTileWarps) * drc_tile_floats(d)) *
+      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      drc_bwd_tile_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  if (smem > kDefaultSmem) {
+    err = cudaFuncSetAttribute(drc_bwd_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t tiles =
+      static_cast<int64_t>(renders) * d * ((d + kTileW - 1) / kTileW);
+  drc_bwd_tile_kernel<<<static_cast<unsigned>(
+                            (tiles + kDrcTileWarps - 1) / kDrcTileWarps),
+                        32 * kDrcTileWarps, smem, s>>>(
+      grid, dsil, ddepth, dgrid, renders, d, with_depth);
   return cudaGetLastError();
 }
 
@@ -910,48 +967,29 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
                               float* dgrid, float* dcoords, float* dweights,
                               int renders, int n, int d, int with_depth,
                               cudaStream_t s) {
-  cudaError_t err;
-  if (!full_blur(m, d)) {  // the z-blur, (e) and the z transpose in one walk
-    zblur_drc_bwd_kernel<<<ray_blocks(renders, d), kThreads, 0, s>>>(
-        grid, taps, radius, dsil, ddepth, dgrid, renders, d, with_depth);
-    err = cudaGetLastError();
-    if (err == cudaSuccess) {
-      err = launch_blur_slab<false>(dgrid, taps, radius, renders, d, s);
-    }
-  } else {
-    if (d <= kFusedMaxVox) {
-      drc_bwd_kernel<true>
-          <<<ray_blocks(renders, d, kDrcThreads), kDrcThreads,
-             static_cast<size_t>(d) * kDrcThreads * sizeof(float), s>>>(
-              grid, dsil, ddepth, dgrid, renders, d, with_depth);
-    } else {
-      drc_bwd_kernel<false><<<ray_blocks(renders, d), kThreads, 0, s>>>(
-          grid, dsil, ddepth, dgrid, renders, d, with_depth);
-    }
-    err = cudaGetLastError();
-    if (err == cudaSuccess) {
-      switch (m) {  // the transposes in the mode's order
-        case Mode::kF32:
-          err = launch_blur_z<true, false>(dgrid, taps, radius, renders, d, s);
-          if (err == cudaSuccess) {
-            err = launch_blur_slab<false>(dgrid, taps, radius, renders, d,
-                                          s);
-          }
-          break;
-        case Mode::kBf16:
-          err = launch_blur_z<true, true>(dgrid, taps, radius, renders, d, s);
-          if (err == cudaSuccess) {
-            err = launch_blur_slab<true>(dgrid, taps, radius, renders, d, s);
-          }
-          break;
-        case Mode::kBf16Blocked:
+  cudaError_t err =
+      launch_drc_bwd(grid, dsil, ddepth, dgrid, renders, d, with_depth, s);
+  if (err == cudaSuccess) {
+    switch (m) {  // the transposes in the mode's order
+      case Mode::kF32:
+        err = launch_blur_z<true, false>(dgrid, taps, radius, renders, d, s);
+        if (err == cudaSuccess) {
+          err = launch_blur_slab<false>(dgrid, taps, radius, renders, d, s);
+        }
+        break;
+      case Mode::kBf16:
+        err = launch_blur_z<true, true>(dgrid, taps, radius, renders, d, s);
+        if (err == cudaSuccess) {
           err = launch_blur_slab<true>(dgrid, taps, radius, renders, d, s);
-          if (err == cudaSuccess) {
-            err = launch_blur_z<true, true, true>(dgrid, taps, radius,
-                                                  renders, d, s);
-          }
-          break;
-      }
+        }
+        break;
+      case Mode::kBf16Blocked:
+        err = launch_blur_slab<true>(dgrid, taps, radius, renders, d, s);
+        if (err == cudaSuccess) {
+          err = launch_blur_z<true, true, true>(dgrid, taps, radius, renders,
+                                                d, s);
+        }
+        break;
     }
   }
   if (err != cudaSuccess || n == 0) return err;
@@ -976,8 +1014,8 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
 
 }  // namespace
 
-// Forward. grid: scratch [R, D, D, D] f32 that holds the grid the DRC walk
-// read afterwards (fully blurred; x/y-blurred in f32 above D 64); sil,
+// Forward. grid: scratch [R, D, D, D] f32 that holds the fully blurred grid
+// the DRC walk read afterwards; sil,
 // depth: [R, D, D] f32 (depth may be null when with_depth is 0); bf16: the
 // operand mode (1: bfloat16; above D 64, D % 8 == 0). Returns a cudaError_t
 // as int.
@@ -996,8 +1034,8 @@ extern "C" int dpcx_fused_render(const float* coords, const float* weights,
   cudaError_t err =
       launch_grid(m, coords, weights, taps, radius, grid, renders, n, d, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_drc(m, grid, taps, radius, sil, depth,
-                                     renders, d, with_depth, s));
+  return static_cast<int>(
+      launch_drc(grid, sil, depth, renders, d, with_depth, s));
 }
 
 // Backward, saved-grid mode. grid: the forward's grid [R, D, D, D] (read

@@ -24,10 +24,9 @@ transpose z, y, x, then dG is rounded. At D > 64 they are K3-K5's: the blur
 runs z, x, y, its transpose x, y, then the banded z transpose of each
 z-block of ``blocked_dz(D)`` rows, whose rounded partial sums add up to dG
 (so a row in the halo of several blocks is not the rounding of its full
-cotangent). The grid the forward saves is the fully blurred one in the
-bfloat16 mode at every D and in float32 at D <= 64 (the x/y-blurred one in
-float32 above). Its
-plain version is ``fused_project_reference(..., acc_dtype="bfloat16")``
+cotangent). The grid the forward saves is the fully blurred one, in either
+mode at every D. Its plain version is
+``fused_project_reference(..., acc_dtype="bfloat16")``
 forward and ``fused_backward_reference`` backward, written out because
 autograd through the rounded forward would round other quantities than the
 kernels do; CPU tensors take them through ``fused_project_plain``. In
@@ -399,9 +398,9 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth,
                     bf16=False):
     """Forward (K1, or K3 at D > 64): coords [R, 3, N] (z, y, x grid
     units), weights [R, N] or None, taps [2 radius + 1] -> (sil, depth or
-    None, the grid [R, D, D, D] that the backward may read: fully
-    blurred, or x/y-blurred in float32 above D 64). ``bf16``: the bfloat16
-    operand mode (K1's at D <= 64, K3's above)."""
+    None, the fully blurred grid [R, D, D, D] that the backward may
+    read). ``bf16``: the bfloat16 operand mode (K1's at D <= 64, K3's
+    above)."""
     from dpcx_torch import _build
 
     R, _, N = coords.shape

@@ -21,16 +21,19 @@ the transpose within chip_smoke.py's gradient limits, 2^-8 of the largest
 and 1e-3 in relative L2 (a rounded partial can flip where two f32 sums in
 other orders straddle a bfloat16 boundary).
 
-At D <= 64 (K1/K2) the kernels once fused the z-blur into the per-ray
-DRC walks (``zblur_drc_kernel`` formed each z-blurred value from its 2R + 1
-neighbours, ``zblur_drc_bwd_kernel`` re-formed them, walked the suffix and
-wrote the z transpose from per-thread arrays) after one-tap y/x passes. They
-now run a z pass (``blur_z_kernel``) and walk the stored, fully blurred
-grid, and the backward runs ``drc_bwd_kernel`` and then the z transpose as
-a z pass of dL/do with the taps reversed (dpcx's taps are symmetric). Both
-routes are written out whole, over every ray of a grid, and held against
-each other bit for bit: sil, depth and the cotangent grid after the three
-transposes, in both operand modes (bfloat16: y, then x, then z).
+At D <= 64 (K1/K2), and in float32 above D 64 (K3, K4 + K5), the kernels
+once fused the z-blur into the per-ray DRC walks (``zblur_drc_kernel``
+formed each z-blurred value from its 2R + 1 neighbours,
+``zblur_drc_bwd_kernel`` re-formed them, walked the suffix and wrote the z
+transpose from per-thread arrays) after the y/x passes. They now run a z
+pass (``blur_z_kernel``) and walk the stored, fully blurred grid, and the
+backward runs the DRC backward (``drc_bwd_kernel``; above D 64
+``drc_bwd_tile_kernel``, the same arithmetic in the same order) and then
+the z transpose as a z pass of dL/do with the taps reversed (dpcx's taps
+are symmetric). Both routes are written out whole, over every ray of a
+grid, and held against each other bit for bit: sil, depth and the
+cotangent grid after the three transposes, in both operand modes at
+D <= 64 (bfloat16: y, then x, then z) and in float32 above.
 """
 
 import numpy as np
@@ -225,10 +228,12 @@ def _grid(rays, g):
 
 
 def parent_route(g, k, radius, bf16, gs, gd):
-    """blur_yx_kernel, zblur_drc_kernel<bf16, true>, then
-    zblur_drc_bwd_kernel<64, bf16> (one-tap z-blur of the y/x-blurred
-    grid, inputs rounded in bf16; dL/do rounded before its one-tap z
-    transpose) and blur_yx_kernel on dgrid."""
+    """The fused walks: at D <= 64 blur_yx_kernel, zblur_drc_kernel<bf16,
+    true>, then zblur_drc_bwd_kernel<64, bf16> (one-tap z-blur of the
+    y/x-blurred grid, inputs rounded in bf16; dL/do rounded before its
+    one-tap z transpose) and blur_yx_kernel on dgrid; in float32 above D 64
+    the same with blur_slab_kernel<false, false> (whose sums are the
+    one-tap loops'), zblur_drc_kernel<true> and zblur_drc_bwd_kernel."""
     rnd = fused._rnd if bf16 else (lambda t: t)
     yx = _yx(g, k, radius, bf16, one_tap_order)
     o = one_tap_order(_rays(rnd(yx)), k, radius)
@@ -240,10 +245,11 @@ def parent_route(g, k, radius, bf16, gs, gd):
 
 def split_route(g, k, radius, bf16, gs, gd):
     """blur_slab_kernel<bf16, bf16>, blur_z_kernel<false, bf16, false> in
-    place (the staged tile rounded in bf16), zblur_drc_kernel<false> on the
-    stored grid; then drc_bwd_kernel<true>, blur_z_kernel<true, bf16,
-    false> (dL/do rounded as it is staged, taps reversed) and
-    blur_slab_kernel on dgrid. Also returns the stored grid."""
+    place (the staged tile rounded in bf16), zblur_drc_kernel on the stored
+    grid; then drc_bwd_kernel (drc_bwd_tile_kernel above D 64),
+    blur_z_kernel<true, bf16, false> (dL/do rounded as it is staged, taps
+    reversed) and blur_slab_kernel on dgrid. Also returns the stored
+    grid."""
     rnd = fused._rnd if bf16 else (lambda t: t)
     yx = _yx(g, k, radius, bf16, run_order)
     full = _grid(run_order(_rays(rnd(yx)), k, radius), g)  # stored
@@ -253,16 +259,9 @@ def split_route(g, k, radius, bf16, gs, gd):
     return sil, depth, _yx(dgrid, k, radius, bf16, run_order), full
 
 
-@pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("d,radius", [(8, 7), (20, 1), (20, 3), (20, 19),
-                                      (24, 5), (24, 23), (32, 6), (32, 31),
-                                      (64, 8), (64, 63)])
-def test_split_route_is_the_fused_walks(d, radius, bf16):
-    """K1/K2 at D <= 64: the new route (y/x pass, z pass, walks on the
-    stored grid, z transpose of dL/do) against the parent's fused walks and
-    one-tap loops, bit for bit: sil, depth and the cotangent grid."""
+def _hold_routes(d, radius, bf16, R):
+    """split_route against parent_route on R seeded grids, bit for bit."""
     rng = np.random.default_rng(d * 64 + radius)
-    R = 2
     # sparse occupancy with dense clumps: some rays saturate and clip
     g = rng.exponential(4.0, size=(R, d, d, d)) * (
         rng.random((R, d, d, d)) < 0.25)
@@ -279,3 +278,24 @@ def test_split_route_is_the_fused_walks(d, radius, bf16):
     assert 0.0 < clipped < 1.0  # the walks clip some cells and not others
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d,radius", [(8, 7), (20, 1), (20, 3), (20, 19),
+                                      (24, 5), (24, 23), (32, 6), (32, 31),
+                                      (64, 8), (64, 63)])
+def test_split_route_is_the_fused_walks(d, radius, bf16):
+    """K1/K2 at D <= 64: the new route (y/x pass, z pass, walks on the
+    stored grid, z transpose of dL/do) against the fused walks and one-tap
+    loops it replaced, bit for bit: sil, depth and the cotangent grid."""
+    _hold_routes(d, radius, bf16, 2)
+
+
+@pytest.mark.parametrize("d,radius,renders", [(72, 5, 2), (72, 71, 2),
+                                              (128, 16, 1)])
+def test_split_route_is_the_fused_walks_above_d64(d, radius, renders):
+    """K3 and K4 + K5 in float32 above D 64: the same route (the DRC
+    backward there is drc_bwd_tile_kernel) against the fused walks that
+    float32 kept there before, bit for bit: sil, depth and the cotangent
+    grid."""
+    _hold_routes(d, radius, False, renders)

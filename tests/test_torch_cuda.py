@@ -264,6 +264,77 @@ def test_blur_yx_launch_at_d128(cuda):
         torch.testing.assert_close(d_k, d_p, atol=ATOL, rtol=0)
 
 
+def _tile_grads(cuda, ndc, pw, mode, seed):
+    """The kernel's d ndc and d weights of <dsil, sil> + <ddepth, depth> at
+    D 128, radius 16 (seeded cotangents), with one launch of the forward and one
+    of the saved-grid backward in ``mode``; and the inputs' plain ones
+    (fused_backward_reference)."""
+    renders, vox = ndc.shape[0], 128
+    rng = np.random.default_rng(seed)
+    dsil, ddepth = (torch.tensor(rng.normal(size=(renders, vox, vox)),
+                                 dtype=torch.float32, device=cuda)
+                    for _ in range(2))
+    sigma = torch.tensor(0.05 * vox, device=cuda)
+    suffix = "_bf16" if mode == "bfloat16" else ""
+    before = dict(fused.LAUNCHES)
+    got = _grads(
+        lambda x, w: fused.fused_project_t(x, vox, sigma, 16,
+                                           point_weights=w, with_depth=True,
+                                           acc_dtype=mode),
+        ndc, pw, dsil, ddepth)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in fused.LAUNCHES.items()}
+    assert made == {k: int(k in (f"blocked_render{suffix}",
+                                 f"blocked_render_bwd{suffix}"))
+                    for k in made}
+    want = fused.fused_backward_reference(ndc, vox, sigma, 16, pw, True,
+                                          dsil, ddepth, mode)
+    return got, want
+
+
+def test_drc_bwd_tile_launch_at_d128(cuda):
+    """Above D 64 the DRC backward is drc_bwd_tile_kernel, whose blocks need
+    74,240 bytes of shared memory at D 128 (above the 48 KiB default): the
+    saved-grid backward's launch is accepted, and its gradients are within
+    1e-3 of the largest of fused_backward_reference's, on a core of ~3
+    cells whose occupancy passes 1 (the clipped cells' zero cotangent)."""
+    rng = np.random.default_rng(130)
+    n = 6000
+    ndc = torch.tensor(rng.uniform(-0.5, 0.5, (2, 3, n)),
+                       dtype=torch.float32, device=cuda)
+    ndc[:, :, : n // 3] *= 0.02
+    pw = torch.tensor(rng.uniform(0, 8, (2, n)), dtype=torch.float32,
+                      device=cuda)
+    sil, _ = fused.fused_project_t(ndc, 128, torch.tensor(6.4, device=cuda),
+                                   16, point_weights=pw, with_depth=True)
+    assert (sil > 1.0 - 1e-4).any()  # saturated rays: clipped cells
+    got, want = _tile_grads(cuda, ndc, pw, "float32", 131)
+    for a, b in zip(got, want):
+        peak = b.abs().max().item()
+        assert peak > 0
+        assert (a - b).abs().max().item() <= 1e-3 * peak
+
+
+def test_drc_bwd_tile_launch_at_d128_bf16(cuda):
+    """test_drc_bwd_tile_launch_at_d128 in bfloat16 operand mode, on
+    test_bf16_blocked_kernels_match_plain's kind of cloud (a dense core,
+    one point in ten weighing 10): the gradients within BF16_SHARE of the
+    largest plain one and BF16_GRAD_L2 in relative L2."""
+    rng = np.random.default_rng(132)
+    n = 3000
+    ndc = torch.tensor(rng.uniform(-0.6, 0.6, (2, 3, n)),
+                       dtype=torch.float32, device=cuda)
+    ndc[:, :, : n // 2] *= 0.4
+    pw = torch.tensor((rng.random((2, n)) < 0.1) * 10.0,
+                      dtype=torch.float32, device=cuda)
+    got, want = _tile_grads(cuda, ndc, pw, "bfloat16", 133)
+    for a, b in zip(got, want):
+        peak = b.abs().max().item()
+        assert peak > 0
+        assert (a - b).abs().max().item() <= BF16_SHARE * peak
+        assert _rel_l2(a, b) <= BF16_GRAD_L2
+
+
 def test_blur_yx_launch_at_d128_bf16(cuda):
     """test_blur_yx_launch_at_d128 in bfloat16 operand mode (K3's z pass
     and blur_slab_kernel<true>): the forward at R 16 and the widest R 127
@@ -629,14 +700,16 @@ def _lattice_coords(cuda, renders, vox, seed):
                                                    (20, 3, False),
                                                    (32, 6, False),
                                                    (64, 8, True),
-                                                   (64, 63, True)])
+                                                   (64, 63, True),
+                                                   (72, 9, True),
+                                                   (128, 16, False)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_kernels_repeat_bitwise(cuda, vox, radius, with_depth, bf16):
-    """K1 and K2 at D <= 64 sum in a fixed order wherever no two points
-    share a cell: two launches of the forward, of the backward on the
-    saved grid and of the recompute backward give bitwise-equal outputs,
-    and the recompute equals the saved-grid backward, in either operand
-    mode."""
+    """K1 and K2 at D <= 64, and the counterparts of K3 and K4 + K5 above,
+    sum in a fixed order wherever no two points share a cell: two launches
+    of the forward, of the backward on the saved grid and of the recompute
+    backward give bitwise-equal outputs, and the recompute equals the
+    saved-grid backward, in either operand mode."""
     from dpcx_torch.render.gauss import gauss_kernel_1d
 
     renders = 3
