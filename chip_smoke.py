@@ -119,6 +119,19 @@ non-zero):
               train` for 100 steps (one K1 and one K2 launch of the
               bfloat16 mode per step), and a ServingModel call on the
               trained model (a unit "pose" per image).
+9e. eval    — the eval and predict verbs on held-out sets drawn at seed + 1
+              (their GT views through K1, one launch a model): `cli eval
+              --all-views --flip-resolve --per-sample` of 9c's step-200
+              chair_pred_pose model (32 models x 5 views pooled; dpcx's
+              keys in dpcx's order, finite, acc and IoU in [0, 1], Chamfer
+              >= 0, no kernel launch; the JSON to OUT_DIR); `evaluate` (view
+              0) of that model on the card against the CPU, the forward in
+              float32 on both: the metrics within rtol 1e-5 (IoU 1e-2), or,
+              where a tie of the canonical alignment's argmin explains a
+              miss, within the tie's bounds; then `cli predict -o` of phase
+              8's car_64_depth model (points [32, 16000, 3], equal to a
+              ServingModel call on the same images). Each verb's seconds
+              beside the card's name and power limit.
 9d. shard   — experiments/largecloud_pointshard.yaml as shipped (N 131072,
               D 32, renderer xla, shard_points on one card: a no-op that
               warns once per verb, as dpcx on one device): `cli datagen`
@@ -159,9 +172,11 @@ could take for the same work), and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -1808,6 +1823,210 @@ def phase_pred_pose(cli, fused, tmp: Path):
     return cfg, bf, ds, launches, bf_launches
 
 
+# the keys and order of `cli eval --all-views --flip-resolve --per-sample`
+# on a predicted-pose model (dpcx's evaluate)
+EVAL_KEYS = [
+    "pose_acc_30deg", "pose_median_err_deg", "pose_acc_30deg_up_to_flip",
+    "pose_median_err_deg_up_to_flip", "pose_flip_rate",
+    "pose_gauge_spread_deg", "pose_acc_30deg_flip_resolved",
+    "pose_median_err_deg_flip_resolved", "flip_resolve_changed", "chamfer",
+    "chamfer_pred_to_gt", "chamfer_gt_to_pred", "iou_3d_16", "per_sample",
+]
+# card against CPU, as tests/test_torch_predict.py holds the port to dpcx:
+# pose metrics and Chamfer rtol EVAL_RTOL, iou_3d_16 within EVAL_IOU_ATOL
+# (a point within the forwards' difference of a cell boundary may round
+# into the next cell)
+EVAL_RTOL, EVAL_IOU_ATOL = 1e-5, 1e-2
+# The canonical alignment is an argmin over candidate rotations: where two
+# candidates' mean errors lie closer than the two forwards' difference
+# moves them (a tie), the card and the CPU may pick different ones. A tie
+# is shown by two picks (more than TIE_MIN_DEG apart; q_align 1e-5 apart
+# is one pick) at most TIE_DEG apart, the CPU's mean errors at them within
+# TIE_GAP (relative). Its metrics are then held to TIE_BOUNDS: each
+# sample's error moves by at most the angle between the picks (so the
+# degree metrics within TIE_DEG, and at most 3 samples across 30 degrees),
+# Chamfer and IoU by the rotation of the clouds by that angle.
+TIE_GAP, TIE_DEG, TIE_MIN_DEG = 1e-5, 1.0, 1e-3
+TIE_BOUNDS = {"deg": TIE_DEG, "share": 3 / MODELS, "chamfer": 2e-3,
+              "iou": 2e-2}
+
+
+def run_cli_json(cli, argv: list[str]) -> tuple[dict, float]:
+    """One verb's last JSON line and its seconds (the card synchronised)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), secs
+
+
+def alignment_tie(cpu_pose, card_pose, gt_quats) -> tuple[float, float]:
+    """The canonical alignments of the CPU's and the card's poses: the angle
+    between the two picks (degrees) and the relative gap between the CPU's
+    mean errors at them."""
+    from dpcx_torch.eval.pose_metrics import align_canonical_frame
+    from dpcx_torch.geometry.quaternion import (
+        quaternion_angular_distance,
+        quaternion_multiply,
+    )
+
+    pc, gq = torch.from_numpy(cpu_pose), torch.from_numpy(gt_quats)
+    q_c, _ = align_canonical_frame(pc, gq)
+    q_g, _ = align_canonical_frame(torch.from_numpy(card_pose).cuda(),
+                                   gq.cuda())
+    q_g = q_g.cpu()
+
+    def mean_err(q):
+        return float(quaternion_angular_distance(
+            quaternion_multiply(pc, q[None]), gq).mean())
+
+    # the angle in float64 by atan2: an f32 arccos reads 0 below ~0.04
+    # degrees
+    a, b = q_c.double(), q_g.double() * torch.sign((q_c * q_g).sum())
+    deg = math.degrees(2 * math.atan2(float((a - b).norm()),
+                                      float((a + b).norm())))
+    return deg, abs(mean_err(q_g) - mean_err(q_c)) / mean_err(q_c)
+
+
+def hold_eval_to_cpu(cfg, ds) -> None:
+    """`evaluate` (view 0) of the newest checkpoint on the card against the
+    same on the CPU, on the same held-out set, with the forward in float32
+    on both (TF32 off): at EVAL_RTOL / EVAL_IOU_ATOL, or, where an
+    alignment tie (TIE_GAP, TIE_DEG) explains a miss, at TIE_BOUNDS. The
+    predictions themselves are held within 1e-4."""
+    from dpcx_torch.predict import evaluate, predict_dataset
+    from dpcx_torch.train import load_checkpoint
+
+    cfg = cfg.replace(compute_dtype="float32")
+    card = load_checkpoint(cfg, DEVICE)["params"]
+    cpu = load_checkpoint(cfg, "cpu")["params"]
+    reset_counts()
+    t0 = time.perf_counter()
+    got = evaluate(cfg, card, ds)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert launch_counts() == only(), launch_counts()
+    t0 = time.perf_counter()
+    want = evaluate(cfg, cpu, ds)
+    cpu_s = time.perf_counter() - t0
+    p_card = predict_dataset(cfg, card, ds)
+    p_cpu = predict_dataset(cfg, cpu, ds)
+    pred_err = {k: float(np.abs(p_card[k] - p_cpu[k]).max()) for k in p_cpu}
+    assert list(got) == list(want) and "pose_acc_30deg" in got, (got, want)
+    assert all(np.isfinite(v) for v in got.values()), got
+
+    def off(k) -> float:
+        a, b = got[k], want[k]
+        if k == "iou_3d_16":
+            return abs(a - b) / EVAL_IOU_ATOL
+        return abs(a - b) / (EVAL_RTOL * abs(b) + 1e-12)
+
+    missed = [k for k in want if off(k) > 1.0]
+    print(f"eval card vs CPU chair_pred_pose (view 0, {ds.num_models} "
+          f"models, float32 forward): card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s; predictions max abs diff {pred_err}; "
+          + ", ".join(f"{k} {got[k]:.6g}/{want[k]:.6g}" for k in want)
+          + f"; outside rtol {EVAL_RTOL} (iou {EVAL_IOU_ATOL}): {missed} | "
+          f"{card_line()}", flush=True)
+    assert max(pred_err.values()) < 1e-4, pred_err
+    if not missed:
+        return
+    deg, gap = alignment_tie(p_cpu["pose"], p_card["pose"],
+                             ds.records["quats"][:, 0].astype(np.float32))
+    print(f"eval card vs CPU: alignment picks {deg:.4f} degrees apart, the "
+          f"CPU's mean errors at them {gap:.2e} apart (relative); a tie "
+          f"needs two picks (> {TIE_MIN_DEG} degrees apart), at most "
+          f"{TIE_DEG} degrees and {TIE_GAP}", flush=True)
+    assert TIE_MIN_DEG < deg <= TIE_DEG and gap <= TIE_GAP, (deg, gap)
+    for k in missed:
+        kind = ("iou" if k == "iou_3d_16" else "chamfer" if "chamfer" in k
+                else "deg" if "err_deg" in k else "share")
+        diff = abs(got[k] - want[k])
+        if kind == "chamfer":
+            diff /= abs(want[k])
+        assert diff <= TIE_BOUNDS[kind], (k, got[k], want[k])
+
+
+def phase_eval(cli, pose_path: str, car_path: str) -> None:
+    """9e. The eval and predict verbs on the card: `cli eval --all-views
+    --flip-resolve --per-sample` of phase 9c's step-200 chair_pred_pose
+    model, `evaluate` (view 0) on the card against the CPU, and `cli
+    predict` of phase 8's car_64_depth model. Each held-out set is drawn at
+    seed + 1 first, its GT views through K1; the verbs launch no kernel."""
+    from dpcx_torch.config import load_config
+    from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.serve import ServingModel
+    from dpcx_torch.train import load_checkpoint
+
+    card = card_line()
+    cfg = load_config(pose_path)
+    reset_counts()
+    ds = load_or_make(cfg, MODELS, seed=cfg.seed + 1, device=DEVICE)
+    torch.cuda.synchronize()
+    assert launch_counts() == only(fused_render=MODELS), launch_counts()
+    reset_counts()
+    out, secs = run_cli_json(cli, ["eval", "-f", pose_path, "-n",
+                                   str(MODELS), "--all-views",
+                                   "--flip-resolve", "--per-sample"])
+    launches = launch_counts()
+    rows = MODELS * cfg.num_views
+    assert list(out) == EVAL_KEYS, list(out)
+    ps = out.pop("per_sample")
+    assert all(len(v) == (MODELS if k == "gauge_spread_deg" else rows)
+               for k, v in ps.items()), {k: len(v) for k, v in ps.items()}
+    assert all(np.isfinite(v) for v in out.values()), out
+    assert all(np.isfinite(np.asarray(v, float)).all() for v in ps.values())
+    for k in ("pose_acc_30deg", "pose_acc_30deg_up_to_flip",
+              "pose_acc_30deg_flip_resolved", "pose_flip_rate",
+              "flip_resolve_changed", "iou_3d_16"):
+        assert 0.0 <= out[k] <= 1.0, (k, out[k])
+    assert min(out["chamfer"], out["chamfer_pred_to_gt"],
+               out["chamfer_gt_to_pred"]) >= 0.0, out
+    assert launches == only(), launches
+    launches = {k: v for k, v in launches.items() if v} or "none"
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_chair_pred_pose_eval.json").write_text(
+        json.dumps({**out, "per_sample": ps}) + "\n")
+    print(f"eval chair_pred_pose (step {POSE_STEPS}, held-out seed "
+          f"{cfg.seed + 1}, {MODELS} models x {cfg.num_views} views pooled, "
+          f"flip resolve, per sample): {json.dumps(out)}; launches "
+          f"{launches}; `cli eval` {secs:.2f} s | {card}", flush=True)
+
+    hold_eval_to_cpu(cfg, ds)
+
+    car = load_config(car_path)
+    reset_counts()
+    car_ds = load_or_make(car, MODELS, seed=car.seed + 1, device=DEVICE)
+    torch.cuda.synchronize()
+    assert launch_counts() == only(fused_render=MODELS), launch_counts()
+    preds_path = Path(car.checkpoint_dir) / "car_64_preds.npz"
+    reset_counts()
+    out, secs = run_cli_json(cli, ["predict", "-f", car_path, "-n",
+                                   str(MODELS), "-o", str(preds_path)])
+    assert out == {"num_models": MODELS, "out": str(preds_path)}, out
+    launches = launch_counts()
+    assert launches == only(), launches
+    launches = {k: v for k, v in launches.items() if v} or "none"
+    with np.load(preds_path) as f:
+        preds = {k: f[k] for k in f.files}
+    assert {k: v.shape for k, v in preds.items()} == {
+        "points": (MODELS, car.pc_num_points, 3), "scale": (MODELS, 1)}, \
+        {k: v.shape for k, v in preds.items()}
+    assert all(np.isfinite(v).all() for v in preds.values())
+    served = ServingModel(car, load_checkpoint(car, DEVICE)["params"])(
+        car_ds.records["images"][:, 0])
+    err = float(np.abs(served["points"] - preds["points"]).max())
+    assert err <= 1e-6, err
+    print(f"predict car_64_depth (step {TRAIN_STEPS + RESUME_STEPS}, "
+          f"held-out seed {car.seed + 1}): {MODELS} models -> points "
+          f"{preds['points'].shape}, scale {preds['scale'].shape}, finite, "
+          f"within {err:.1e} of a ServingModel call on the same images; "
+          f"launches {launches}; `cli predict` {secs:.2f} s | {card}",
+          flush=True)
+
+
 def import_tree(tree: Path, label: str, keep) -> str:
     """For an A/B run: put the checkout at TREE (this one, or an older
     commit unpacked with `git archive` into a directory .gitignore lists)
@@ -2226,6 +2445,9 @@ def main() -> int:
             # serve
             pp_cfg, pp_bf, pp_ds, pp_launches, pp_bf_launches = \
                 phase_pred_pose(cli, fused, tmp)
+            # 9e. eval and predict: the chair_pred_pose and car_64_depth
+            # models on held-out sets
+            phase_eval(cli, str(tmp / "chair_pred_pose.yaml"), car_path)
             # 9d. largecloud_pointshard: shard_points on one card
             phase_largecloud(cli, fused, tmp)
 

@@ -1,14 +1,17 @@
-"""dpcx_torch CLI (port of ``dpcx/cli.py``: the ``datagen``, ``train`` and
-``serve`` verbs):
+"""dpcx_torch CLI (port of ``dpcx/cli.py``: the ``datagen``, ``train``,
+``eval``, ``predict`` and ``serve`` verbs):
 
     python -m dpcx_torch.cli datagen -f experiments/car_64_depth.yaml -n 32
     python -m dpcx_torch.cli train   -f experiments/car_64_depth.yaml -n 32 --steps 200
+    python -m dpcx_torch.cli eval    -f experiments/chair_pred_pose.yaml -n 32 --all-views
+    python -m dpcx_torch.cli predict -f experiments/car_64_depth.yaml -n 32 -o preds.npz
     python -m dpcx_torch.cli serve   -f experiments/car_64_depth.yaml
 
-Each prints dpcx's last JSON line. ``serve`` serves the newest port
-checkpoint in ``checkpoint_dir/ckpt``, or the seeded initialisation when
-there is none, like the reference; it refuses an Orbax checkpoint, which
-the port cannot read.
+Each prints dpcx's last JSON line. ``eval``, ``predict`` and ``serve`` use
+the newest port checkpoint in ``checkpoint_dir/ckpt``, or the seeded
+initialisation when there is none, like the reference; they refuse an
+Orbax checkpoint, which the port cannot read. ``eval`` and ``predict``
+draw the held-out set at ``seed + 1``.
 """
 
 from __future__ import annotations
@@ -45,25 +48,75 @@ def cmd_datagen(args) -> None:
                       "dir": cfg.data_dir}))
 
 
-def cmd_serve(args) -> None:
-    """Online inference server (dpcx_torch/serve.py)."""
+def _restore_params(cfg, device):
+    """The newest checkpoint's params on ``device``, or the seeded
+    initialisation (``create_state``'s) when there is none."""
     import torch
 
-    from dpcx_torch.models.model_pc import ModelPointCloud
-    from dpcx_torch.serve import serve
-    from dpcx_torch.train import load_checkpoint, record_and_check_run_config
+    from dpcx_torch.train import (
+        create_state,
+        load_checkpoint,
+        record_and_check_run_config,
+    )
 
-    cfg = _load_cfg(args)
-    device = torch.device(args.device)
+    device = torch.device(device)
     try:
         record_and_check_run_config(cfg, write=False)
         saved = load_checkpoint(cfg, device)
     except ValueError as e:  # an Orbax checkpoint, or changed semantics
         raise SystemExit(str(e)) from e
     if saved is None:
-        params = ModelPointCloud(cfg, device=device).state_dict()
+        return create_state(cfg, device).params
+    return saved["params"]
+
+
+def cmd_eval(args) -> None:
+    from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.predict import evaluate, evaluate_category_slices
+
+    cfg = _load_cfg(args)
+    if args.per_category and args.per_sample:
+        raise SystemExit(
+            "--per-sample is not supported with --per-category (the "
+            "per-category table aggregates; run per-sample on one slice)"
+        )
+    params = _restore_params(cfg, args.device)
+    ds = load_or_make(cfg, args.num_models, seed=cfg.seed + 1,  # held out
+                      device=args.device)
+    # --all-views sweeps every view of every model and pools them (the
+    # reference's predict_eval protocol)
+    view_idx = None if args.all_views else 0
+    if args.per_category:
+        metrics = evaluate_category_slices(
+            cfg, params, ds, view_idx=view_idx,
+            flip_resolve=args.flip_resolve,
+        )
     else:
-        params = saved["params"]
+        metrics = evaluate(
+            cfg, params, ds, view_idx=view_idx,
+            flip_resolve=args.flip_resolve, per_sample=args.per_sample,
+        )
+    print(json.dumps(metrics))
+
+
+def cmd_predict(args) -> None:
+    from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.predict import predict_dataset
+
+    cfg = _load_cfg(args)
+    params = _restore_params(cfg, args.device)
+    ds = load_or_make(cfg, args.num_models, seed=cfg.seed + 1,
+                      device=args.device)
+    out = predict_dataset(cfg, params, ds, out_path=args.out)
+    print(json.dumps({"num_models": len(out["points"]), "out": args.out}))
+
+
+def cmd_serve(args) -> None:
+    """Online inference server (dpcx_torch/serve.py)."""
+    from dpcx_torch.serve import serve
+
+    cfg = _load_cfg(args)
+    params = _restore_params(cfg, args.device)
     srv = serve(
         cfg, params, port=args.port, batch_size=args.batch,
         cast_bf16=args.bf16,
@@ -79,6 +132,8 @@ def main(argv=None) -> None:
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in [
         ("train", cmd_train),
+        ("eval", cmd_eval),
+        ("predict", cmd_predict),
         ("datagen", cmd_datagen),
         ("serve", cmd_serve),
     ]:
@@ -86,10 +141,32 @@ def main(argv=None) -> None:
         sp.add_argument("-f", "--config", default=None)
         sp.add_argument("-n", "--num-models", type=int, default=200)
         sp.add_argument("--steps", type=int, default=0)
-        # dpcx's command lines carry -o to every verb; these ignore it
+        # dpcx's command lines carry -o to every verb; predict alone reads
+        # it
         sp.add_argument("-o", "--out", default="predictions.npz")
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on")
+        if name == "eval":
+            sp.add_argument(
+                "--all-views", action="store_true",
+                help="evaluate every view per model (pooled), not view 0",
+            )
+            sp.add_argument(
+                "--per-category", action="store_true",
+                help="per-category metric table + mean row (joint "
+                "'multi' models; reference per-ShapeNet-category table)",
+            )
+            sp.add_argument(
+                "--flip-resolve", action="store_true",
+                help="also report pose metrics after the shape-matching "
+                "mirror-flip resolver (predict.resolve_pose_flips)",
+            )
+            sp.add_argument(
+                "--per-sample", action="store_true",
+                help="attach the per-sample block (angular error, "
+                "object-side residual axis/angle, chamfer, view; plus "
+                "per-model gauge_spread_deg with --all-views)",
+            )
         if name == "serve":
             sp.add_argument("--port", type=int, default=8787)
             sp.add_argument("--batch", type=int, default=16,

@@ -26,11 +26,13 @@ step count and the clock. As in dpcx, the attempt count is not saved in
 checkpoints, a missing ``gauge_spread_deg`` reads as 0 (healthy), and the
 logged steps restart from 0 after a reseed.
 
-Periodic eval needs an eval dataset, which ``train`` does not take yet
-(ROADMAP queue 1 item 1); without one dpcx evaluates nothing either, and
-``eval_every`` only sets the chunk of its device-side loop, which this loop
-does not have. ``shard_points`` on one process renders unsharded, as dpcx
-on one device (``Config.validate`` warns). Not ported yet, and refused:
+With an ``eval_dataset``, ``train`` evaluates it (``predict.evaluate``,
+view 0) after every step that crosses a multiple of ``eval_every`` and
+logs ``val_<metric>`` records, as dpcx's host-fed loop does; without one
+dpcx evaluates nothing either, and ``eval_every`` only sets the chunk of
+its device-side loop, which this loop does not have. ``shard_points`` on
+one process renders unsharded, as dpcx on one device (``Config.validate``
+warns). Not ported yet, and refused:
 profiling (item 2), point sharding over more than one process (item 5),
 and block rotation where dpcx would rotate, ``device_data`` with ``0 <
 device_records_models < num_models`` (item 4: it rotates the records of
@@ -53,6 +55,7 @@ from dpcx_torch.config import Config, world_size
 from dpcx_torch.data.dataset import Dataset, load_or_make
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.models.model_pc import ModelPointCloud
+from dpcx_torch.predict import evaluate
 
 KEEP_CHECKPOINTS = 3
 
@@ -381,9 +384,10 @@ def train(
     max_steps: int | None = None,
     use_checkpoints: bool = True,
     device="cuda",
+    eval_dataset: Dataset | None = None,
 ) -> tuple[TrainState, list[dict]]:
     """Full training entry on one ``device``; returns the state and the
-    logged metric records."""
+    logged metric records (``val_*`` ones too, with ``eval_dataset``)."""
     cfg.validate()
     device = torch.device(device)
     if dataset is None:
@@ -447,6 +451,14 @@ def train(
             if use_checkpoints and crossed(prev_step, step, cfg.save_every):
                 save_checkpoint(cfg, state)
                 _write_image_summary(cfg, state.model, batch, step)
+            if eval_dataset is not None and crossed(prev_step, step,
+                                                    cfg.eval_every or 0):
+                # periodic held-out eval (the reference's train_eval)
+                val = evaluate(cfg, state.params, eval_dataset, batch_size=min(
+                    cfg.batch_size, eval_dataset.num_models))
+                val_rec = {f"val_{k}": v for k, v in val.items()}
+                writer.write(step, val_rec)
+                history.append({"step": step, **val_rec})
         if use_checkpoints:
             save_checkpoint(cfg, state)
     return state, history

@@ -827,3 +827,94 @@ def test_aniso_kernels_repeat_bitwise(cuda, renders, n, vox, bf16):
     torch.cuda.synchronize()
     assert fwd[0].abs().max() > 0 and bwd[0].abs().max() > 0
     assert torch.equal(fwd[0], fwd[1]) and torch.equal(bwd[0], bwd[1])
+
+
+def _alignment_tie(cfg, params, card_params, ds):
+    """The canonical alignments of the CPU's and the card's pooled poses:
+    the angle between the two picks (degrees, float64) and the relative gap
+    between the CPU's mean errors at them."""
+    from dpcx_torch.eval.pose_metrics import align_canonical_frame
+    from dpcx_torch.geometry.quaternion import (
+        quaternion_angular_distance,
+        quaternion_multiply,
+    )
+    from dpcx_torch.predict import predict_dataset
+
+    V = range(ds.num_views)
+    gq = torch.from_numpy(np.concatenate(
+        [ds.records["quats"][:, v] for v in V]).astype(np.float32))
+    p_cpu, p_card = (torch.from_numpy(np.concatenate(
+        [predict_dataset(cfg, p, ds, v, 2)["pose"] for v in V]))
+        for p in (params, card_params))
+    q_c, _ = align_canonical_frame(p_cpu, gq)
+    q_g = align_canonical_frame(p_card.cuda(), gq.cuda())[0].cpu()
+
+    def mean_err(q):
+        return float(quaternion_angular_distance(
+            quaternion_multiply(p_cpu, q[None]), gq).mean())
+
+    a, b = q_c.double(), q_g.double() * torch.sign((q_c * q_g).sum())
+    deg = np.degrees(2 * np.arctan2(float((a - b).norm()),
+                                    float((a + b).norm())))
+    return deg, abs(mean_err(q_g) - mean_err(q_c)) / mean_err(q_c)
+
+
+def test_evaluate_on_card_matches_cpu(cuda):
+    """predict.evaluate of one model on the card against the CPU, every
+    branch (pooled views, flip resolve, per sample), at
+    tests/test_torch_predict.py's config and tolerances: the metrics rtol
+    1e-5 (the forward in float32, TF32 off), iou_3d_16 within 1e-2, the
+    per-sample lists within one unit of their last decimal; the model runs
+    where its params are, the metrics too. Where the two forwards' ~1e-6
+    difference tips the canonical alignment's argmin between two
+    candidates f32 cannot order (a tie: picks at most 1 degree apart, mean
+    errors within 1e-5), the metrics that hang on it are held to the tie's
+    bounds: 1 degree, 3 of the 15 samples, Chamfer 2e-3 relative, IoU
+    2e-2."""
+    from dpcx_torch.data.dataset import Dataset
+    from dpcx_torch.data.synthetic import make_dataset
+    from dpcx_torch.models.model_pc import ModelPointCloud
+    from dpcx_torch.predict import evaluate
+
+    cfg = Config(
+        vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
+        encoder_filters=(8, 16), latent_dim=24, fc_hidden=32,
+        pc_decoder_hidden=(32,), num_views=3, views_per_step=3,
+        batch_size=2, compute_dtype="float32", pc_relative_sigma=0.1,
+        predict_pose=True, pose_predict_num_candidates=4, pose_student=True,
+        pose_from_views=True,
+    )
+    ds = Dataset({k: v.numpy() for k, v in make_dataset(
+        cfg, 5, seed=3, gt_points=200).items()}, cfg)
+    params = ModelPointCloud(cfg).state_dict()
+    kw = dict(view_idx=None, flip_resolve=True, per_sample=True,
+              batch_size=2)
+    card_params = {k: v.to(cuda) for k, v in params.items()}
+    want = evaluate(cfg, params, ds, **kw)
+    got = evaluate(cfg, card_params, ds, **kw)
+    assert list(got) == list(want)
+    ps, ps_want = got.pop("per_sample"), want.pop("per_sample")
+    assert list(ps) == list(ps_want)
+
+    def misses(k) -> bool:
+        if k == "iou_3d_16":
+            return abs(got[k] - want[k]) > 1e-2
+        return abs(got[k] - want[k]) > 1e-5 * abs(want[k]) + 1e-7
+
+    def ps_misses(k) -> bool:
+        unit = {"res_axis": 1e-4, "chamfer": 1e-6, "view": 0}.get(k, 1e-2)
+        a, b = np.asarray(ps[k], float), np.asarray(ps_want[k], float)
+        return bool((np.abs(a - b) > 1e-5 * np.abs(b) + unit * 1.001).any())
+
+    missed = [k for k in want if misses(k)] + [k for k in ps if ps_misses(k)]
+    if missed:
+        # only a tie of the alignment's argmin may explain a miss: two picks
+        # whose mean errors f32 cannot order (chip_smoke.py's TIE_* bounds)
+        deg, gap = _alignment_tie(cfg, params, card_params, ds)
+        assert 1e-3 < deg <= 1.0 and gap <= 1e-5, (missed, deg, gap)
+        assert not {"view", "gauge_spread_deg",
+                    "flip_resolve_changed"} & set(missed), missed
+        for k in want:
+            bound = (2e-2 if k == "iou_3d_16" else 2e-3 * want[k]
+                     if "chamfer" in k else 1.0 if "deg" in k else 3 / 15)
+            assert abs(got[k] - want[k]) <= bound, (k, got[k], want[k])
