@@ -1,11 +1,12 @@
 """dpcx_torch CLI (port of ``dpcx/cli.py``: the ``datagen``, ``train``,
-``eval``, ``predict`` and ``serve`` verbs):
+``eval``, ``predict``, ``serve`` and ``bench`` verbs):
 
     python -m dpcx_torch.cli datagen -f experiments/car_64_depth.yaml -n 32
     python -m dpcx_torch.cli train   -f experiments/car_64_depth.yaml -n 32 --steps 200
     python -m dpcx_torch.cli eval    -f experiments/chair_pred_pose.yaml -n 32 --all-views
     python -m dpcx_torch.cli predict -f experiments/car_64_depth.yaml -n 32 -o preds.npz
     python -m dpcx_torch.cli serve   -f experiments/car_64_depth.yaml
+    python -m dpcx_torch.cli bench
 
 Each prints dpcx's last JSON line. ``eval``, ``predict`` and ``serve`` use
 the newest port checkpoint in ``checkpoint_dir/ckpt``, or the seeded
@@ -111,6 +112,14 @@ def cmd_predict(args) -> None:
     print(json.dumps({"num_models": len(out["points"]), "out": args.out}))
 
 
+def cmd_bench(args) -> None:
+    """The renderer benchmark (dpcx_torch/bench.py): one JSON line; exits
+    1 when a key erred or parity failed."""
+    from dpcx_torch.bench import main as bench_main
+
+    bench_main(args.device)
+
+
 def cmd_serve(args) -> None:
     """Online inference server (dpcx_torch/serve.py)."""
     from dpcx_torch.serve import serve
@@ -136,6 +145,7 @@ def main(argv=None) -> None:
         ("predict", cmd_predict),
         ("datagen", cmd_datagen),
         ("serve", cmd_serve),
+        ("bench", cmd_bench),
     ]:
         sp = sub.add_parser(name)
         sp.add_argument("-f", "--config", default=None)

@@ -15,9 +15,10 @@ as in the reference.
 (every point on every cell, the quadratic form clamped at 0); "pallas" is
 the z-windowed function of dpcx's Pallas kernel, run by the CUDA kernels of
 ``render/aniso.py`` on CUDA tensors and by their plain version on CPU
-tensors, in either operand mode (``cfg.pallas_acc_dtype``). dpcx's
-"windowed" form is not ported (ROADMAP queue 1 item 2): its window
-truncation gives other numbers than either.
+tensors, in either operand mode (``cfg.pallas_acc_dtype``); "windowed" is
+dpcx's eager form with per-point (z, y) windows of a fixed edge, placed by
+one-hot products (dpcx runs no Pallas kernel there, and neither does the
+port): its window truncation gives other numbers than either.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dpcx_torch.config import Config
 from dpcx_torch.geometry.quaternion import (
@@ -109,6 +111,102 @@ def anisotropic_density_grid(
         return density
     rgb_grid = torch.stack(col_slabs, dim=1) / density[..., None].clamp_min(
         1e-6)
+    return density, rgb_grid
+
+
+def anisotropic_density_grid_windowed(
+    points_ndc: torch.Tensor,     # [B, N, 3]
+    scales_ndc: torch.Tensor,     # [B, N, 3] stddevs in NDC units
+    rot: torch.Tensor,            # [B, N, 4] local orientation quats
+    vox_size: int,
+    point_weights: torch.Tensor | None = None,  # [B, N]
+    rgb: torch.Tensor | None = None,            # [B, N, 3]
+    chunk: int = 128,
+    max_scale_ndc: float = 0.06,
+    truncate: float = 3.0,
+    remat: bool = True,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """dpcx's windowed density: each point is evaluated on a window of
+    (W, W, D) cells around its centre, W = min(D, 2 ceil(radius) + 2) with
+    radius = truncate * max_scale_ndc * D, its (z, y) start clamped inside
+    the grid; mass beyond the window is dropped. Per chunk of points: the
+    full quadratic form on the window, exp(-max(quad, 0)) times the weight,
+    a one-hot product that places the window's y rows, and one product
+    that places its z planes and sums the chunk's points, with the colour
+    rows [1, r, g, b] as extra output rows. Batched over renders; chunks in
+    order, each under ``torch.utils.checkpoint`` with ``remat``. Returns
+    density [B, D, D, D] and, with rgb, the colour grid [B, D, D, D, 3].
+    The products must run in f32 (TF32 off, PyTorch's default), as dpcx's
+    run at HIGHEST precision."""
+    B, N, _ = points_ndc.shape
+    D = vox_size
+    dtype, dev = points_ndc.dtype, points_ndc.device
+    radius = truncate * max_scale_ndc * D
+    W = min(D, 2 * math.ceil(radius) + 2)  # static window edge
+    mu = ndc_to_grid(points_ndc, D)            # [B, N, 3] (z, y, x)
+    s_vox = scales_ndc * D
+    A = _precision_zyx(s_vox, rot)             # [B, N, 3, 3]
+    w = _weights(s_vox, point_weights)
+    ones = points_ndc.new_ones((B, N, 1))
+    rgb_b = ones if rgb is None else torch.cat([ones, rgb], dim=-1)
+    K = rgb_b.shape[-1]  # 1 (density) or 4 (density and colour rows)
+
+    pad = -N % chunk
+    if pad:
+        mu = torch.cat([mu, mu.new_full((B, pad, 3), -1e4)], dim=1)
+        A = torch.cat([A, torch.eye(3, dtype=dtype, device=dev).expand(
+            B, pad, 3, 3)], dim=1)
+        w = torch.cat([w, w.new_zeros((B, pad))], dim=1)
+        rgb_b = torch.cat([rgb_b, rgb_b.new_zeros((B, pad, K))], dim=1)
+    # window starts, clamped inside the grid (round half to even, as
+    # jnp.round); constants of the points, so no gradient
+    starts = (torch.round(mu[..., :2].detach()) - W // 2).clamp(0, D - W)
+    win = torch.arange(W, dtype=dtype, device=dev)
+    cells = torch.arange(D, dtype=dtype, device=dev)
+
+    def chunk_density(muk, Ak, wk, rgbk, startk):
+        C = muk.shape[1]
+        z0k, y0k = startk[..., 0], startk[..., 1]           # [B, C]
+        dz = z0k[..., None] + win - muk[..., 0, None]        # [B, C, W]
+        dy = y0k[..., None] + win - muk[..., 1, None]        # [B, C, W]
+        dx = cells - muk[..., 2, None]                       # [B, C, D]
+        # the full PSD quadratic form before the exp, as the dense form
+        t_z = 0.5 * Ak[..., 0, 0, None] * dz**2
+        t_y = 0.5 * Ak[..., 1, 1, None] * dy**2
+        t_x = 0.5 * Ak[..., 2, 2, None] * dx**2
+        zy = Ak[..., 0, 1, None, None] * dz[..., :, None] * dy[..., None, :]
+        zx = Ak[..., 0, 2, None, None] * dz[..., :, None] * dx[..., None, :]
+        yx = Ak[..., 1, 2, None, None] * dy[..., :, None] * dx[..., None, :]
+        quad = (
+            (t_z[..., :, None, None] + t_y[..., None, :, None])
+            + zy[..., None]
+            + (t_x[..., None, None, :] + zx[..., :, None, :])
+            + yx[..., None, :, :]
+        )  # [B, C, W(z), W(y), D(x)]
+        contrib = wk[..., None, None, None] * torch.exp(-quad.clamp_min(0.0))
+        # y-placement: a one-hot [D, W] a point
+        Sy = (cells[:, None] == y0k[..., None, None] + win).to(dtype)
+        tmp = torch.einsum("bcyv,bcwvx->bcwyx", Sy, contrib)  # [B,C,W,D,D]
+        # z-placement, the sum over the chunk's points and the colour rows
+        Sz = (cells[:, None] == z0k[..., None, None] + win).to(dtype)
+        M = Sz[:, :, None] * rgbk[..., None, None]            # [B,C,K,D,W]
+        M = M.permute(0, 2, 3, 1, 4).reshape(B, K * D, C * W)
+        return torch.bmm(M, tmp.reshape(B, C * W, D * D))
+
+    acc = points_ndc.new_zeros((B, K * D, D * D))
+    for s in range(0, N + pad, chunk):
+        args = (mu[:, s:s + chunk], A[:, s:s + chunk], w[:, s:s + chunk],
+                rgb_b[:, s:s + chunk], starts[:, s:s + chunk])
+        if remat and torch.is_grad_enabled():
+            add = checkpoint(chunk_density, *args, use_reentrant=False)
+        else:
+            add = chunk_density(*args)
+        acc = acc + add
+    acc = acc.reshape(B, K, D, D, D)
+    density = acc[:, 0]
+    if rgb is None:
+        return density
+    rgb_grid = acc[:, 1:].movedim(1, -1) / density[..., None].clamp_min(1e-6)
     return density, rgb_grid
 
 
@@ -207,10 +305,9 @@ def gsplat_project(
             acc_dtype=cfg.pallas_acc_dtype, density_fn=density_fn,
         )
     elif cfg.gsplat_impl == "windowed":
-        raise NotImplementedError(
-            "gsplat_impl='windowed' is not ported (ROADMAP queue 1 item 2): "
-            "its window truncation gives other numbers than 'dense' or "
-            "'pallas'"
+        out = anisotropic_density_grid_windowed(
+            ndc, scales_ndc, rot_cam, D, point_weights=opacity, rgb=rgb,
+            max_scale_ndc=cfg.gauss_scale_max, remat=cfg.gsplat_remat,
         )
     else:
         out = anisotropic_density_grid(

@@ -32,15 +32,19 @@ logs ``val_<metric>`` records, as dpcx's host-fed loop does; without one
 dpcx evaluates nothing either, and ``eval_every`` only sets the chunk of
 its device-side loop, which this loop does not have. ``shard_points`` on
 one process renders unsharded, as dpcx on one device (``Config.validate``
-warns). Not ported yet, and refused:
-profiling (item 2), point sharding over more than one process (item 5),
-and block rotation where dpcx would rotate, ``device_data`` with ``0 <
+warns). With ``profile_dir`` one chunk of
+steps is traced, as dpcx traces one: the chunk after the first, of
+dpcx's length (``max(1, min(log_every, save_every, eval_every or
+save_every))``), by ``utils.profiling.trace``. Not ported yet, and
+refused: point sharding over more than one process (item 5), and block
+rotation where dpcx would rotate, ``device_data`` with ``0 <
 device_records_models < num_models`` (item 4: it rotates the records of
 dpcx's device-side batch stream, which this loop does not follow).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -56,6 +60,7 @@ from dpcx_torch.data.dataset import Dataset, load_or_make
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.models.model_pc import ModelPointCloud
 from dpcx_torch.predict import evaluate
+from dpcx_torch.utils.profiling import trace
 
 KEEP_CHECKPOINTS = 3
 
@@ -363,7 +368,6 @@ def _refuse_unported(cfg: Config, num_models: int) -> None:
     """Raise for what ``train`` does not port yet on a dataset of
     ``num_models``."""
     refusals = [
-        (bool(cfg.profile_dir), "profile_dir", 2),
         (cfg.shard_points and world_size() > 1,
          "shard_points over more than one process", 5),
         (cfg.device_data and 0 < cfg.device_records_models < num_models,
@@ -407,8 +411,20 @@ def train(
     t0 = time.time()
     start_step = step = state.step
     reseed_attempt = 0
-    with MetricWriter(cfg.checkpoint_dir) as writer:
+    # dpcx's host-boundary chunk: the traced stretch is the one after the
+    # first (which holds the kernels' build and the allocator's warm-up)
+    chunk = max(1, min(cfg.log_every, cfg.save_every,
+                       cfg.eval_every or cfg.save_every))
+    trace_state = "armed" if cfg.profile_dir else "off"
+    tracer = contextlib.ExitStack()
+    with MetricWriter(cfg.checkpoint_dir) as writer, tracer:
         while step < max_steps:
+            if trace_state == "armed" and step >= start_step + chunk:
+                tracer.enter_context(trace(cfg.profile_dir))
+                trace_state, trace_end = "on", step + chunk
+            elif trace_state == "on" and step >= trace_end:
+                tracer.close()  # synchronises, then writes the trace
+                trace_state = "done"
             prev_step = step
             batch = batch_at(cfg, dataset, step, device, records)
             metrics = train_step(cfg, state, batch,
@@ -459,6 +475,7 @@ def train(
                 val_rec = {f"val_{k}": v for k, v in val.items()}
                 writer.write(step, val_rec)
                 history.append({"step": step, **val_rec})
+        tracer.close()  # a trace that spanned the last chunk
         if use_checkpoints:
             save_checkpoint(cfg, state)
     return state, history

@@ -19,6 +19,9 @@ to 2e-4 relative L2 (dpcx's own kernel-vs-oracle bound); two launches on
 the same inputs are bitwise equal.
 """
 
+import json
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -918,3 +921,117 @@ def test_evaluate_on_card_matches_cpu(cuda):
             bound = (2e-2 if k == "iou_3d_16" else 2e-3 * want[k]
                      if "chamfer" in k else 1.0 if "deg" in k else 3 / 15)
             assert abs(got[k] - want[k]) <= bound, (k, got[k], want[k])
+
+
+def test_bench_on_card(cuda):
+    """The bench at a small shape on the card: every key finite and
+    positive, no error, parity true in both modes; each key's launches
+    are its kernels' (the D 64 keys on the D <= 64 route in both modes,
+    the D 128 ones on the blocked route, the pallas splat keys K6/K7),
+    and the eager splat forms launch nothing."""
+    from dpcx_torch import bench
+
+    shapes = bench.Shapes(renders=4, points=2048, iters=3, b16_renders=2,
+                          d128=(2, 2000), gsplat=(2, 512))
+    rec = bench.bench(cuda, shapes)
+    assert not bench.failed(rec), rec
+    assert rec["parity_ok"] is True
+    for key in bench.KEYS:
+        for v in (rec[key], rec[key + "_host"], rec[key + "_ms"]):
+            assert math.isfinite(v) and v > 0, (key, v)
+        if "dense" in key or key == "gsplat_fwdbwd_value":
+            assert rec[key + "_bound"] is None and not rec[key + "_launches"]
+        else:
+            assert 0 < rec[key + "_share"] < 1, (key, rec[key + "_share"])
+    families = {
+        "value": {"fused_render_bf16"},
+        "fp32_value": {"fused_render"},
+        "fwdbwd_value": {"fused_render_bf16", "fused_render_bwd_bf16"},
+        "d128_value": {"blocked_render_bf16"},
+        "d128_fwdbwd_value": {"blocked_render_bf16",
+                              "blocked_render_bwd_bf16"},
+        "gsplat_pallas_fwdbwd_value": {"aniso_render", "aniso_render_bwd"},
+        "gsplat_pallas_d64_fwdbwd_value": {"aniso_render_bf16",
+                                           "aniso_render_bwd_bf16"},
+    }
+    for key, names in families.items():
+        assert set(rec[key + "_launches"]) == names, (key, rec)
+
+
+@pytest.mark.parametrize("with_rgb", [True, False])
+def test_windowed_on_card_matches_cpu(cuda, with_rgb):
+    """gsplat's windowed form (eager, remat on) on the card against the
+    CPU on the same inputs: the density grid within 1e-5, the colour grid
+    within 1e-5 where the density it is divided by exceeds 1e-3 (as
+    tests/test_torch_gsplat.py holds colours), and the gradients of a
+    squared error within 1e-5 of the largest (f32 with TF32 off, sums in
+    other orders)."""
+    rng = np.random.default_rng(21)
+    B, N, D = 2, 700, 32
+    rot = rng.normal(size=(B, N, 4))
+    rot /= np.linalg.norm(rot, axis=-1, keepdims=True)
+    arrs = [rng.uniform(-0.4, 0.4, (B, N, 3)),
+            rng.uniform(0.005, 0.06, (B, N, 3)), rot,
+            rng.uniform(size=(B, N)), rng.uniform(size=(B, N, 3))]
+    tgt = rng.uniform(size=(B, D, D, D))
+
+    def run(device):
+        pts, scales, rot_, opac, rgb = (
+            torch.tensor(a, dtype=torch.float32, device=device) for a in arrs)
+        ins = [t.requires_grad_() for t in (pts, scales, rot_, opac)]
+        out = gsplat.anisotropic_density_grid_windowed(
+            *ins[:3], D, ins[3], rgb if with_rgb else None)
+        dens = out[0] if with_rgb else out
+        loss = ((dens - torch.tensor(tgt, dtype=torch.float32,
+                                     device=device)) ** 2).mean()
+        if with_rgb:  # the colour weighted by the density it divides
+            loss = loss + (out[1] * dens[..., None]).mean()
+        grads = torch.autograd.grad(loss, ins)
+        outs = out if with_rgb else (out,)
+        return [t.detach().cpu() for t in (*outs, *grads)]
+
+    got, want = run(cuda), run(torch.device("cpu"))
+    if with_rgb:  # the colour where the density it divides is > 1e-3
+        mask = want[0] > 1e-3
+        assert mask.float().mean() > 0.05
+        got[1], want[1] = got[1][mask], want[1][mask]
+    n_out = 2 if with_rgb else 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert b.abs().max() > 0, i
+        bound = 1e-5 if i < n_out else 1e-5 * b.abs().max().item()
+        assert (a - b).abs().max().item() <= bound, (i, (a - b).abs().max())
+
+
+def test_train_profile_dir_on_card(cuda, tmp_path):
+    """train with profile_dir on the card: one Chrome trace, of the chunk
+    after the first (log_every 2, save_every 3: steps 2 and 3 of 6), with
+    the renderer's CUDA kernels in it; the logged losses equal those of
+    the run without it within rtol 1e-5 (the splat's atomics reorder f32
+    sums from run to run, with or without the trace)."""
+    from dpcx_torch.data.dataset import Dataset
+    from dpcx_torch.data.synthetic import make_dataset
+    from dpcx_torch.train import train
+
+    cfg = Config(
+        vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
+        encoder_filters=(8, 16), latent_dim=24, fc_hidden=32,
+        pc_decoder_hidden=(32,), num_views=3, views_per_step=2,
+        batch_size=2, compute_dtype="float32", renderer="pallas",
+        log_every=2, save_every=3, checkpoint_dir=str(tmp_path / "run"),
+    )
+    ds = Dataset({k: v.numpy() for k, v in make_dataset(
+        cfg, 4, seed=3).items()}, cfg)
+    _, want = train(cfg, dataset=ds, max_steps=6, device="cuda",
+                    use_checkpoints=False)
+    prof = tmp_path / "prof"
+    before = fused.LAUNCHES["fused_render"]
+    _, got = train(cfg.replace(profile_dir=str(prof)), dataset=ds,
+                   max_steps=6, device="cuda", use_checkpoints=False)
+    assert fused.LAUNCHES["fused_render"] == before + 6
+    (path,) = prof.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("splat_kernel" in k for k in kernels), sorted(kernels)[:20]
+    assert [h["step"] for h in got] == [h["step"] for h in want]
+    for a, b in zip(got, want):
+        assert a["loss_total"] == pytest.approx(b["loss_total"], rel=1e-5)

@@ -11,6 +11,7 @@ Tolerances (the observed errors, measured once, in brackets):
   (2e-5), which Adam at lr 2e-3 carries from step to step.
 """
 
+import contextlib
 import dataclasses
 import http.server
 import json
@@ -402,7 +403,6 @@ def test_checkpoints_refuse_orbax_and_changed_semantics(tmp_path, rng):
 @pytest.mark.parametrize("overrides,item", [
     # 4 models: dpcx rotates device-resident blocks of 3
     ({"device_records_models": 3}, "queue 1 item 4"),
-    ({"profile_dir": "prof"}, "queue 1 item 2"),
 ])
 def test_train_refuses_unported(overrides, item, tmp_path, rng):
     """What train does not port yet raises, naming its ROADMAP item (the
@@ -411,6 +411,43 @@ def test_train_refuses_unported(overrides, item, tmp_path, rng):
     with pytest.raises(NotImplementedError, match=item):
         ttrain.train(cfg, dataset=Dataset(_records(rng, cfg), cfg),
                      device="cpu")
+
+
+def test_train_profile_dir_traces_the_second_chunk(tmp_path, rng,
+                                                   monkeypatch):
+    """With profile_dir, train writes one trace, of dpcx's chunk after the
+    first: chunk = max(1, min(log_every, save_every, eval_every or
+    save_every)) = 2 here, so steps 2 and 3 of 6 run under the trace; the
+    logged losses equal those of the same run without it."""
+    cfg = _tiny_cfg(tmp_path).replace(log_every=2, save_every=3)
+    ds = Dataset(_records(rng, cfg), cfg)
+    _, want = ttrain.train(cfg, dataset=ds, max_steps=6, device="cpu",
+                           use_checkpoints=False)
+    traced, active = [], []
+    real_trace, real_step = ttrain.trace, ttrain.train_step
+
+    @contextlib.contextmanager
+    def watched_trace(log_dir):
+        with real_trace(log_dir) as d:
+            active.append(True)
+            yield d
+        active.clear()
+
+    def watched_step(cfg_, state, *a, **k):
+        if active:
+            traced.append(state.step)
+        return real_step(cfg_, state, *a, **k)
+
+    monkeypatch.setattr(ttrain, "trace", watched_trace)
+    monkeypatch.setattr(ttrain, "train_step", watched_step)
+    prof = tmp_path / "prof"
+    _, got = ttrain.train(cfg.replace(profile_dir=str(prof)), dataset=ds,
+                          max_steps=6, device="cpu", use_checkpoints=False)
+    assert traced == [2, 3]
+    assert len(list(prof.glob("*.pt.trace.json"))) == 1
+    assert [h["step"] for h in got] == [h["step"] for h in want]
+    for a, b in zip(got, want):
+        assert a["loss_total"] == b["loss_total"], (a, b)
 
 
 @pytest.mark.parametrize("overrides", [
