@@ -17,6 +17,14 @@ non-zero):
               and print each kernel's stack frame and spills (ptxas);
               fail where a blur pass or a DRC walk (NO_FRAME_KERNELS) has
               either.
+1b. draws   — the training step's draw kernels (csrc/prng.cu: dpcx's
+              jax.random stream) against their plain versions, bitwise:
+              the dropout weights at every shipped config's [B, N] and
+              keep-prob, with the dropout keys of steps 0, 1, 9999 and
+              2^31 - 1, and the batch draws' gather rows at every config's
+              (B, V, V_use) over 32 and 200 models, with and without the
+              second input view (their times: phases 10 and 11, so that
+              torch.profiler's first use stays in phase 11).
 2. kernel   — the fused splat->blur->DRC forward against its plain
               PyTorch version on the card: K1 at the car_64_depth training
               render shape (32 renders x 16000 points, D 64, with depth),
@@ -69,10 +77,10 @@ non-zero):
 6. datagen  — `cli datagen` for car_64_depth, 32 models, GT views through
               K1, into a temporary data_dir.
 7. parity   — 3 training steps through K1 + K2 against 3 through the
-              plain version handed to train_step (fused_project_plain),
-              from the same init, batches and dropout generator, in
-              float32: per-parameter first-step gradients and the three
-              losses.
+              plain version handed to the step (fused_project_plain),
+              from the same init and the same key (the scan's batches and
+              dropout, as `cli train` draws them), in float32:
+              per-parameter first-step gradients and the three losses.
 8. train    — `cli train` on car_64_depth for 200 steps (finite losses,
               the last 20 below the first 20, one K1 and one K2 launch per
               step), a resumed run of 10 more steps from step 200, and
@@ -126,11 +134,13 @@ non-zero):
               keys in dpcx's order, finite, acc and IoU in [0, 1], Chamfer
               >= 0, no kernel launch; the JSON to OUT_DIR); `evaluate` (view
               0) of that model on the card against the CPU, the forward in
-              float32 on both: the metrics within rtol 1e-5 (IoU 1e-2);
-              those that hang on the canonical alignment's pick alone also
-              against the CPU's at the card's pick, at the same
-              tolerances, tie or not; where a tie of the argmin explains a
-              miss, the re-aligned ones within the tie's bounds; then `cli
+              float32 on both: every metric within rtol 1e-5 (IoU 1e-2)
+              of the CPU's at the card's two alignment picks (the
+              canonical one, and the re-alignment of the flip-corrected
+              poses behind the up-to-flip metrics), and of the CPU's own,
+              or a tie of the argmin explains the miss (of the canonical
+              alignment, or, where only the up-to-flip metrics miss and
+              the canonical picks agree, of the re-alignment); then `cli
               predict -o` of phase
               8's car_64_depth model (points [32, 16000, 3], equal to a
               ServingModel call on the same images). Each verb's seconds
@@ -149,7 +159,9 @@ non-zero):
               modes, the exit code 0, and each of K1-K7 launched (K4 in
               K5's launch); one line with every key's value, bound, share
               and host median; the record to OUT_DIR.
-10. time    — CUDA-event medians: each forward and backward kernel
+10. time    — CUDA-event medians: each draw kernel and its plain version
+              at the car_64_depth step's shapes beside its bound; each
+              forward and backward kernel
               against its plain version at the shapes of phases 2, 3b and
               3c (the recompute backward too) and at the rgb_splats render
               of phase 3d (K6/K7 beside their bound, the floor of one exp a
@@ -166,14 +178,20 @@ non-zero):
               modes; with its time by layer), and one call of the bench's
               value, fwdbwd_value, d128_fwdbwd_value,
               gsplat_pallas_fwdbwd_value and (eager, unchecked)
-              gsplat_fwdbwd_value, beside the host time per
-              call and the share
+              gsplat_fwdbwd_value, and of each draw kernel (one launch),
+              beside the host time per call and the share
               of it in which the card is idle. Wherever a kernel's device
               time is read (the kernel profiles and the steps), the
               profiler's time of the renderer kernels is held against CUDA
               events around their C entry points in the same calls: below
               half of it, the profile is taken again, and still short, the
               phase fails.
+
+Every `cli train` run's launch counts also hold its draws: one
+batch_draws launch a step (device_data, every shipped config) and one
+dropout_weights launch a step where pc_point_dropout < 1 (two with remat,
+whose recompute draws the same weights again); the parity steps make the
+same draws on both sides.
 
 Data and checkpoints go to a temporary directory that is removed at the
 end; the car_64_depth, multicat_128, rgb_splats and chair_pred_pose runs'
@@ -211,6 +229,7 @@ from dpcx_torch.bench import (
     MUFU_EXP_PER_S,
     PEAK_F32_FLOPS,
     aniso_bound,
+    draw_bound,
     render_bound,
 )
 
@@ -342,11 +361,20 @@ def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
     return statistics.median(host_times(fn, runs, warmup))
 
 
+# takes of one profile before device_profile gives up on lost records
+PROFILE_TAKES = 4
+# GPU cycles of the spin kernel queued ahead of each timed C entry: about
+# 1 ms on an H100, longer than the host takes to launch one entry's kernels
+ENTRY_SPIN_CYCLES = 2_000_000
+
+
 def launch_event_ms(fn, runs: int = 10) -> float:
     """ms per call of fn() between CUDA events recorded around each call of
     the csrc kernels' C entry points (the library dpcx_torch._build loads),
-    summed over the call: their device time, and the host's gaps between
-    the kernels of one entry."""
+    summed over the call: their device time alone. A spin kernel goes on
+    the stream before each entry's first event, so the entry's launches
+    are queued before they run, and the host's gaps between the kernels of
+    one entry (which grow on a loaded host) stay outside the events."""
     from dpcx_torch import _build
 
     lib = _build.load()
@@ -355,6 +383,7 @@ def launch_event_ms(fn, runs: int = 10) -> float:
         def timed(*a, _entry=entry):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(ENTRY_SPIN_CYCLES)
             e0.record()
             err = _entry(*a)
             e1.record()
@@ -385,9 +414,10 @@ def device_profile(fn, label: str, runs: int = 20, top: int = 8,
     ``host_top`` the host ops of the most self CPU time; return the
     per-kernel list, largest first. With ``check`` fn launches csrc
     kernels, and the profiler's time of them (``names``) is held
-    against launch_event_ms: below half of it the profile is taken once
-    more, and still short, this raises (the profiler has dropped
-    records)."""
+    against launch_event_ms. A take below half of it, or one with no
+    device time at all, has lost records (the profiler now and then drops
+    a session's device records): the profile is taken again, after a
+    pause, up to PROFILE_TAKES takes, and then this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -412,11 +442,13 @@ def device_profile(fn, label: str, runs: int = 20, top: int = 8,
         )
 
     host_us = host_ms(synced, runs=runs) * 1e3
-    prof, kernels = take()
-    if check:
-        event_us = launch_event_ms(fn) * 1e3
-        assert event_us > 0, f"{label}: no csrc kernel launched"
-        for attempt in (1, 2):
+    event_us = launch_event_ms(fn) * 1e3 if check else 0.0
+    assert event_us > 0 or not check, f"{label}: no csrc kernel launched"
+    for attempt in range(1, PROFILE_TAKES + 1):
+        prof, kernels = take()
+        busy_us = sum(us for _, us in kernels)
+        complete = busy_us > 0
+        if check:
             prof_us = sum(us for name, us in kernels
                           if any(k in name for k in names))
             print(f"profile check {label} (attempt {attempt}): csrc kernels "
@@ -424,13 +456,17 @@ def device_profile(fn, label: str, runs: int = 20, top: int = 8,
                   f"{event_us:.1f} us by CUDA events around their C entry "
                   f"points, ratio {prof_us / event_us:.3f} (at least 0.5)",
                   flush=True)
-            if prof_us >= 0.5 * event_us:
-                break
-            assert attempt == 1, (f"{label}: torch.profiler read "
-                                  f"{prof_us:.1f} us against {event_us:.1f}")
-            prof, kernels = take()
-    busy_us = sum(us for _, us in kernels)
-    assert busy_us > 0, f"{label}: torch.profiler saw no device time"
+            complete = prof_us >= 0.5 * event_us
+        elif not complete:
+            print(f"profile check {label} (attempt {attempt}): no device "
+                  "time", flush=True)
+        if complete:
+            break
+        assert attempt < PROFILE_TAKES, (
+            f"{label}: torch.profiler read {busy_us:.1f} us of device time"
+            + (f", {prof_us:.1f} us of csrc kernels against {event_us:.1f}"
+               if check else ""))
+        time.sleep(0.2)
     print(f"profile {label}: device {busy_us:.1f} us per call, host "
           f"{host_us:.1f} us per call, device idle "
           f"{max(0.0, 1 - busy_us / host_us):.1%}", flush=True)
@@ -455,6 +491,115 @@ def seeded_ndc(rng: np.random.Generator, renders: int, n: int) -> np.ndarray:
     box = rng.uniform(-0.6, 0.6, size=(renders, n - n // 2, 3))
     pts = np.concatenate([shell, box], axis=1)
     return np.ascontiguousarray(pts.transpose(0, 2, 1), dtype=np.float32)
+
+
+DRAW_STEPS = (0, 1, 9999, 2**31 - 1)
+
+
+def phase_draws() -> dict:
+    """1b. The draw kernels against their plain versions on the card,
+    bitwise: the dropout weights at every shipped config's [B, N] and
+    keep-prob, with the dropout key of scan steps 0, 1, 9999 and 2^31 - 1;
+    the batch draws at every config's (B, V, V_use) over 32 and 200 models,
+    with and without the second input view, at the same steps. Returns
+    each kernel's largest error (0)."""
+    import warnings
+
+    from dpcx_torch.config import load_config
+    from dpcx_torch.render.project import keep_prob_schedule
+    from dpcx_torch.render.voxelize import pc_point_dropout_weights
+    from dpcx_torch.utils import prng
+
+    def same_bits(a, b) -> bool:  # floats as their int32 words
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    with warnings.catch_warnings():  # largecloud's one-device note
+        warnings.simplefilter("ignore")
+        cfgs = {p.stem: load_config(p).validate()
+                for p in sorted((REPO / "experiments").glob("*.yaml"))}
+    drop_shapes, row_shapes, checked = set(), set(), [0, 0]
+    errs = {"dropout_weights": 0.0, "batch_draws": 0.0}
+    for c in cfgs.values():
+        drop_shapes.add((c.batch_size, c.pc_num_points, c.pc_point_dropout,
+                         c.pc_point_dropout_steps))
+        row_shapes.add((c.batch_size, c.num_views,
+                        min(c.views_per_step, c.num_views)))
+    for B, N, dropout, ramp in sorted(drop_shapes):
+        c = cfgs["car_64_depth"].replace(pc_point_dropout=dropout,
+                                         pc_point_dropout_steps=ramp)
+        for step in DRAW_STEPS:
+            k_drop = prng.split(prng.fold_in(prng.prng_key(1), step), 4)[3]
+            keep = keep_prob_schedule(c, step)
+            got = pc_point_dropout_weights(k_drop, B, N, keep, DEVICE)
+            want = prng.dropout_weights_plain(k_drop, B, N, keep, DEVICE)
+            torch.cuda.synchronize()
+            assert same_bits(got, want), (B, N, dropout, step)
+            errs["dropout_weights"] = max(errs["dropout_weights"],
+                                          (got - want).abs().max().item())
+            checked[0] += 1
+    for B, V, V_use in sorted(row_shapes):
+        for M in (MODELS, 200):
+            for with_in2 in (False, True):
+                for step in DRAW_STEPS:
+                    kk = prng.fold_in(prng.prng_key(1), step)
+                    keys = (*prng.split(kk, 4)[:3],
+                            prng.fold_in(kk, 7) if with_in2 else None)
+                    got = prng.batch_draws(*keys, B, M, V, V_use, DEVICE)
+                    want = prng.batch_draws_plain(*keys, B, M, V, V_use,
+                                                  DEVICE)
+                    torch.cuda.synchronize()
+                    assert same_bits(got, want), (B, M, V, V_use, step)
+                    assert int(got[:, 0].max()) < M * V
+                    errs["batch_draws"] = max(errs["batch_draws"], float(
+                        (got - want).abs().max().item()))
+                    checked[1] += 1
+    print(f"draws: dropout_weights equal to the plain version bitwise at "
+          f"{checked[0]} (shape, keep-prob, step) cases {sorted(drop_shapes)}"
+          f"; batch_draws at {checked[1]} (B, M, V, V_use, v_in2, step) "
+          f"cases over {sorted(row_shapes)} x M (32, 200)", flush=True)
+    return errs
+
+
+def time_draws(errs: dict) -> dict:
+    """10. Each draw kernel's time (CUDA events around the call) at the
+    car_64_depth step's shapes, beside its bound and its plain version's;
+    with ``errs`` (phase_draws'), the numbers of the kernels' JSON entries
+    and each kernel's call (``fn``), which phase 11 profiles."""
+    from dpcx_torch.config import load_config
+    from dpcx_torch.render.project import keep_prob_schedule
+    from dpcx_torch.render.voxelize import pc_point_dropout_weights
+    from dpcx_torch.utils import prng
+
+    car = load_config(CONFIG)
+    B, N, V = car.batch_size, car.pc_num_points, car.num_views
+    V_use = min(car.views_per_step, V)
+    k_drop = (1, 2)
+    keep = keep_prob_schedule(car, 0)
+    kk = prng.fold_in(prng.prng_key(1), 0)
+    keys = (*prng.split(kk, 4)[:3], None)
+    out = {}
+    for name, kernel, plain, shape in (
+            ("dropout_weights",
+             lambda: pc_point_dropout_weights(k_drop, B, N, keep, DEVICE),
+             lambda: prng.dropout_weights_plain(k_drop, B, N, keep, DEVICE),
+             (B, N)),
+            ("batch_draws",
+             lambda: prng.batch_draws(*keys, B, 200, V, V_use, DEVICE),
+             lambda: prng.batch_draws_plain(*keys, B, 200, V, V_use, DEVICE),
+             (B, V, V_use))):
+        # the plain versions launch hundreds of elementwise kernels a call
+        k_ms, p_ms = cuda_ms(kernel), cuda_ms(plain, runs=5, warmup=1)
+        bound_ms, bound_by = draw_bound(name, *shape)
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, err=errs[name],
+                         bound_ms=bound_ms, bound_by=bound_by, shape=shape,
+                         fn=kernel)
+        print(f"time {name} {shape}: kernel {k_ms * 1e3:.3f} us between "
+              f"CUDA events around the call, bound {bound_ms * 1e3:.4f} us "
+              f"({bound_by}); plain version {p_ms * 1e3:.3f} us | "
+              f"{card_line()}", flush=True)
+    return out
 
 
 def phase_kernel(cfg, fused, gauss) -> list[dict]:
@@ -548,14 +693,16 @@ def phase_backward(cases, fused) -> list[dict]:
     forward's shapes, with dropout weights (keep-prob 0.1: weights 0 or
     10); at D > 64 in both modes, and the two modes against each other."""
     from dpcx_torch.render.voxelize import pc_point_dropout_weights
+    from dpcx_torch.utils import prng
 
     rng = np.random.default_rng(SEED + 3)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     out = []
-    for case in cases:
+    for i, case in enumerate(cases):
         ndc, vox, sigma, radius = case["args"]
         with_depth = case["kw"]["with_depth"]
-        pw = pc_point_dropout_weights(gen, ndc.shape[0], ndc.shape[2], 0.1)
+        pw = pc_point_dropout_weights(
+            prng.fold_in(prng.prng_key(SEED + 3), i), ndc.shape[0],
+            ndc.shape[2], 0.1, DEVICE)
         kw = dict(with_depth=with_depth)
         sil, depth = fused.fused_project_reference(ndc, vox, sigma, radius,
                                                    pw, **kw)
@@ -661,20 +808,31 @@ def seeded_targets(cfg, views: int, models: int):
 
 
 def training_step_fn(cfg, ds):
-    """One synchronised training step per call, as `cli train` runs it
-    (device-resident records, the step's batch and dropout generator)."""
-    from dpcx_torch.train import batch_at, create_state, device_records
-    from dpcx_torch.train import step_generator, train_step
+    """One synchronised training step per call, as `cli train` runs it on
+    device-resident records: one step of train_steps_scan (dpcx's scan
+    draws: the batch and dropout key from PRNGKey(seed + 1) and the step)
+    in a tree that has it; in an older tree, which --render-times and
+    --splat-times may time, its batch_at and step_generator (the host-fed
+    draws it trained with)."""
+    from dpcx_torch import train as ttrain
 
-    state = create_state(
+    state = ttrain.create_state(
         cfg, DEVICE, torch.Generator(device=DEVICE).manual_seed(cfg.seed))
-    records = device_records(ds, DEVICE)
+    records = ttrain.device_records(ds, DEVICE)
+    if hasattr(ttrain, "train_steps_scan"):
+        from dpcx_torch.utils import prng
 
-    def step():
-        batch = batch_at(cfg, ds, state.step, DEVICE, records)
-        train_step(cfg, state, batch,
-                   step_generator(cfg.seed + 1, state.step, DEVICE))
-        torch.cuda.synchronize()
+        key = prng.prng_key(cfg.seed + 1)
+
+        def step():
+            ttrain.train_steps_scan(cfg, state, records, key, 1)
+            torch.cuda.synchronize()
+    else:
+        def step():
+            batch = ttrain.batch_at(cfg, ds, state.step, DEVICE, records)
+            ttrain.train_step(cfg, state, batch, ttrain.step_generator(
+                cfg.seed + 1, state.step, DEVICE))
+            torch.cuda.synchronize()
 
     return step
 
@@ -689,6 +847,8 @@ def training_step_fn(cfg, ds):
 RENDER_FWD, RENDER_BWD = ("renderer forward (K1 / K3)",
                           "renderer backward (K2 / K4 + K5)")
 STEP_LAYERS = (
+    ("random draws (csrc/prng.cu)", ("dropout_weights_kernel",
+                                     "batch_draws_kernel")),
     ("splat renderer backward (K7)", ("aniso_bwd_kernel",)),
     ("splat renderer forward (K6)", ("aniso_fwd_kernel",)),
     (RENDER_BWD, ("drc_bwd_kernel", "drc_bwd_tile_kernel",
@@ -723,11 +883,12 @@ def print_step_breakdown(kernels: list[tuple[str, float]],
 
 
 def counters() -> tuple[dict, ...]:
-    """Every kernel wrapper's launch counts: the fused renderer's (K1-K5)
-    and the anisotropic splats' (K6, K7)."""
+    """Every kernel wrapper's launch counts: the fused renderer's (K1-K5),
+    the anisotropic splats' (K6, K7) and the training step's draws."""
     from dpcx_torch.render import aniso, fused
+    from dpcx_torch.utils import prng
 
-    return fused.LAUNCHES, aniso.LAUNCHES
+    return fused.LAUNCHES, aniso.LAUNCHES, prng.LAUNCHES
 
 
 def reset_counts() -> None:
@@ -743,6 +904,23 @@ def launch_counts() -> dict:
 def only(**counts) -> dict:
     """Every launch count 0 but the ones named."""
     return {name: counts.get(name, 0) for name in launch_counts()}
+
+
+def draws(cfg, steps: int, remat: bool = False) -> dict:
+    """The draw launches of ``steps`` training steps of ``cfg`` (a config
+    or its YAML path), as `cli train` makes them: one batch_draws a step
+    with device_data, one dropout_weights a step with pc_point_dropout < 1
+    (two with remat, whose recompute draws the weights again)."""
+    from dpcx_torch.config import load_config
+
+    if isinstance(cfg, (str, Path)):
+        cfg = load_config(cfg)
+    out = {}
+    if cfg.device_data:
+        out["batch_draws"] = steps
+    if cfg.pc_point_dropout < 1.0:
+        out["dropout_weights"] = steps * (2 if remat else 1)
+    return out
 
 
 def read_losses(checkpoint_dir: Path) -> list[tuple[int, float]]:
@@ -798,19 +976,23 @@ def winners(cfg, sil, masks) -> torch.Tensor:
 
 def phase_parity(cfg, ds, want: dict):
     """3 float32-compute training steps through the kernels against 3
-    through the plain versions, from the same init, batches and dropout
-    generator: per-parameter first-step gradients and the three losses
-    within TRAIN_RTOL, and under predicted pose every step's winners equal.
+    through the plain versions, from the same init, on the same draws as
+    `cli train` makes (scan_batch: the batch and dropout key of each step
+    from the same key): per-parameter first-step gradients and the three
+    losses within TRAIN_RTOL, and under predicted pose every step's winners
+    equal.
     The plain side is handed to train_step: fused_project_plain (whose
     backward is K2's function, the hat derivative 0 at an exactly integer
     grid coordinate included), and aniso_density_reference in float32 or
     aniso_density_plain (K7's bfloat16 function written out) in bfloat16.
     ``want``: the
-    launches the kernel steps make (the plain steps make none). Returns
-    the kernel run's (losses, first-step gradients)."""
+    renderer launches the kernel steps make (the plain steps make none);
+    both make the draw launches. Returns the kernel run's (losses,
+    first-step gradients)."""
     from dpcx_torch.render import aniso, fused
-    from dpcx_torch.train import batch_at, create_state, step_generator
-    from dpcx_torch.train import train_step
+    from dpcx_torch.train import create_state, device_records, scan_batch
+    from dpcx_torch.train import update
+    from dpcx_torch.utils import prng
 
     def fused_plain(ndc_t, vox, sigma, radius, point_weights=None,
                     with_depth=False, acc_dtype="float32", save_grid=True):
@@ -825,6 +1007,8 @@ def phase_parity(cfg, ds, want: dict):
         return aniso.aniso_density_reference(mu, A6, w, rgb, rz, vox)
 
     c = cfg.replace(compute_dtype="float32")
+    records = device_records(ds, DEVICE)
+    key = prng.prng_key(c.seed + 1)
     runs = {}
     for label, project, density in (
             ("kernel", fused.fused_project_t, aniso.aniso_density),
@@ -841,10 +1025,9 @@ def phase_parity(cfg, ds, want: dict):
         before = launch_counts()
         losses, grads, won = [], None, []
         for step in range(3):
-            batch = batch_at(c, ds, step, DEVICE)
-            m = train_step(c, state, batch,
-                           step_generator(c.seed + 1, step, DEVICE),
-                           density_fn=density, project_fn=recorded)
+            batch, k_drop = scan_batch(c, records, key, step)
+            m = update(c, state, batch, k_drop, density_fn=density,
+                       project_fn=recorded)
             losses.append(m["loss_total"].item())
             if grads is None:
                 grads = {n: p.grad.detach().clone()
@@ -853,8 +1036,8 @@ def phase_parity(cfg, ds, want: dict):
                 won.append(winners(c, sils[-1], batch["masks"]).cpu())
         torch.cuda.synchronize()
         made = {k: v - before[k] for k, v in launch_counts().items()}
-        assert made == (only(**want) if label == "kernel" else only()), \
-            (label, made)
+        assert made == (only(**want, **draws(c, 3)) if label == "kernel"
+                        else only(**draws(c, 3))), (label, made)
         runs[label] = losses, grads, won
     (l_k, g_k, w_k), (l_p, g_p, w_p) = runs["kernel"], runs["plain"]
     worst_name, worst = worst_grad(g_k, g_p)
@@ -912,7 +1095,8 @@ def phase_train(cli, fused, cfg_path: str, cfg) -> dict:
           "they launch no K1)", flush=True)
     assert last < first, (first, last)
     assert launches == only(fused_render=TRAIN_STEPS,
-                            fused_render_bwd=TRAIN_STEPS), launches
+                            fused_render_bwd=TRAIN_STEPS,
+                            **draws(cfg, TRAIN_STEPS)), launches
     pngs = sorted(p.name for p in (run_dir / "summaries").glob("*.png"))
     assert pngs == ["proj_0000100.png", "proj_0000200.png"], pngs
     assert (run_dir / "ckpt" / f"{TRAIN_STEPS}.pt").exists()
@@ -928,7 +1112,8 @@ def phase_train(cli, fused, cfg_path: str, cfg) -> dict:
     assert resumed == list(range(TRAIN_STEPS + 1,
                                  TRAIN_STEPS + RESUME_STEPS + 1)), resumed
     assert launch_counts() == only(fused_render=RESUME_STEPS,
-                                        fused_render_bwd=RESUME_STEPS)
+                                   fused_render_bwd=RESUME_STEPS,
+                                   **draws(cfg, RESUME_STEPS))
     print(f"train resume: steps {resumed[0]}..{resumed[-1]} after the "
           f"step-{TRAIN_STEPS} checkpoint, launches {launch_counts()}",
           flush=True)
@@ -952,7 +1137,8 @@ def phase_chair(cli, fused, tmp: Path) -> None:
     vals = [v for _, v in read_losses(Path(cfg.checkpoint_dir))]
     assert len(vals) == CHAIR_STEPS and np.isfinite(vals).all(), vals
     assert launch_counts() == only(fused_render=CHAIR_STEPS,
-                                        fused_render_bwd=CHAIR_STEPS)
+                                   fused_render_bwd=CHAIR_STEPS,
+                                   **draws(cfg, CHAIR_STEPS))
     print(f"train chair_gt_pose (renderer pallas): {CHAIR_STEPS} steps, "
           f"loss_total {vals[0]:.6f} -> {vals[-1]:.6f}, launches "
           f"{launch_counts()}", flush=True)
@@ -982,7 +1168,8 @@ def multicat_train(cli, path: str, run_dir: Path, steps: int, mode: str,
           f"the last {k} {last:.6f}; launches {launches}", flush=True)
     assert last < first, (first, last)
     assert launches == only(**{f"blocked_render{mode}": steps,
-                               f"blocked_render_bwd{mode}": steps}), launches
+                               f"blocked_render_bwd{mode}": steps},
+                            **draws(path, steps)), launches
     assert (run_dir / "ckpt" / f"{steps}.pt").exists()
     OUT_DIR.mkdir(exist_ok=True)
     shutil.copy(run_dir / "metrics.jsonl",
@@ -1013,7 +1200,8 @@ def multicat_remat(cli, cfg, tmp: Path, mode: str, want: list) -> None:
     assert len(got) == REMAT_STEPS and rel <= TRAIN_RTOL, (got, want)
     assert launches == only(**{
         f"blocked_render{mode}": 2 * REMAT_STEPS,
-        f"blocked_render_bwd_recompute{mode}": REMAT_STEPS}), launches
+        f"blocked_render_bwd_recompute{mode}": REMAT_STEPS},
+        **draws(remat, REMAT_STEPS, remat=True)), launches
 
 
 def phase_multicat(cli, fused, tmp: Path):
@@ -1190,7 +1378,9 @@ def phase_largecloud(cli, fused, tmp: Path) -> None:
               f"{time.perf_counter() - t0:.1f} s, warnings {said}, launches "
               f"{launch_counts()}", flush=True)
         assert len(said) == 1, [str(w.message) for w in seen]
-        assert launch_counts() == only(), launch_counts()
+        assert launch_counts() == only(**(
+            draws(cfg, LARGECLOUD_STEPS) if verb == "train" else {})), \
+            launch_counts()
     vals = np.array([v for _, v in read_losses(Path(cfg.checkpoint_dir))])
     assert len(vals) == LARGECLOUD_STEPS and np.isfinite(vals).all(), vals
     k = LARGECLOUD_STEPS // 3
@@ -1511,7 +1701,8 @@ def splat_train(cli, path: str, run_dir: Path, steps: int, mode: str,
           f"{rgb_vals[-k:].mean():.6f}; launches {launches}", flush=True)
     assert last < first, (first, last)
     assert launches == only(**{f"aniso_render{mode}": steps,
-                               f"aniso_render_bwd{mode}": steps}), launches
+                               f"aniso_render_bwd{mode}": steps},
+                            **draws(path, steps)), launches
     assert (run_dir / "ckpt" / f"{steps}.pt").exists()
     OUT_DIR.mkdir(exist_ok=True)
     shutil.copy(run_dir / "metrics.jsonl",
@@ -1708,7 +1899,8 @@ def pose_train(cli, path: str, run_dir: Path, steps: int, mode: str,
           f"{spread[-20:].mean():.2f}; launches {launches}", flush=True)
     assert last < first, (first, last)
     assert launches == only(**{f"fused_render{mode}": steps,
-                               f"fused_render_bwd{mode}": steps}), launches
+                               f"fused_render_bwd{mode}": steps},
+                            **draws(path, steps)), launches
     OUT_DIR.mkdir(exist_ok=True)
     shutil.copy(run_dir / "metrics.jsonl",
                 OUT_DIR / f"chip_smoke_{label}_metrics.jsonl")
@@ -1768,7 +1960,8 @@ def phase_pred_pose(cli, fused, tmp: Path):
     assert steps == want_steps, steps
     assert (Path(rs.checkpoint_dir) / "ckpt" / f"{RESEED_STEPS}.pt").exists()
     n = RESEED_CHECK + RESEED_STEPS
-    assert launch_counts() == only(fused_render=n, fused_render_bwd=n)
+    assert launch_counts() == only(fused_render=n, fused_render_bwd=n,
+                                   **draws(rs, n))
 
     # the bfloat16 operand mode of K1 and K2
     bf = cfg.replace(pallas_acc_dtype="bfloat16",
@@ -1823,17 +2016,14 @@ EVAL_KEYS = [
 EVAL_RTOL, EVAL_IOU_ATOL = 1e-5, 1e-2
 # The canonical alignment is an argmin over candidate rotations: where two
 # candidates' mean errors lie closer than the two forwards' difference
-# moves them (a tie), the card and the CPU may pick different ones. A tie
-# is shown by two picks (more than TIE_MIN_DEG apart; q_align 1e-5 apart
-# is one pick) at most TIE_DEG apart, the CPU's mean errors at them within
-# TIE_GAP (relative). The metrics that hang on the pick alone (acc@30, the
-# median error, Chamfer, IoU) are held, tie or not, to the CPU's at the
-# card's pick at EVAL_RTOL / EVAL_IOU_ATOL; those of the flip-corrected
-# re-alignment to TIE_BOUNDS: each sample's error moves by at most the
-# angle between the picks, so the degree metrics within TIE_DEG, and at
-# most 3 samples across 30 degrees.
-TIE_GAP, TIE_DEG, TIE_MIN_DEG = 1e-5, 1.0, 1e-3
-TIE_BOUNDS = {"deg": TIE_DEG, "share": 3 / MODELS}
+# moves them (a tie), the card and the CPU may pick different ones; so may
+# the re-alignment of the flip-corrected poses behind the up-to-flip
+# metrics. A tie is shown by two picks (a rotation of more than
+# TIE_MIN_DEG between them; q_align 1e-5 apart is one pick) at most TIE_DEG
+# apart, the CPU's mean errors at them within TIE_GAP (relative). Tie or
+# not, every metric is held at EVAL_RTOL / EVAL_IOU_ATOL to the CPU's at
+# the card's picks.
+TIE_GAP, TIE_DEG, TIE_MIN_DEG = 1e-5, 2.0, 2e-3
 
 
 def run_cli_json(cli, argv: list[str]) -> tuple[dict, float]:
@@ -1847,10 +2037,11 @@ def run_cli_json(cli, argv: list[str]) -> tuple[dict, float]:
     return json.loads(buf.getvalue().strip().splitlines()[-1]), secs
 
 
-def alignment_tie(cpu_pose, card_pose, gt_quats):
-    """The canonical alignments of the CPU's and the card's poses: the angle
-    between the two picks (degrees), the relative gap between the CPU's
-    mean errors at them, and the card's pick (on the CPU)."""
+def alignment_tie(cpu_pose, card_pose, gt_quats, device=DEVICE):
+    """The canonical alignments of the CPU's and the card's poses (the
+    latter on ``device``): the rotation between the two picks (degrees), the
+    relative gap between the CPU's mean errors at them, and the card's
+    pick (on the CPU)."""
     from dpcx_torch.eval.pose_metrics import align_canonical_frame
     from dpcx_torch.geometry.quaternion import (
         quaternion_angular_distance,
@@ -1859,29 +2050,64 @@ def alignment_tie(cpu_pose, card_pose, gt_quats):
 
     pc, gq = torch.from_numpy(cpu_pose), torch.from_numpy(gt_quats)
     q_c, _ = align_canonical_frame(pc, gq)
-    q_g, _ = align_canonical_frame(torch.from_numpy(card_pose).cuda(),
-                                   gq.cuda())
+    q_g, _ = align_canonical_frame(torch.from_numpy(card_pose).to(device),
+                                   gq.to(device))
     q_g = q_g.cpu()
 
     def mean_err(q):
         return float(quaternion_angular_distance(
             quaternion_multiply(pc, q[None]), gq).mean())
 
-    # the angle in float64 by atan2: an f32 arccos reads 0 below ~0.04
-    # degrees
+    # the rotation between them, 2 arccos |a . b|, in float64 by atan2
+    # (an f32 arccos reads 0 below ~0.04 degrees): arccos(a . b) is
+    # 2 atan2(|a - b|, |a + b|)
     a, b = q_c.double(), q_g.double() * torch.sign((q_c * q_g).sum())
-    deg = math.degrees(2 * math.atan2(float((a - b).norm()),
+    deg = math.degrees(4 * math.atan2(float((a - b).norm()),
                                       float((a + b).norm())))
     return deg, abs(mean_err(q_g) - mean_err(q_c)) / mean_err(q_c), q_g
 
 
-def metrics_at_pick(pred, q_align, gt_points, gt_quats) -> dict:
-    """`evaluate`'s metrics that hang on the canonical alignment's pick
-    alone, on the CPU, from the predictions `pred` at the pick `q_align`:
-    what `evaluate` computes after its own argmin."""
+def realignment_tie(cpu_pose, card_pose, gt_quats, device=DEVICE):
+    """alignment_tie of `evaluate`'s second alignment, the one of the
+    flip-corrected poses behind the up-to-flip metrics
+    (dpcx_torch/predict.py: each aligned pose, or its composition with the
+    180-degree flip where that is nearer the GT, aligned again), each side
+    corrected on its own device as `evaluate` corrects it."""
+    from dpcx_torch.eval.pose_metrics import (
+        FLIP_QUAT,
+        align_canonical_frame,
+        pose_error_metrics,
+    )
+    from dpcx_torch.geometry.quaternion import quaternion_multiply
+
+    def corrected(pose, device):
+        p, g = (torch.from_numpy(a).to(device) for a in (pose, gt_quats))
+        _, aligned = align_canonical_frame(p, g)
+        flipped = quaternion_multiply(aligned, FLIP_QUAT.to(device))
+        e0 = pose_error_metrics(aligned, g)["angular_err_deg"]
+        e1 = pose_error_metrics(flipped, g)["angular_err_deg"]
+        return torch.where((e1 < e0)[:, None], flipped, aligned).cpu().numpy()
+
+    return alignment_tie(corrected(cpu_pose, "cpu"),
+                         corrected(card_pose, device), gt_quats, device)
+
+
+# the metrics of the flip-corrected re-alignment alone
+REALIGNED = ("pose_acc_30deg_up_to_flip", "pose_median_err_deg_up_to_flip")
+
+
+def metrics_at_pick(pred, q_align, q_realign, gt_points, gt_quats) -> dict:
+    """`evaluate`'s metrics (view 0) on the CPU, from the predictions
+    `pred`, at the canonical pick `q_align` and the re-alignment pick
+    `q_realign` in place of its own argmins: what `evaluate` computes after
+    them."""
     from dpcx_torch.eval.chamfer import chamfer_distance
     from dpcx_torch.eval.iou import voxel_iou
-    from dpcx_torch.eval.pose_metrics import pose_error_metrics
+    from dpcx_torch.eval.pose_metrics import (
+        FLIP_QUAT,
+        pose_error_metrics,
+        pose_error_metrics_up_to_flip,
+    )
     from dpcx_torch.geometry.quaternion import (
         quaternion_conjugate,
         quaternion_multiply,
@@ -1891,15 +2117,25 @@ def metrics_at_pick(pred, q_align, gt_points, gt_quats) -> dict:
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32)
 
-    gt = t(gt_points)
-    pm = pose_error_metrics(
-        quaternion_multiply(t(pred["pose"]), q_align[None]), t(gt_quats))
+    gt, gq = t(gt_points), t(gt_quats)
+    aligned = quaternion_multiply(t(pred["pose"]), q_align[None])
+    pm = pose_error_metrics(aligned, gq)
+    flipped = quaternion_multiply(aligned, FLIP_QUAT)
+    e0 = pm["angular_err_deg"]
+    e1 = pose_error_metrics(flipped, gq)["angular_err_deg"]
+    corrected = torch.where((e1 < e0)[:, None], flipped, aligned)
+    fm = pose_error_metrics_up_to_flip(
+        quaternion_multiply(corrected, q_realign[None]), gq)
     pts = quaternion_rotate(t(pred["points"]),
                             quaternion_conjugate(q_align)[None])
     cd = chamfer_distance(pts, gt)
     return {
         "pose_acc_30deg": float(pm["acc_30deg"]),
         "pose_median_err_deg": float(pm["median_err_deg"]),
+        "pose_acc_30deg_up_to_flip": float(fm["acc_30deg_up_to_flip"]),
+        "pose_median_err_deg_up_to_flip": float(
+            fm["median_err_deg_up_to_flip"]),
+        "pose_flip_rate": float((e1 < e0).float().mean()),
         "chamfer": float(cd["chamfer"].mean()),
         "chamfer_pred_to_gt": float(cd["pred_to_gt"].mean()),
         "chamfer_gt_to_pred": float(cd["gt_to_pred"].mean()),
@@ -1907,14 +2143,45 @@ def metrics_at_pick(pred, q_align, gt_points, gt_quats) -> dict:
     }
 
 
+def eval_off(key: str, got: float, ref: float) -> float:
+    """|got - ref| over its tolerance: EVAL_IOU_ATOL for iou_3d_16, else
+    EVAL_RTOL relative to ref."""
+    if key == "iou_3d_16":
+        return abs(got - ref) / EVAL_IOU_ATOL
+    return abs(got - ref) / (EVAL_RTOL * abs(ref) + 1e-12)
+
+
+def is_tie(deg: float, gap: float) -> bool:
+    """Two picks more than TIE_MIN_DEG and at most TIE_DEG apart, the
+    CPU's mean errors at them within TIE_GAP."""
+    return TIE_MIN_DEG < deg <= TIE_DEG and gap <= TIE_GAP
+
+
+def hold_eval_metrics(got, want, at_pick, canonical, realign) -> list[str]:
+    """The card's `evaluate` metrics ``got`` against the CPU's ``want``:
+    each within tolerance (eval_off) of the CPU's at the card's picks
+    (``at_pick``: metrics_at_pick), in every run; a miss of the CPU's own
+    values only under a tie (is_tie) of the canonical alignment
+    (``canonical``: its (degrees, gap)), or, where the up-to-flip
+    metrics alone miss and the canonical picks agree, of the re-alignment
+    (``realign``). Returns the misses; raises where a check fails."""
+    assert set(at_pick) == set(want), (sorted(at_pick), sorted(want))
+    assert all(eval_off(k, got[k], v) <= 1.0 for k, v in at_pick.items()), (
+        {k: (got[k], v) for k, v in at_pick.items()})
+    missed = [k for k in want if eval_off(k, got[k], want[k]) > 1.0]
+    if missed:
+        assert is_tie(*canonical) or (
+            set(missed) <= set(REALIGNED) and canonical[0] <= TIE_MIN_DEG
+            and is_tie(*realign)), (missed, canonical, realign)
+    return missed
+
+
 def hold_eval_to_cpu(cfg, ds) -> None:
     """`evaluate` (view 0) of the newest checkpoint on the card against the
     same on the CPU, on the same held-out set, with the forward in float32
-    on both (TF32 off): at EVAL_RTOL / EVAL_IOU_ATOL. The metrics that hang
-    on the alignment's pick alone are also held, at the same tolerances, to
-    the CPU's at the card's pick; where an alignment tie (TIE_GAP,
-    TIE_DEG) explains a miss, the re-aligned ones to TIE_BOUNDS. The
-    predictions themselves are held within 1e-4."""
+    on both (TF32 off): hold_eval_metrics, with the CPU's metrics at the
+    card's two alignment picks. The predictions themselves are held within
+    1e-4."""
     from dpcx_torch.predict import evaluate, predict_dataset
     from dpcx_torch.train import load_checkpoint
 
@@ -1937,37 +2204,24 @@ def hold_eval_to_cpu(cfg, ds) -> None:
     assert all(np.isfinite(v) for v in got.values()), got
     gt_quats = ds.records["quats"][:, 0].astype(np.float32)
     deg, gap, q_card = alignment_tie(p_cpu["pose"], p_card["pose"], gt_quats)
-    at_pick = metrics_at_pick(p_cpu, q_card, ds.records["gt_points"],
-                              gt_quats)
-
-    def off(k, ref) -> float:
-        if k == "iou_3d_16":
-            return abs(got[k] - ref) / EVAL_IOU_ATOL
-        return abs(got[k] - ref) / (EVAL_RTOL * abs(ref) + 1e-12)
-
-    missed = [k for k in want if off(k, want[k]) > 1.0]
+    deg2, gap2, q2_card = realignment_tie(p_cpu["pose"], p_card["pose"],
+                                          gt_quats)
+    at_pick = metrics_at_pick(p_cpu, q_card, q2_card,
+                              ds.records["gt_points"], gt_quats)
+    missed = [k for k in want if eval_off(k, got[k], want[k]) > 1.0]
     print(f"eval card vs CPU chair_pred_pose (view 0, {ds.num_models} "
           f"models, float32 forward): card {card_s:.2f} s, CPU "
           f"{cpu_s:.2f} s; predictions max abs diff {pred_err}; "
           + ", ".join(f"{k} {got[k]:.6g}/{want[k]:.6g}" for k in want)
           + f"; outside rtol {EVAL_RTOL} (iou {EVAL_IOU_ATOL}): {missed}; "
-          f"alignment picks {deg:.4f} degrees apart, the CPU's mean errors "
-          f"at them {gap:.2e} apart (relative); the CPU at the card's pick: "
+          f"canonical alignment picks {deg:.4f} degrees apart, the CPU's "
+          f"mean errors at them {gap:.2e} apart (relative); re-alignment "
+          f"picks {deg2:.4f} degrees apart, {gap2:.2e}; the CPU at the "
+          f"card's picks: "
           + ", ".join(f"{k} {v:.6g}" for k, v in at_pick.items())
           + f" | {card_line()}", flush=True)
     assert max(pred_err.values()) < 1e-4, pred_err
-    assert all(off(k, v) <= 1.0 for k, v in at_pick.items()), (
-        {k: (got[k], v) for k, v in at_pick.items()})
-    if not missed:
-        return
-    # a tie: two picks (> TIE_MIN_DEG apart), at most TIE_DEG apart, the
-    # CPU's mean errors at them within TIE_GAP
-    assert TIE_MIN_DEG < deg <= TIE_DEG and gap <= TIE_GAP, (deg, gap)
-    for k in missed:
-        if k not in at_pick:
-            kind = "deg" if "err_deg" in k else "share"
-            assert abs(got[k] - want[k]) <= TIE_BOUNDS[kind], (
-                k, got[k], want[k])
+    hold_eval_metrics(got, want, at_pick, (deg, gap), (deg2, gap2))
 
 
 def phase_eval(cli, pose_path: str, car_path: str) -> None:
@@ -2234,7 +2488,6 @@ def render_times(tree: Path) -> int:
     from dpcx_torch.config import load_config
     from dpcx_torch.data.dataset import load_or_make
     from dpcx_torch.render import fused, gauss
-    from dpcx_torch.render.voxelize import pc_point_dropout_weights
 
     # an older tree's wrapper has no counter for a D <= 64 recompute
     for suffix in ("", "_bf16"):
@@ -2260,9 +2513,11 @@ def render_times(tree: Path) -> int:
             # phase 2's weights (its very inputs at the car_64_depth render)
             pw_uniform = torch.from_numpy(rng.uniform(
                 0.0, 1.0, (renders, n)).astype(np.float32)).to(DEVICE)
-            pw = pc_point_dropout_weights(
-                torch.Generator(device=DEVICE).manual_seed(SEED + 3),
-                renders, n, 0.1)
+            # dropout weights at keep-prob 0.1 drawn by numpy: the same
+            # bits for either tree's wrapper
+            pw = torch.from_numpy((np.random.default_rng(SEED + 3).uniform(
+                size=(renders, n)) < 0.1).astype(np.float32) / np.float32(
+                    0.1)).to(DEVICE)
             dsil, ddepth = (torch.from_numpy(rng.normal(
                 size=(renders, vox, vox)).astype(np.float32)).to(DEVICE)
                 for _ in range(2))
@@ -2366,6 +2621,8 @@ def main() -> int:
         if name.split("<")[0] in NO_FRAME_KERNELS and (frame or spill):
             framed.append(name)
     assert not framed, f"stack frame or spills in {framed}"
+    # 1b. the training step's draw kernels vs their plain versions
+    draw_errs = phase_draws()
 
     cfg = load_config(CONFIG).validate()
     assert cfg.renderer == "pallas" and cfg.proj_depth
@@ -2480,6 +2737,7 @@ def main() -> int:
             phase_bench(cli, card)
 
             # 10. time
+            draw_times = time_draws(draw_errs)
             timings = {}
             for case in cases:
                 args, kw = case["args"], case["kw"]
@@ -2679,6 +2937,10 @@ def main() -> int:
                                   runs=10, top=16, host_top=8)
             print_step_breakdown(step, f"chair_pred_pose {label}")
         profile_bench_calls()
+        for name, d in draw_times.items():
+            d["device_ms"] = sum(us for _, us in device_profile(
+                d["fn"], f"{name} kernel {d['shape']}", check=False,
+                top=1)) / 1e3
     finally:
         srv.shutdown()
         srv.server_close()
@@ -2774,6 +3036,23 @@ def main() -> int:
                 "note": "; ".join(filter(None, (
                     note, plain_bwd_note if backward else None)))}
 
+    def draw_entry(name, replaces):
+        d = draw_times[name]
+        return {"name": name, "route": "cuda",
+                "source": "dpcx_torch/csrc/prng.cu", "replaces": replaces,
+                "launches": launches[name], "max_abs_err": d["err"],
+                "ms": d["ms"], "plain_ms": d["plain_ms"],
+                "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+                "library_ms": None,
+                "note": (f"no Pallas kernel: dpcx's jax.random draw, "
+                         f"compiled by XLA; ms and plain_ms at "
+                         f"{d['shape']} between CUDA events around the call "
+                         f"(the host's dispatch included), device time "
+                         f"{d['device_ms'] * 1e3:.3f} us a launch "
+                         f"(torch.profiler); launches from the car_64_depth "
+                         f"cli train run; held bitwise to the plain "
+                         f"version")}
+
     pp_note = ("bfloat16 operand mode; times and bound at the "
                "chair_pred_pose render (256 x 2048, D 32), launches from its "
                "bfloat16 cli train run")
@@ -2819,6 +3098,8 @@ def main() -> int:
                          "dpcx/render/pallas_gsplat.py:88", False),
         splat_bf16_entry("aniso_render_bwd:bf16",
                          "dpcx/render/pallas_gsplat.py:187", True),
+        draw_entry("dropout_weights", "dpcx/render/voxelize.py:54"),
+        draw_entry("batch_draws", "dpcx/train.py:153"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -125,4 +125,14 @@ def load() -> ctypes.CDLL:
     lib.dpcx_aniso_render.restype = i32
     lib.dpcx_aniso_render_bwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     lib.dpcx_aniso_render_bwd.restype = i32
+    # csrc/prng.cu: the draws of a training step (threefry2x32): the
+    # dropout weights (out, size, key words, keep-prob) and the batch's
+    # gather rows (14 host key words, rows, B, M, V, V_use, with_in2)
+    u32 = ctypes.c_uint32
+    lib.dpcx_dropout_weights.argtypes = [ptr, i32, u32, u32, ctypes.c_float,
+                                         ptr]
+    lib.dpcx_dropout_weights.restype = i32
+    lib.dpcx_batch_draws.argtypes = [ctypes.POINTER(u32), ptr] + [i32] * 5 \
+        + [ptr]
+    lib.dpcx_batch_draws.restype = i32
     return lib

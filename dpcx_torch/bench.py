@@ -213,6 +213,51 @@ def aniso_bound(case, backward: bool, bf16: bool = False
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+# csrc/prng.cu's draws are integer work, counted per element: the key
+# schedule is the launch's (k0 ^ k1 ^ 0x1BD11BDA and each injection's
+# k + i are host-side constants). A threefry2x32 word is 20 rounds of add,
+# funnel shift and xor (60), the counter's add, the five x1 injections and
+# the last x0 one (the other four fold into the next round's add as one
+# IADD3), and the final x0 ^ x1: 68 operations, of which the 20 shifts and
+# 21 xors (41) issue on the ALU pipe alone. The uniform adds a shift and an
+# or (ALU) and the f32 subtract; a dropout weight its compare and select;
+# the batch draws' rank sort 3 a pair of views (two compares and the add).
+# The H100's ALU pipe has 64 lanes an SM (PEAK_F32_FLOPS / 4 operations a
+# second: PEAK_F32_FLOPS counts 128 FMA lanes x 2), and an SM issues at
+# most one warp instruction a clock to each of its four quarters, 128
+# lanes (PEAK_F32_FLOPS / 2: the dispatch rate), adds on the FMA pipe as
+# IMAD too
+THREEFRY_OPS, THREEFRY_ALU_OPS = 68, 41
+UNIFORM_OPS, UNIFORM_ALU_OPS = 3, 2
+DROPOUT_OPS, RANK_OPS = 2, 3
+PEAK_ALU_OPS, PEAK_DISPATCH_OPS = PEAK_F32_FLOPS / 4, PEAK_F32_FLOPS / 2
+
+
+def draw_bound(kind: str, batch: int, n: int, views_use: int = 0,
+               with_in2: bool = False) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") of one draw launch of
+    csrc/prng.cu: "dropout_weights" of [batch, n] (4 bytes written an
+    element), or "batch_draws" of ``batch`` rows over n views (2 +
+    ``views_use`` int64 written a row; the randint words of m and v_in,
+    and of v_in2 ``with_in2``, the row's n uniforms and the n x n pairs of
+    its rank sort; the randint's modular combine is not counted). The
+    operations' time is the larger of the ALU-only ones over PEAK_ALU_OPS
+    and all of them over PEAK_DISPATCH_OPS."""
+    if kind == "dropout_weights":
+        alu = batch * n * (THREEFRY_ALU_OPS + UNIFORM_ALU_OPS)
+        ops = batch * n * (THREEFRY_OPS + UNIFORM_OPS + DROPOUT_OPS)
+        nbytes = batch * n * 4
+    else:
+        words = 4 + (2 if with_in2 else 0) + n
+        alu = batch * (words * THREEFRY_ALU_OPS + n * UNIFORM_ALU_OPS)
+        ops = batch * (words * THREEFRY_OPS + n * UNIFORM_OPS
+                       + n * n * RANK_OPS)
+        nbytes = batch * (2 + views_use) * 8
+    t_ops = max(alu / PEAK_ALU_OPS, ops / PEAK_DISPATCH_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 # tolerances of the kernels-against-eager parity gate, dpcx's (max abs
 # error on the [0, 1] silhouette; relative L2 of the point gradients)
 SIL_TOL = {"float32": 2e-3, "bfloat16": 5e-2}

@@ -20,8 +20,8 @@ With ``renderer: pallas`` the render goes through the fused CUDA kernels
 anisotropic splat renderer (``render/gsplat.py``), whose ``gsplat_impl:
 pallas`` runs the CUDA kernels of ``render/aniso.py``. With ``train=True``
 and ``pc_point_dropout < 1`` the points carry Bernoulli keep weights drawn
-from the ``generator`` passed in, where the reference takes a
-``jax.random`` key.
+from the ``utils.prng`` key passed in: dpcx's ``jax.random`` draws, bit for
+bit.
 
 Masks, depths and target images stored at another resolution than
 ``vox_size`` are resized at loss time as the reference resizes them with
@@ -113,7 +113,7 @@ def compute_loss(
     preds: dict[str, torch.Tensor],
     batch: dict[str, torch.Tensor],
     step,
-    generator: torch.Generator | None = None,
+    key=None,
     train: bool = True,
     density_fn=None,
     project_fn=None,
@@ -124,9 +124,9 @@ def compute_loss(
     [B, V, 4], images_tgt [B, V, H, H, 3] (with rgb), quat_in [B, 4] (the
     input view's camera, predicted pose without ``pose_from_views``).
     preds: the model's outputs, and ``train.apply_model``'s per-view pose
-    heads (``quats_views`` ...) and ``points_view2``. ``generator`` (on
-    the points' device) draws the point dropout weights; it is needed only
-    when ``train`` and ``pc_point_dropout < 1``. ``density_fn`` goes to
+    heads (``quats_views`` ...) and ``points_view2``. ``key`` (a
+    ``utils.prng`` key) draws the point dropout weights on the points'
+    device; it is needed only when ``train`` and ``pc_point_dropout < 1``. ``density_fn`` goes to
     ``gsplat_project``, ``project_fn`` to ``pointcloud_project_fn`` (None:
     the kernels' dispatchers).
     """
@@ -146,11 +146,11 @@ def compute_loss(
     sigma_rel = sigma_schedule(cfg, step).to(points.device)
     point_weights = None
     if train and cfg.pc_point_dropout < 1.0:
-        if generator is None:
-            raise ValueError("point dropout needs a torch.Generator")
+        if key is None:
+            raise ValueError("point dropout needs a key")
         keep = keep_prob_schedule(cfg, step)
         point_weights = pc_point_dropout_weights(
-            generator, B, points.shape[1], keep
+            key, B, points.shape[1], keep, points.device
         )
     metrics: dict[str, torch.Tensor] = {"sigma_rel": sigma_rel}
     pose_loss = _predicted_pose_loss if cfg.predict_pose else _gt_pose_loss

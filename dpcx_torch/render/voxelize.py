@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from dpcx_torch.utils import prng
+
 
 def ndc_to_grid(points_ndc: torch.Tensor, vox_size: int) -> torch.Tensor:
     """NDC [-0.5, 0.5] -> grid units, (x, y, z) -> (z, y, x) order."""
@@ -17,15 +19,19 @@ def ndc_to_grid(points_ndc: torch.Tensor, vox_size: int) -> torch.Tensor:
     return g.flip(-1)
 
 
-def pc_point_dropout_weights(
-    generator: torch.Generator, batch: int, num_points: int, keep_prob
-) -> torch.Tensor:
-    """Per-point Bernoulli keep weights [batch, num_points], rescaled by
-    1/keep_prob, drawn from ``generator`` on its device."""
-    keep_prob = float(keep_prob)
-    u = torch.rand((batch, num_points), generator=generator,
-                   device=generator.device)
-    return (u < keep_prob).float() / max(keep_prob, 1e-6)
+def pc_point_dropout_weights(key, batch: int, num_points: int, keep_prob,
+                             device="cpu") -> torch.Tensor:
+    """Per-point Bernoulli keep weights [batch, num_points] on ``device``,
+    rescaled by 1/keep_prob: dpcx's ``jax.random.bernoulli(key, keep_prob,
+    (batch, num_points)) / max(keep_prob, 1e-6)`` bit for bit, ``key`` a
+    ``utils.prng`` key and ``keep_prob`` dpcx's float32 keep-prob. The
+    draw kernel on a CUDA device (``csrc/prng.cu``), its plain version on
+    the CPU."""
+    if prng.device_type(device) == "cpu":
+        return prng.dropout_weights_plain(key, batch, num_points, keep_prob,
+                                          device)
+    return prng.launch_dropout_weights(key, batch, num_points, keep_prob,
+                                       device)
 
 
 def pointcloud2voxels_scatter(

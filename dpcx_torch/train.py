@@ -1,23 +1,37 @@
-"""Training loop: Adam, one eager step per batch, ``torch.save``
-checkpoints, JSONL metrics, the gauge reseed (port of ``dpcx/train.py``).
+"""Training loop: Adam, eager steps, ``torch.save`` checkpoints, JSONL
+metrics, the gauge reseed (port of ``dpcx/train.py``).
 
-Differences from the reference, by design:
+The random stream is dpcx's, bit for bit (``utils/prng.py``: jax.random's
+threefry2x32), from the base key ``PRNGKey(seed + 1)``:
 
-- one Python loop of eager steps instead of the jitted ``lax.scan`` of
-  ``train_steps_scan``: every step's batch comes from
-  ``Dataset.batch(np.random.default_rng((cfg.seed, step)))``, the stream of
-  the reference's host-fed path, so the data is a pure function of
-  ``(seed, step)`` and a dpcx run with ``device_data: false`` sees the
-  same batches. With ``device_data`` the records live on the device and
-  the batch is gathered there with the same indices;
-- point dropout draws from a ``torch.Generator`` reseeded from
-  ``(seed + 1, step)`` every step, so a resumed run replays the
-  uninterrupted run's dropout as well;
-- checkpoints are ``checkpoint_dir/ckpt/<step>.pt`` files holding
-  ``{"params", "opt_state", "step"}``, the newest 3 kept (Orbax's
-  ``max_to_keep``). An Orbax step directory there is refused, never read.
+- with ``device_data`` (the default) the records live on the device and
+  ``train`` advances in dpcx's chunks, ``min(log_every, save_every,
+  eval_every or save_every)`` steps, through ``train_steps_scan``, the
+  counterpart of dpcx's ``lax.scan`` of the same name: each step draws its
+  batch as dpcx's scan body does (``kk = fold_in(key, step)``, ``split(kk,
+  4)``: the model ids, input views, target views and the dropout key;
+  ``fold_in(kk, 7)``: the second input view), one draw kernel on the card,
+  and gathers it from the records. With ``0 < device_records_models <
+  num_models`` it rotates blocks of that many models onto the device every
+  ``chunk * block_rotate_chunks`` steps (dpcx's ``_device_block``: the
+  block's models a function of ``(seed, block)``), a chunk cut at the
+  block's end;
+- without ``device_data`` every step's batch is ``Dataset.batch`` drawing
+  from ``np.random.default_rng((seed, step))`` and its dropout key is
+  ``fold_in(key, step)``, dpcx's host-fed path.
 
-The gauge reseed is dpcx's (``gauge_reseed_*``): after the step that
+Logging, the reseed check, checkpoints, the image summary (of the host
+batch at that step, as dpcx's) and eval happen at the ends of the loop's
+passes, where a multiple of their period is crossed. A resumed run replays
+the uninterrupted run's batches and dropout. Where dpcx's loop is a jitted
+scan, this one is a Python loop of eager steps that reads nothing back on
+the host inside a chunk.
+
+Checkpoints are ``checkpoint_dir/ckpt/<step>.pt`` files holding
+``{"params", "opt_state", "step"}``, the newest 3 kept (Orbax's
+``max_to_keep``). An Orbax step directory there is refused, never read.
+
+The gauge reseed is dpcx's (``gauge_reseed_*``): after the pass that
 crosses ``gauge_reseed_check_step``, a logged ``gauge_spread_deg`` above
 the threshold re-initialises the model from a generator seeded ``seed +
 7919 * attempt``, deletes the dead attempt's checkpoints, writes
@@ -27,19 +41,16 @@ checkpoints, a missing ``gauge_spread_deg`` reads as 0 (healthy), and the
 logged steps restart from 0 after a reseed.
 
 With an ``eval_dataset``, ``train`` evaluates it (``predict.evaluate``,
-view 0) after every step that crosses a multiple of ``eval_every`` and
-logs ``val_<metric>`` records, as dpcx's host-fed loop does; without one
-dpcx evaluates nothing either, and ``eval_every`` only sets the chunk of
-its device-side loop, which this loop does not have. ``shard_points`` on
-one process renders unsharded, as dpcx on one device (``Config.validate``
-warns). With ``profile_dir`` one chunk of
-steps is traced, as dpcx traces one: the chunk after the first, of
-dpcx's length (``max(1, min(log_every, save_every, eval_every or
-save_every))``), by ``utils.profiling.trace``. Not ported yet, and
-refused: point sharding over more than one process (item 5), and block
-rotation where dpcx would rotate, ``device_data`` with ``0 <
-device_records_models < num_models`` (item 4: it rotates the records of
-dpcx's device-side batch stream, which this loop does not follow).
+view 0) after every pass that crosses a multiple of ``eval_every`` and
+logs ``val_<metric>`` records, as dpcx does; without one dpcx evaluates
+nothing either, and ``eval_every`` only sets the chunk. ``shard_points``
+on one process renders unsharded, as dpcx on one device
+(``Config.validate`` warns). With ``profile_dir`` one pass of the loop is
+traced, as dpcx traces one: the one after the first, by
+``utils.profiling.trace``. Not ported yet, and refused: point sharding
+over more than one process (item 5). On one device dpcx's multi-device
+scan (``train_steps_scan_dp``, which folds the device index into each
+dropout key) does not arise.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from dpcx_torch.data.dataset import Dataset, load_or_make
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.models.model_pc import ModelPointCloud
 from dpcx_torch.predict import evaluate
+from dpcx_torch.utils import prng
 from dpcx_torch.utils.profiling import trace
 
 KEEP_CHECKPOINTS = 3
@@ -128,15 +140,16 @@ def apply_model(cfg: Config, model: ModelPointCloud,
     return preds
 
 
-def train_step(
+def update(
     cfg: Config,
     state: TrainState,
     batch: dict[str, torch.Tensor],
-    generator: torch.Generator | None,
+    drop_key,
     density_fn=None,
     project_fn=None,
 ) -> dict[str, torch.Tensor]:
-    """One step (forward, render, backward, Adam) on ``state`` in place;
+    """One step (forward, render, backward, Adam) on ``state`` in place,
+    with point dropout drawn from ``drop_key`` (a ``utils.prng`` key);
     returns the metrics as device tensors, ``grad_norm`` included.
     ``density_fn`` and ``project_fn`` go to ``compute_loss`` (the
     anisotropic splats' density and the fused renderer; None: the kernels'
@@ -144,18 +157,12 @@ def train_step(
 
     With ``cfg.remat`` model plus loss run under ``torch.utils.checkpoint``
     (dpcx's ``jax.checkpoint`` of its ``loss_fn``): their activations are
-    recomputed in the backward instead of being kept. The recompute must
-    draw the same dropout weights, but checkpoint restores only the
-    default generators, not ``generator``: so its state is taken before
-    the forward and set again at the top of every run of the function.
+    recomputed in the backward instead of being kept, and the recompute
+    draws the same dropout weights from the same key.
     """
-    gen_state = None if generator is None else generator.get_state()
-
     def loss_fn():
-        if gen_state is not None:
-            generator.set_state(gen_state)
         preds = apply_model(cfg, state.model, batch)
-        return compute_loss(cfg, preds, batch, state.step, generator,
+        return compute_loss(cfg, preds, batch, state.step, drop_key,
                             train=True, density_fn=density_fn,
                             project_fn=project_fn)
 
@@ -184,18 +191,40 @@ def train_step(
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of one step: a pure function of (seed, step)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+def train_step(cfg: Config, state: TrainState, batch: dict[str, torch.Tensor],
+               key, density_fn=None, project_fn=None
+               ) -> dict[str, torch.Tensor]:
+    """dpcx's host-fed step (``dpcx/train.py::train_step``): ``update``
+    with the dropout key ``fold_in(key, state.step)`` (None: no dropout
+    key, for a config without dropout)."""
+    drop_key = None if key is None else prng.fold_in(key, state.step)
+    return update(cfg, state, batch, drop_key, density_fn, project_fn)
 
 
-def device_records(dataset: Dataset, device) -> dict[str, torch.Tensor]:
+def device_records(dataset: Dataset, device,
+                   models: np.ndarray | None = None
+                   ) -> dict[str, torch.Tensor]:
+    """The records a step gathers from, float32 on ``device``: of the
+    models at ``models`` (indices), or of all."""
     return {
-        k: torch.as_tensor(v, dtype=torch.float32).to(device)
+        k: torch.as_tensor(v if models is None else np.asarray(v)[models],
+                           dtype=torch.float32).to(device)
         for k, v in dataset.records.items()
         if k in ("images", "masks", "depths", "quats")
     }
+
+
+def device_block(dataset: Dataset, cfg: Config, block_idx: int,
+                 device) -> dict[str, torch.Tensor]:
+    """The records of block ``block_idx`` on ``device`` (dpcx's
+    ``_device_block``): ``device_records_models`` models drawn without
+    replacement by ``default_rng((seed, 7, block_idx))``, sorted, so a
+    resumed run rotates through the same blocks."""
+    M = dataset.num_models
+    R = min(cfg.device_records_models, M)
+    idx = np.sort(np.random.default_rng((cfg.seed, 7, block_idx)).choice(
+        M, R, replace=False))
+    return device_records(dataset, device, idx)
 
 
 def _batch_keys(cfg: Config) -> tuple[str, ...]:
@@ -218,26 +247,67 @@ def _prep_batch(batch: dict, device, cfg: Config) -> dict[str, torch.Tensor]:
     }
 
 
-def batch_at(cfg: Config, dataset: Dataset, step: int, device,
-             records: dict[str, torch.Tensor] | None = None) -> dict:
-    """The batch of ``step``: numpy draws from ``default_rng((seed,
-    step))``, gathered from device-resident ``records`` when given."""
+def host_batch(cfg: Config, dataset: Dataset, step: int,
+               device) -> dict[str, torch.Tensor]:
+    """The host-fed batch of ``step`` (dpcx's ``device_data: false``
+    stream): ``Dataset.batch`` drawing from ``default_rng((seed, step))``."""
     rng = np.random.default_rng((cfg.seed, step))
-    if records is None:
-        return _prep_batch(dataset.batch(rng, cfg.batch_size), device, cfg)
-    m, v_in, v_tgt, v_in2 = (
-        None if a is None else torch.from_numpy(a).to(device)
-        for a in dataset.batch_indices(rng, cfg.batch_size)
-    )
-    tgt, src = (m[:, None], v_tgt), (m, v_in)
-    rows = {"image": ("images", src), "masks": ("masks", tgt),
-            "depths": ("depths", tgt), "quats": ("quats", tgt),
-            "quat_in": ("quats", src), "images_tgt": ("images", tgt),
-            "images_v": ("images", tgt)}
-    if v_in2 is not None:
-        rows["image_in2"] = ("images", (m, v_in2))
-    return {k: records[r][idx] for k, (r, idx) in rows.items()
-            if k in _batch_keys(cfg)}
+    return _prep_batch(dataset.batch(rng, cfg.batch_size), device, cfg)
+
+
+def gather_batch(cfg: Config, records: dict[str, torch.Tensor],
+                 rows: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The batch at ``rows`` ([B, 2 + V_use], ``prng.batch_draws``'s) of
+    ``records`` [M, V, ...] viewed as [M * V, ...] (dpcx's ``take_mv``): the
+    input view at column 0, the second input view at column 1 (-1: none),
+    the target views after."""
+    rows_in, rows_tgt = rows[:, 0], rows[:, 2:]
+    fields = {"image": ("images", rows_in), "masks": ("masks", rows_tgt),
+              "depths": ("depths", rows_tgt), "quats": ("quats", rows_tgt),
+              "quat_in": ("quats", rows_in),
+              "images_tgt": ("images", rows_tgt),
+              "images_v": ("images", rows_tgt)}
+    if cfg.pose_consistency_weight > 0:
+        fields["image_in2"] = ("images", rows[:, 1])
+    return {k: records[r].flatten(0, 1)[idx]
+            for k, (r, idx) in fields.items()
+            if k in _batch_keys(cfg) and r in records}
+
+
+def scan_batch(cfg: Config, records: dict[str, torch.Tensor], key,
+               step: int) -> tuple[dict[str, torch.Tensor], Any]:
+    """One step's draws of dpcx's device-resident scan
+    (``dpcx/train.py:153-190``) -> (the batch gathered from ``records``,
+    the dropout key). ``kk = fold_in(key, step)`` splits into the keys of
+    the model ids, the input views, the target views' uniforms and the
+    dropout; ``fold_in(kk, 7)`` is the second input view's, drawn when
+    ``pose_consistency_weight > 0``. One ``prng.batch_draws`` launch on
+    the card; no host sync."""
+    M, V = records["images"].shape[:2]
+    kk = prng.fold_in(key, step)
+    k_m, k_vin, k_tgt, k_drop = prng.split(kk, 4)
+    k_vin2 = prng.fold_in(kk, 7) if cfg.pose_consistency_weight > 0 else None
+    rows = prng.batch_draws(k_m, k_vin, k_tgt, k_vin2, cfg.batch_size, M, V,
+                            min(cfg.views_per_step, V),
+                            records["images"].device)
+    return gather_batch(cfg, records, rows), k_drop
+
+
+def train_steps_scan(cfg: Config, state: TrainState,
+                     records: dict[str, torch.Tensor], key, n_steps: int,
+                     density_fn=None, project_fn=None
+                     ) -> dict[str, torch.Tensor]:
+    """``n_steps`` steps on device-resident ``records`` (dpcx's
+    ``train_steps_scan``): each step's batch and dropout key from
+    ``scan_batch(cfg, records, key, state.step)``, a function of the
+    absolute step, so a chunk boundary (resume, block rotation) never
+    changes the stream. Returns the last step's metrics as device tensors;
+    reads nothing back on the host."""
+    metrics = {}
+    for _ in range(n_steps):
+        batch, k_drop = scan_batch(cfg, records, key, state.step)
+        metrics = update(cfg, state, batch, k_drop, density_fn, project_fn)
+    return metrics
 
 
 class MetricWriter:
@@ -364,21 +434,13 @@ def restore_checkpoint(cfg: Config, state: TrainState) -> TrainState:
     return state
 
 
-def _refuse_unported(cfg: Config, num_models: int) -> None:
-    """Raise for what ``train`` does not port yet on a dataset of
-    ``num_models``."""
-    refusals = [
-        (cfg.shard_points and world_size() > 1,
-         "shard_points over more than one process", 5),
-        (cfg.device_data and 0 < cfg.device_records_models < num_models,
-         "block rotation (device_data with 0 < device_records_models < "
-         "num_models)", 4),
-    ]
-    for hit, what, item in refusals:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1 item {item})"
-            )
+def _refuse_unported(cfg: Config) -> None:
+    """Raise for what ``train`` does not port yet."""
+    if cfg.shard_points and world_size() > 1:
+        raise NotImplementedError(
+            "shard_points over more than one process is not ported yet "
+            "(ROADMAP queue 1 item 5)"
+        )
 
 
 def train(
@@ -390,45 +452,69 @@ def train(
     device="cuda",
     eval_dataset: Dataset | None = None,
 ) -> tuple[TrainState, list[dict]]:
-    """Full training entry on one ``device``; returns the state and the
-    logged metric records (``val_*`` ones too, with ``eval_dataset``)."""
+    """Full training entry on one ``device`` (dpcx's ``train`` on one
+    device); returns the state and the logged metric records (``val_*``
+    ones too, with ``eval_dataset``)."""
     cfg.validate()
     device = torch.device(device)
     if dataset is None:
         dataset = load_or_make(cfg, num_models, seed=cfg.seed, device=device)
-    _refuse_unported(cfg, dataset.num_models)
+    _refuse_unported(cfg)
     state = create_state(cfg, device)
     if use_checkpoints:
         record_and_check_run_config(cfg)
         state = restore_checkpoint(cfg, state)
-    records = device_records(dataset, device) if cfg.device_data else None
 
     def crossed(prev: int, cur: int, every: int) -> bool:
         return every > 0 and cur // every > prev // every
 
+    # every draw is a pure function of (seed, step): a resumed run replays
+    # the uninterrupted run's batches and dropout
+    base_key = prng.prng_key(cfg.seed + 1)
     max_steps = max_steps or cfg.max_number_of_steps
     history: list[dict] = []
     t0 = time.time()
     start_step = step = state.step
     reseed_attempt = 0
-    # dpcx's host-boundary chunk: the traced stretch is the one after the
-    # first (which holds the kernels' build and the allocator's warm-up)
+    # dpcx's host-boundary chunk: with device_data the loop advances a
+    # chunk of steps between host interactions
     chunk = max(1, min(cfg.log_every, cfg.save_every,
                        cfg.eval_every or cfg.save_every))
+    rotate_blocks = (cfg.device_data
+                     and 0 < cfg.device_records_models < dataset.num_models)
+    if rotate_blocks:
+        block_period = chunk * max(cfg.block_rotate_chunks, 1)
+        records, cur_block = None, -1
+    else:
+        records = device_records(dataset, device) if cfg.device_data else None
+    # one pass of the loop after the first (which holds the kernels' build
+    # and the allocator's warm-up) runs under the trace, as in dpcx
     trace_state = "armed" if cfg.profile_dir else "off"
     tracer = contextlib.ExitStack()
     with MetricWriter(cfg.checkpoint_dir) as writer, tracer:
         while step < max_steps:
+            prev_step = step
             if trace_state == "armed" and step >= start_step + chunk:
                 tracer.enter_context(trace(cfg.profile_dir))
-                trace_state, trace_end = "on", step + chunk
-            elif trace_state == "on" and step >= trace_end:
+                trace_state = "on"
+            elif trace_state == "on":
                 tracer.close()  # synchronises, then writes the trace
                 trace_state = "done"
-            prev_step = step
-            batch = batch_at(cfg, dataset, step, device, records)
-            metrics = train_step(cfg, state, batch,
-                                 step_generator(cfg.seed + 1, step, device))
+            if cfg.device_data:
+                n = min(chunk, max_steps - step)
+                if rotate_blocks:
+                    bi = step // block_period
+                    if bi != cur_block:
+                        records = device_block(dataset, cfg, bi, device)
+                        cur_block = bi
+                    # the chunk stays inside its block, so the stream is a
+                    # function of (seed, step) across resumes
+                    n = min(n, (bi + 1) * block_period - step)
+                metrics = train_steps_scan(cfg, state, records, base_key, n)
+                batch = None
+            else:
+                batch = host_batch(cfg, dataset, step, device)
+                metrics = train_step(cfg, state, batch, base_key)
             step = state.step
             if crossed(prev_step, step, cfg.log_every) or \
                     prev_step == start_step:
@@ -466,6 +552,8 @@ def train(
                     continue
             if use_checkpoints and crossed(prev_step, step, cfg.save_every):
                 save_checkpoint(cfg, state)
+                if batch is None:  # dpcx's summary takes the host batch
+                    batch = host_batch(cfg, dataset, step, device)
                 _write_image_summary(cfg, state.model, batch, step)
             if eval_dataset is not None and crossed(prev_step, step,
                                                     cfg.eval_every or 0):

@@ -172,6 +172,29 @@ def test_render_bound_gives_the_table(args, want):
     assert by in ("bytes", "operations")
 
 
+# csrc/prng.cu's draws at the car_64_depth step's shapes (PERF.md's table
+# of the draw kernels): least us a launch, and its limit
+@pytest.mark.parametrize("kind,shape,want_us,want_by", [
+    ("dropout_weights", (8, 16000), 0.3286, "operations"),
+    ("batch_draws", (8, 5, 4), 0.000181, "operations"),
+], ids=["dropout_weights", "batch_draws"])
+def test_draw_bound_gives_the_table(kind, shape, want_us, want_by):
+    ms, by = bench.draw_bound(kind, *shape)
+    assert float(f"{ms * 1e3:.4g}") == want_us and by == want_by
+
+
+def test_draw_bound_counts_the_alu_pipe():
+    """The dropout weights' bound is the ALU pipe's: 43 shifts and logic
+    operations an element at PEAK_F32_FLOPS / 4, more than all 73 at the
+    dispatch rate; a larger batch scales it, the bytes do not bind."""
+    ms, by = bench.draw_bound("dropout_weights", 8, 16000)
+    assert ms == pytest.approx(8 * 16000 * 43 / (bench.PEAK_F32_FLOPS / 4)
+                               * 1e3, rel=1e-12)
+    assert 8 * 16000 * 73 / (bench.PEAK_F32_FLOPS / 2) * 1e3 < ms
+    assert bench.draw_bound("dropout_weights", 16, 16000)[0] == \
+        pytest.approx(2 * ms, rel=1e-12)
+
+
 @pytest.fixture(scope="module")
 def rgb_splats_case():
     """chip_smoke.py's phase 3b inputs at the rgb_splats render (32 x 4096,

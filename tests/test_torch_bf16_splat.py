@@ -37,6 +37,7 @@ from dpcx_torch.convert import adam_state_from_optax, params_from_flax
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import aniso
 from dpcx_torch.render import gsplat as tgs
+from dpcx_torch.utils import prng
 
 REPO = Path(__file__).resolve().parent.parent
 SHARE = 0.25
@@ -544,7 +545,7 @@ def test_bf16_splat_train_step_matches_dpcx(dpcx_results, monkeypatch):
     batch = {k[len("b1__"):]: v for k, v in step.items()
              if k.startswith("b1__")}
     m = ttrain.train_step(cfg, state, ttrain._prep_batch(batch, "cpu", cfg),
-                          torch.Generator())
+                          prng.prng_key(1))
     loss = {acc: float(ref[f"step__{acc}__loss"])
             for acc in ("float32", "bfloat16")}
     _check("train step loss_total", abs(m["loss_total"].item()

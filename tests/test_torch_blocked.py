@@ -39,6 +39,7 @@ from dpcx_torch.convert import adam_state_from_optax, params_from_flax
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
 from dpcx_torch.render import project as tproject
+from dpcx_torch.utils import prng
 
 ATOL = 3e-5
 D = 72  # > 64: dpcx's depth-blocked kernels (9 z-blocks of 8)
@@ -326,7 +327,7 @@ def test_train_steps_d72_match_dpcx(remat, rng, monkeypatch):
         jstate, m_j = j_train_step(cfg, jstate, _prep_batch(b, cfg), key)
         m_t = ttrain.train_step(tcfg, state,
                                 ttrain._prep_batch(b, "cpu", cfg),
-                                torch.Generator())
+                                prng.prng_key(1))
         np.testing.assert_allclose(m_t["loss_total"].item(),
                                    float(m_j["loss_total"]), rtol=1e-4)
         want = params_from_flax(jax.tree.map(np.asarray, jstate.params))
@@ -337,10 +338,10 @@ def test_train_steps_d72_match_dpcx(remat, rng, monkeypatch):
 
 def test_remat_step_equals_plain_step(rng, monkeypatch):
     """remat on against off in the port, with point dropout drawn from the
-    step's generator: the checkpointed forward runs twice (forward, then
-    the recompute in the backward), draws the same dropout weights both
-    times, and gives the plain step's loss, gradients and parameters; the
-    generator ends in the same state."""
+    step's key: the checkpointed forward runs twice (forward, then the
+    recompute in the backward), draws the same dropout weights both times
+    (and as the plain step), and gives the plain step's loss, gradients and
+    parameters."""
     tcfg = _t(SMALL.replace(vox_size=16, pc_relative_sigma=0.15,
                             pc_relative_sigma_end=0.15))
     batch = {k: torch.from_numpy(v) for k, v in _batch(rng, tcfg).items()}
@@ -352,19 +353,27 @@ def test_remat_step_equals_plain_step(rng, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(ttrain, "compute_loss", counting)
+    drawn = []
+    real_weights = tlosses.pc_point_dropout_weights
+
+    def recorded(*a, **k):
+        drawn.append(real_weights(*a, **k))
+        return drawn[-1]
+
+    monkeypatch.setattr(tlosses, "pc_point_dropout_weights", recorded)
     runs = {}
     for remat in (False, True):
         cfg = tcfg.replace(remat=remat)
         state = ttrain.create_state(cfg, "cpu")
-        gen = torch.Generator().manual_seed(11)
         calls.clear()
-        m = ttrain.train_step(cfg, state, batch, gen)
+        m = ttrain.train_step(cfg, state, batch, prng.prng_key(11))
         runs[remat] = (m, {n: p.grad.clone() for n, p in
                            state.model.named_parameters()},
-                       state.model.state_dict(), gen.get_state(), len(calls))
-    (m0, g0, p0, s0, n0), (m1, g1, p1, s1, n1) = runs[False], runs[True]
+                       state.model.state_dict(), len(calls))
+    (m0, g0, p0, n0), (m1, g1, p1, n1) = runs[False], runs[True]
     assert (n0, n1) == (1, 2)
-    assert torch.equal(s0, s1)
+    assert len(drawn) == 3 and (drawn[0] == 0).any()
+    assert all(torch.equal(w, drawn[0]) for w in drawn[1:])
     np.testing.assert_allclose(m1["loss_total"].item(),
                                m0["loss_total"].item(), rtol=1e-6)
     assert any(g.abs().max() > 0 for g in g0.values())

@@ -834,8 +834,8 @@ def test_aniso_kernels_repeat_bitwise(cuda, renders, n, vox, bf16):
 
 def _alignment_tie(cfg, params, card_params, ds):
     """The canonical alignments of the CPU's and the card's pooled poses:
-    the angle between the two picks (degrees, float64) and the relative gap
-    between the CPU's mean errors at them."""
+    the rotation between the two picks (degrees, float64) and the relative
+    gap between the CPU's mean errors at them."""
     from dpcx_torch.eval.pose_metrics import align_canonical_frame
     from dpcx_torch.geometry.quaternion import (
         quaternion_angular_distance,
@@ -857,7 +857,7 @@ def _alignment_tie(cfg, params, card_params, ds):
             quaternion_multiply(p_cpu, q[None]), gq).mean())
 
     a, b = q_c.double(), q_g.double() * torch.sign((q_c * q_g).sum())
-    deg = np.degrees(2 * np.arctan2(float((a - b).norm()),
+    deg = np.degrees(4 * np.arctan2(float((a - b).norm()),
                                     float((a + b).norm())))
     return deg, abs(mean_err(q_g) - mean_err(q_c)) / mean_err(q_c)
 
@@ -914,7 +914,7 @@ def test_evaluate_on_card_matches_cpu(cuda):
         # only a tie of the alignment's argmin may explain a miss: two picks
         # whose mean errors f32 cannot order (chip_smoke.py's TIE_* bounds)
         deg, gap = _alignment_tie(cfg, params, card_params, ds)
-        assert 1e-3 < deg <= 1.0 and gap <= 1e-5, (missed, deg, gap)
+        assert 2e-3 < deg <= 2.0 and gap <= 1e-5, (missed, deg, gap)
         assert not {"view", "gauge_spread_deg",
                     "flip_resolve_changed"} & set(missed), missed
         for k in want:
@@ -1035,3 +1035,55 @@ def test_train_profile_dir_on_card(cuda, tmp_path):
     assert [h["step"] for h in got] == [h["step"] for h in want]
     for a, b in zip(got, want):
         assert a["loss_total"] == pytest.approx(b["loss_total"], rel=1e-5)
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch,n,keep", [
+    (8, 16000, 0.1),  # car_64_depth
+    (4, 131072, 1.0),  # largecloud_pointshard
+    (3, 777, 0.5),
+    (1, 1, 0.3),
+])
+def test_dropout_weights_kernel_matches_plain(cuda, batch, n, keep):
+    """csrc/prng.cu's dropout weights against the plain version in torch
+    ops on the card, bitwise, one launch a call."""
+    from dpcx_torch.render.voxelize import pc_point_dropout_weights
+    from dpcx_torch.utils import prng
+
+    before = prng.LAUNCHES["dropout_weights"]
+    for step in (0, 9999, 2**31 - 1):
+        key = prng.split(prng.fold_in(prng.prng_key(1), step), 4)[3]
+        got = pc_point_dropout_weights(key, batch, n, keep, cuda)
+        want = prng.dropout_weights_plain(key, batch, n, keep, cuda)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and _same_bits(got, want), step
+    assert prng.LAUNCHES["dropout_weights"] == before + 3
+
+
+@pytest.mark.parametrize("B,M,V,V_use", [
+    (8, 200, 5, 4),  # car_64_depth over 200 models
+    (16, 32, 5, 4),
+    (4, 3, 1, 1),
+    (300, 7, 64, 3),  # two blocks of rows, the most views
+])
+@pytest.mark.parametrize("with_in2", [False, True])
+def test_batch_draws_kernel_matches_plain(cuda, B, M, V, V_use, with_in2):
+    """csrc/prng.cu's gather rows against the plain version on the card,
+    bitwise, with and without the second input view."""
+    from dpcx_torch.utils import prng
+
+    before = prng.LAUNCHES["batch_draws"]
+    for step in (0, 9999, 2**31 - 1):
+        kk = prng.fold_in(prng.prng_key(1), step)
+        keys = (*prng.split(kk, 4)[:3],
+                prng.fold_in(kk, 7) if with_in2 else None)
+        got = prng.batch_draws(*keys, B, M, V, V_use, cuda)
+        want = prng.batch_draws_plain(*keys, B, M, V, V_use, cuda)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), step
+    assert prng.LAUNCHES["batch_draws"] == before + 3

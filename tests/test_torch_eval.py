@@ -13,7 +13,12 @@ Tolerances:
   a tie: a pick whose mean error lies within f32's noise of dpcx's;
 - the rotation grid and the axis sphere: atol 1e-6 (f32 sin/cos of two
   libraries).
+
+``chip_smoke.py``'s card-against-CPU hold of ``evaluate`` (phase 9e) is
+run here on the CPU on a planted tie of the re-alignment's argmin.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +29,14 @@ from dpcx.eval import iou as j_iou
 from dpcx.eval import pose_metrics as j_pm
 from dpcx.geometry.quaternion import quaternion_angular_distance as j_ad
 from dpcx.geometry.quaternion import quaternion_multiply as j_qmul
+import chip_smoke
+from dpcx_torch import predict
 from dpcx_torch.eval import chamfer, iou, pose_metrics
 from dpcx_torch.eval.chamfer import chamfer_distance
+from dpcx_torch.geometry.quaternion import (
+    quaternion_conjugate,
+    quaternion_multiply,
+)
 
 
 def _unit(rng, shape):
@@ -191,3 +202,77 @@ def test_chamfer_row_groups_hold_the_budget(monkeypatch):
     monkeypatch.setattr(chamfer, "ROW_BUDGET", 2 * 40 * 16 * 4)
     chamfer.directed_distance(a, b, chunk=16)
     assert seen == [2, 2, 2], seen
+
+
+def _rz(deg: float) -> np.ndarray:
+    h = np.radians(deg) / 2
+    return np.array([np.cos(h), 0.0, 0.0, np.sin(h)])
+
+
+def test_eval_hold_explains_a_realignment_tie(monkeypatch):
+    """chip_smoke.py's hold of the card's `evaluate` against the CPU's
+    (hold_eval_metrics) on a planted tie of the re-alignment alone, every
+    side on the CPU. Eight poses about z against identity GTs: seven at
+    -170, -160, -150, 0, 20, 25 and 35 degrees, and one at 0.3 degrees
+    composed with the inverse of the 180-degree flip, which the flip
+    correction brings back. A "card" whose poses differ by f32 noise (5e-7)
+    makes the same canonical pick, but its re-alignment picks a rotation
+    ~0.6 degrees away at a mean error the CPU's lies within 1e-6 of (a
+    tie), so the up-to-flip median misses the CPU's. The CPU's metrics at
+    the card's two picks (metrics_at_pick) give the card's, and the hold
+    passes; the CPU's own picks give `evaluate`'s CPU metrics bit for bit.
+    Controls: the card's median moved off its picks' value by 3e-5, or the
+    re-alignment's picks made one, fail."""
+    monkeypatch.setattr(predict, "load_model",
+                        lambda cfg, params: torch.nn.Linear(1, 1))
+    rng = np.random.default_rng(0)
+    gt_points = rng.uniform(-0.5, 0.5, (8, 64, 3)).astype(np.float32)
+    points = rng.uniform(-0.5, 0.5, (8, 64, 3)).astype(np.float32)
+    gq = np.tile(np.float32([1, 0, 0, 0]), (8, 1))
+    flip_inv = quaternion_conjugate(pose_metrics.FLIP_QUAT.double())
+    pose = np.stack(
+        [_rz(t) for t in (-170, -160, -150, 0, 20, 25, 35)]
+        + [quaternion_multiply(torch.from_numpy(_rz(0.3)), flip_inv).numpy()]
+    ).astype(np.float32)
+
+    def evaluate(p):
+        pred = {"pose": p, "points": points}
+        monkeypatch.setattr(predict, "predict_dataset", lambda *a: pred)
+        ds = SimpleNamespace(records={"gt_points": gt_points,
+                                      "quats": gq[:, None]},
+                             num_views=1, num_models=8)
+        return predict.evaluate(None, None, ds), pred
+
+    want, p_cpu = evaluate(pose)
+    q_own = chip_smoke.alignment_tie(pose, pose, gq, "cpu")[2]
+    q2_own = chip_smoke.realignment_tie(pose, pose, gq, "cpu")[2]
+    assert chip_smoke.metrics_at_pick(p_cpu, q_own, q2_own, gt_points,
+                                      gq) == want
+    ties = 0
+    for seed in range(40):
+        card = (pose + 5e-7 * np.random.default_rng(seed).standard_normal(
+            pose.shape)).astype(np.float32)
+        canonical = chip_smoke.alignment_tie(pose, card, gq, "cpu")
+        realign = chip_smoke.realignment_tie(pose, card, gq, "cpu")
+        if realign[0] <= chip_smoke.TIE_MIN_DEG:
+            continue
+        got, _ = evaluate(card)
+        at_pick = chip_smoke.metrics_at_pick(p_cpu, canonical[2], realign[2],
+                                             gt_points, gq)
+        assert canonical[0] <= chip_smoke.TIE_MIN_DEG, canonical
+        assert chip_smoke.is_tie(*realign[:2]), realign
+        assert chip_smoke.hold_eval_metrics(
+            got, want, at_pick, canonical[:2], realign[:2]) == [
+                "pose_median_err_deg_up_to_flip"]
+        k = "pose_median_err_deg_up_to_flip"
+        moved = dict(got, **{k: at_pick[k] * (1 + 3e-5)})
+        with pytest.raises(AssertionError):
+            chip_smoke.hold_eval_metrics(moved, want, at_pick, canonical[:2],
+                                         realign[:2])
+        with pytest.raises(AssertionError):
+            chip_smoke.hold_eval_metrics(got, want, at_pick, canonical[:2],
+                                         (0.0, 0.0))
+        ties += 1
+        if ties == 2:
+            break
+    assert ties == 2

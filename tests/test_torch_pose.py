@@ -42,6 +42,7 @@ from dpcx_torch.models.model_pc import ModelPointCloud
 from dpcx_torch.nets import net_factory
 from dpcx_torch.render import fused
 from dpcx_torch.serve import ServingModel
+from dpcx_torch.utils import prng
 
 POSE = Config(
     vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
@@ -218,14 +219,20 @@ def test_train_step_with_views_matches_dpcx(rng):
 
 def test_batch_carries_pose_fields_on_device_records(rng):
     """quat_in, images_v and image_in2 gathered from device-resident
-    records with the draws of Dataset.batch (v_in2 after the target
-    views), equal to the host batch."""
+    records (gather_batch, the scan's gather) at the rows of Dataset.batch's
+    draws (v_in2 after the target views), equal to the host batch."""
     cfg = _t(POSE.replace(pose_consistency_weight=0.2))
     ds = Dataset(_records(rng, cfg), cfg)
     records = ttrain.device_records(ds, "cpu")
+    V = ds.num_views
     for step in range(3):
-        host = ttrain.batch_at(cfg, ds, step, "cpu")
-        dev = ttrain.batch_at(cfg, ds, step, "cpu", records)
+        m, v_in, v_tgt, v_in2 = ds.batch_indices(
+            np.random.default_rng((cfg.seed, step)), cfg.batch_size)
+        rows = torch.from_numpy(np.concatenate(
+            [(m * V + v_in)[:, None], (m * V + v_in2)[:, None],
+             m[:, None] * V + v_tgt], 1))
+        host = ttrain.host_batch(cfg, ds, step, "cpu")
+        dev = ttrain.gather_batch(cfg, records, rows)
         assert host.keys() == dev.keys() == {
             "image", "masks", "depths", "quats", "quat_in", "images_v",
             "image_in2"}
@@ -273,11 +280,12 @@ def test_gauge_reseed_drive(threshold, tmp_path, rng):
     assert len(fired) == 1 and fired[0]["gauge_reseed"] == 1.0
     assert fired[0]["step"] == 5 and fired[0]["gauge_spread_deg"] > 1.0
     assert steps == [1, 2, 3, 4, 5, 5, 1, 2, 3, 4, 5, 6, 7], steps
-    # the new attempt's first step is one from the seed + 7919 init
+    # the new attempt's first step is one from the seed + 7919 init, on
+    # the step-0 draws of the device-side stream (device_data)
     fresh = ttrain.create_state(cfg, "cpu", torch.Generator().manual_seed(
         cfg.seed + 7919))
-    m = ttrain.train_step(cfg, fresh, ttrain.batch_at(cfg, ds, 0, "cpu"),
-                          ttrain.step_generator(cfg.seed + 1, 0, "cpu"))
+    m = ttrain.train_steps_scan(cfg, fresh, ttrain.device_records(ds, "cpu"),
+                                prng.prng_key(cfg.seed + 1), 1)
     assert recs[6]["step"] == 1
     assert recs[6]["loss_total"] == pytest.approx(m["loss_total"].item(),
                                                   rel=1e-6)
@@ -302,14 +310,14 @@ def test_gauge_reseed_reference_faults_match_dpcx(tmp_path, rng,
     fired = [r for r in _metric_records(cfg) if "gauge_reseed" in r]
     assert [r["gauge_reseed"] for r in fired] == [1.0, 1.0]
 
-    real = ttrain.train_step
+    real = ttrain.update  # the step of both streams
 
     def no_metric(*a, **k):
         m = real(*a, **k)
         m.pop("gauge_spread_deg")
         return m
 
-    monkeypatch.setattr(ttrain, "train_step", no_metric)
+    monkeypatch.setattr(ttrain, "update", no_metric)
     other = cfg.replace(checkpoint_dir=str(tmp_path / "other"))
     _, hist = ttrain.train(other, dataset=ds, max_steps=6, device="cpu")
     assert not any("gauge_reseed" in h for h in hist)

@@ -36,6 +36,7 @@ from dpcx_torch.render import fused
 from dpcx_torch.render import gauss as tgauss
 from dpcx_torch.render import project as tproject
 from dpcx_torch.render import voxelize as tvox
+from dpcx_torch.utils import prng
 
 ATOL = 2e-5
 D = 16
@@ -304,18 +305,16 @@ def test_scatter_splat_rgb(weights, rng):
 def test_point_dropout_weights():
     """Values in {0, 1/keep}, mean ~1, the same draws from the same seed."""
     keep = 0.25
-    w = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(3), 64,
-                                      1000, torch.tensor(keep))
+    w = tvox.pc_point_dropout_weights(prng.prng_key(3), 64, 1000,
+                                      torch.tensor(keep))
     assert w.shape == (64, 1000) and w.dtype == torch.float32
     assert set(torch.unique(w).tolist()) == {0.0, 1.0 / keep}
     assert abs(w.mean().item() - 1.0) < 0.05
-    again = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(3),
-                                          64, 1000, keep)
+    again = tvox.pc_point_dropout_weights(prng.prng_key(3), 64, 1000, keep)
     assert torch.equal(w, again)
-    other = tvox.pc_point_dropout_weights(torch.Generator().manual_seed(4),
-                                          64, 1000, keep)
+    other = tvox.pc_point_dropout_weights(prng.prng_key(4), 64, 1000, keep)
     assert not torch.equal(w, other)
-    ones = tvox.pc_point_dropout_weights(torch.Generator(), 2, 10, 1.0)
+    ones = tvox.pc_point_dropout_weights(prng.prng_key(0), 2, 10, 1.0)
     assert torch.equal(ones, torch.ones(2, 10))
 
 

@@ -37,6 +37,7 @@ from dpcx_torch.convert import params_from_flax
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.render import fused
 from dpcx_torch.serve import ServingModel, serve
+from dpcx_torch.utils import prng
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-4
@@ -149,12 +150,12 @@ def test_compute_loss_refuses_unported(tiny_yaml):
     batch = {"masks": torch.zeros(2, 2, D, D), "depths": torch.zeros(2, 2, D, D),
              "quats": torch.tensor([1.0, 0, 0, 0]).repeat(2, 2, 1)}
     # point dropout is ported: train=True draws the keep weights from the
-    # generator passed in, and needs one
+    # key passed in, and needs one
     drop = cfg.replace(pc_point_dropout=0.5)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="key"):
         compute_loss(drop, preds, batch, 0, train=True)
-    totals = [compute_loss(drop, preds, batch, 0,
-                           torch.Generator().manual_seed(s), train=True)[0]
+    totals = [compute_loss(drop, preds, batch, 0, prng.prng_key(s),
+                           train=True)[0]
               for s in (1, 1, 2)]
     assert all(torch.isfinite(t) for t in totals)
     assert totals[0] == totals[1]

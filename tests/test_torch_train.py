@@ -27,6 +27,7 @@ from dpcx.config import Config
 from dpcx.data.dataset import Dataset as JDataset
 from dpcx.data.dataset import load_shards as j_load_shards
 from dpcx.parallel.mesh import make_mesh
+from dpcx.train import _device_block as j_device_block
 from dpcx.train import _prep_batch
 from dpcx.train import create_state as j_create_state
 from dpcx.train import train as j_train
@@ -40,6 +41,7 @@ from dpcx_torch.data.dataset import Dataset, save_shards
 from dpcx_torch.data.synthetic import make_dataset
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
+from dpcx_torch.utils import prng
 
 TINY = Config(
     vox_size=12,
@@ -109,7 +111,7 @@ def test_compute_loss_dropout_matches_dpcx(renderer, step, rng, monkeypatch):
         calls.append(float(keep_prob))
         return jnp.asarray(w)
 
-    def t_weights(generator, batch, num_points, keep_prob):
+    def t_weights(key, batch, num_points, keep_prob, device):
         calls.append(float(keep_prob))
         return torch.from_numpy(w)
 
@@ -130,7 +132,7 @@ def test_compute_loss_dropout_matches_dpcx(renderer, step, rng, monkeypatch):
     p_t = torch.from_numpy(pts).requires_grad_()
     total_t, m_t = tlosses.compute_loss(_t(cfg), {"points": p_t},
                                         _torch_batch(batch), step,
-                                        torch.Generator(), train=True)
+                                        prng.prng_key(0), train=True)
     total_t.backward()
     assert calls[0] == pytest.approx(calls[1])  # the same keep-prob
     assert m_t.keys() == set(m_j)
@@ -188,7 +190,7 @@ def test_train_steps_match_dpcx(dropout, rng, monkeypatch):
         jstate, m_j = j_train_step(cfg, jstate, _prep_batch(b, cfg), key)
         m_t = ttrain.train_step(_t(cfg), state,
                                 ttrain._prep_batch(b, "cpu", cfg),
-                                torch.Generator())
+                                prng.prng_key(1))
         assert state.step == int(jstate.step)
         for k in ("loss_total", "grad_norm"):
             np.testing.assert_allclose(m_t[k].item(), float(m_j[k]),
@@ -222,7 +224,7 @@ def test_rgb_splats_train_step_matches_dpcx(rng, monkeypatch):
     jstate, m_j = j_train_step(cfg, jstate, _prep_batch(batches[1], cfg), key)
     tbatch = ttrain._prep_batch(batches[1], "cpu", cfg)
     assert "images_tgt" in tbatch
-    m_t = ttrain.train_step(_t(cfg), state, tbatch, torch.Generator())
+    m_t = ttrain.train_step(_t(cfg), state, tbatch, prng.prng_key(1))
     assert "loss_rgb" in m_t
     for k in ("loss_total", "loss_rgb", "grad_norm"):
         np.testing.assert_allclose(m_t[k].item(), float(m_j[k]), rtol=1e-4,
@@ -240,7 +242,8 @@ def test_train_step_takes_the_density_fn_it_is_handed(rng):
     cfg = _t(SMALL).replace(renderer="xla", proj_depth=False, drc_weight=0.0,
                             pc_rgb=True, pc_gauss=True, gsplat_impl="pallas",
                             pc_point_dropout=1.0)
-    batch = ttrain.batch_at(cfg, Dataset(_records(rng, cfg), cfg), 0, "cpu")
+    batch = ttrain.host_batch(cfg, Dataset(_records(rng, cfg), cfg), 0,
+                              "cpu")
     calls = []
 
     def plain(mu, A6, w, rgb, rz, vox, acc_dtype="float32"):
@@ -270,7 +273,8 @@ def test_train_step_takes_the_project_fn_it_is_handed(predict_pose, rng):
     cfg = _t(SMALL).replace(renderer="pallas", pc_point_dropout=1.0,
                             predict_pose=predict_pose,
                             pose_predict_num_candidates=2)
-    batch = ttrain.batch_at(cfg, Dataset(_records(rng, cfg), cfg), 0, "cpu")
+    batch = ttrain.host_batch(cfg, Dataset(_records(rng, cfg), cfg), 0,
+                              "cpu")
     calls = []
 
     def spy(ndc_t, *a, **k):
@@ -299,17 +303,29 @@ def test_train_step_takes_the_project_fn_it_is_handed(predict_pose, rng):
         torch.testing.assert_close(p_c[k], p_a[k], rtol=1e-5, atol=1e-6)
 
 
+def host_rows(cfg, ds, step) -> torch.Tensor:
+    """The host-fed batch's draws at ``step`` as gather rows [B, 2 +
+    V_use] of the records viewed as [M * V, ...] (gather_batch's)."""
+    m, v_in, v_tgt, v_in2 = ds.batch_indices(
+        np.random.default_rng((cfg.seed, step)), cfg.batch_size)
+    V = ds.num_views
+    in2 = np.full_like(m, -1) if v_in2 is None else m * V + v_in2
+    return torch.from_numpy(np.concatenate(
+        [(m * V + v_in)[:, None], in2[:, None], m[:, None] * V + v_tgt], 1))
+
+
 @pytest.mark.parametrize("pc_rgb", [True, False])
 def test_batch_at_device_records_match_host_batch(pc_rgb, rng):
-    """The batch gathered from device-resident records equals the host
-    batch of the same step, the target views' images included with
-    pc_rgb (the colour loss reads them) and left out without."""
+    """The batch gathered from device-resident records (gather_batch, the
+    scan's gather) at the host-fed batch's rows equals the host batch of
+    the same step, the target views' images included with pc_rgb (the
+    colour loss reads them) and left out without."""
     cfg = _t(SMALL).replace(pc_rgb=pc_rgb)
     ds = Dataset(_records(rng, cfg), cfg)
     records = ttrain.device_records(ds, "cpu")
     for step in (0, 5):
-        host = ttrain.batch_at(cfg, ds, step, "cpu")
-        dev = ttrain.batch_at(cfg, ds, step, "cpu", records)
+        host = ttrain.host_batch(cfg, ds, step, "cpu")
+        dev = ttrain.gather_batch(cfg, records, host_rows(cfg, ds, step))
         assert host.keys() == dev.keys()
         assert ("images_tgt" in host) == pc_rgb
         for k in host:
@@ -400,17 +416,47 @@ def test_checkpoints_refuse_orbax_and_changed_semantics(tmp_path, rng):
             cfg.replace(pose_candidate_offsets=False), write=False)
 
 
-@pytest.mark.parametrize("overrides,item", [
+@pytest.mark.parametrize("overrides", [
     # 4 models: dpcx rotates device-resident blocks of 3
-    ({"device_records_models": 3}, "queue 1 item 4"),
+    {"device_records_models": 3},
 ])
-def test_train_refuses_unported(overrides, item, tmp_path, rng):
-    """What train does not port yet raises, naming its ROADMAP item (the
-    other side of each condition: tests/test_torch_train_flags.py)."""
-    cfg = _tiny_cfg(tmp_path).replace(**overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.train(cfg, dataset=Dataset(_records(rng, cfg), cfg),
-                     device="cpu")
+def test_train_refuses_unported(overrides, tmp_path, rng, monkeypatch):
+    """Block rotation, once refused (ROADMAP queue 1 item 4), trains as
+    dpcx rotates: chunk 2 (log_every 2) and block_rotate_chunks 2 make a
+    block period of 4 steps; block b trains steps [4 b, 4 b + 4) on the
+    records of dpcx's _device_block(dataset, cfg, b), and a run resumed at
+    step 3 cuts its first chunk at the block's end (steps_scan of 1 step,
+    then 2 a chunk). Its losses against dpcx's: test_torch_stream.py."""
+    cfg = _tiny_cfg(tmp_path).replace(log_every=2, save_every=1000,
+                                      block_rotate_chunks=2, **overrides)
+    ds = Dataset(_records(rng, cfg), cfg)
+    blocks, chunks = [], []
+    real_block, real_scan = ttrain.device_block, ttrain.train_steps_scan
+
+    def block(dataset, cfg_, block_idx, device):
+        out = real_block(dataset, cfg_, block_idx, device)
+        blocks.append((block_idx, out))
+        return out
+
+    def scan(cfg_, state, records, key, n_steps, *a, **k):
+        chunks.append((state.step, n_steps))
+        return real_scan(cfg_, state, records, key, n_steps, *a, **k)
+
+    monkeypatch.setattr(ttrain, "device_block", block)
+    monkeypatch.setattr(ttrain, "train_steps_scan", scan)
+    ttrain.train(cfg, dataset=ds, max_steps=3, device="cpu")
+    _, hist = ttrain.train(cfg, dataset=ds, max_steps=11, device="cpu")
+    assert chunks == [(0, 2), (2, 1), (3, 1), (4, 2), (6, 2), (8, 2),
+                      (10, 1)]
+    assert [b for b, _ in blocks] == [0, 0, 1, 2]
+    j_cfg = Config(**dataclasses.asdict(cfg))
+    for b, records in blocks:
+        want = j_device_block(JDataset(ds.records, j_cfg), j_cfg, b)
+        assert records.keys() == want.keys()
+        for k in records:
+            np.testing.assert_array_equal(records[k].numpy(),
+                                          np.asarray(want[k]), err_msg=k)
+    assert [h["step"] for h in hist] == [4, 6, 8, 10]
 
 
 def test_train_profile_dir_traces_the_second_chunk(tmp_path, rng,
@@ -424,7 +470,7 @@ def test_train_profile_dir_traces_the_second_chunk(tmp_path, rng,
     _, want = ttrain.train(cfg, dataset=ds, max_steps=6, device="cpu",
                            use_checkpoints=False)
     traced, active = [], []
-    real_trace, real_step = ttrain.trace, ttrain.train_step
+    real_trace, real_step = ttrain.trace, ttrain.update
 
     @contextlib.contextmanager
     def watched_trace(log_dir):
@@ -439,7 +485,7 @@ def test_train_profile_dir_traces_the_second_chunk(tmp_path, rng,
         return real_step(cfg_, state, *a, **k)
 
     monkeypatch.setattr(ttrain, "trace", watched_trace)
-    monkeypatch.setattr(ttrain, "train_step", watched_step)
+    monkeypatch.setattr(ttrain, "update", watched_step)
     prof = tmp_path / "prof"
     _, got = ttrain.train(cfg.replace(profile_dir=str(prof)), dataset=ds,
                           max_steps=6, device="cpu", use_checkpoints=False)

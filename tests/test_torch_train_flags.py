@@ -1,8 +1,9 @@
 """Config knobs that dpcx runs on one device and the port once refused:
 ``shard_points`` (a no-op that warns), ``eval_every`` without an eval
 dataset (evaluates nothing) and ``device_records_models`` where dpcx does
-not rotate blocks (CPU). Where dpcx does rotate, and profiling, the port
-still refuses (``tests/test_torch_train.py::test_train_refuses_unported``).
+not rotate blocks (CPU). Where dpcx does rotate, the port rotates as it
+does (``tests/test_torch_train.py::test_train_refuses_unported``,
+``tests/test_torch_stream.py``).
 
 dpcx's side of ``shard_points`` runs in a one-device subprocess
 (``JAX_PLATFORMS=cpu`` without the host device count that
@@ -28,6 +29,7 @@ from dpcx_torch import train as ttrain
 from dpcx_torch.config import Config
 from dpcx_torch.convert import params_from_flax
 from dpcx_torch.data.dataset import Dataset
+from dpcx_torch.utils import prng
 
 REPO = Path(__file__).resolve().parent.parent
 # largecloud_pointshard's knobs (GT pose, renderer xla, shard_points) at a
@@ -175,7 +177,7 @@ def test_shard_points_step_matches_dpcx_on_one_device(dpcx_one_device):
     state = ttrain.create_state(cfg, "cpu")
     state.model.load_state_dict(params_from_flax(_unflat(ref, "init/")))
     m = ttrain.train_step(cfg, state, ttrain._prep_batch(batch, "cpu", cfg),
-                          torch.Generator())
+                          prng.prng_key(1))
     for k in ("loss_total", "grad_norm"):
         np.testing.assert_allclose(m[k].item(), float(ref[k]), rtol=1e-4,
                                    err_msg=k)
@@ -232,6 +234,8 @@ def test_eval_every_without_eval_dataset_trains_as_without(overrides,
 def test_device_records_models_without_rotation_trains(overrides, tmp_path):
     """Where dpcx does not rotate device-resident blocks (not device_data,
     or device_records_models >= num_models) the knob changes nothing: the
-    same losses as device_records_models 0."""
+    same losses as device_records_models 0 on the same stream (the
+    host-fed one without device_data, the device-side one with it)."""
+    base = BASE.replace(device_data=overrides.get("device_data", True))
     assert _losses(BASE.replace(**overrides), tmp_path, "drm") == \
-        _losses(BASE, tmp_path, "plain")
+        _losses(base, tmp_path, "plain")
