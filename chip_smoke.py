@@ -67,6 +67,27 @@ non-zero):
               within 2^-8 of its largest and 1e-3 in relative L2; the
               float32-mode kernels on the same inputs must miss the
               forward's and the relative L2 limits.
+3e. init    — dpcx's parameter init (flax's lecun_normal on jax.random's
+              threefry, utils/prng.py) drawn on the card against the same
+              draw on the CPU, for every shipped config but
+              largecloud_pointshard: every leaf within INIT_ULPS of its
+              largest value on at most INIT_SHARE of its elements (the
+              CPU side drawn once for leaves that several configs share);
+              the card's init seconds printed. largecloud_pointshard: the
+              card's init timed alone, and its fc_points kernel's first
+              and last chunk of counters held to a CPU draw of those
+              ranges.
+3f. datagen card vs CPU — make_dataset of DATAGEN_MODELS car_64_depth
+              models on the card and on the CPU (dpcx's draws on the CPU
+              on both sides, so only rendering differs): points and quats
+              equal, masks flipping on at most DATAGEN_MASK_FLIPS of the
+              cells, depths (where both masks agree) within KERNEL_ATOL,
+              images within DATAGEN_IMAGE_ATOL and beyond KERNEL_ATOL on
+              at most DATAGEN_IMAGE_SHARE of the values; both times
+              printed.
+3g. rbf     — pointcloud2voxels_rbf (eager, no kernel) on the card against
+              the CPU, 2 x 4096 points at D 32, within RBF_RTOL of the
+              largest value.
 4. serve    — experiments/car_64_depth.yaml at full width, seeded random
               weights, behind the HTTP server: 3 requests of 1, 16 and 20
               images (padding, chunking, uint8), checked against a direct
@@ -242,6 +263,23 @@ RGB_SPLATS = REPO / "experiments" / "rgb_splats.yaml"
 PRED_POSE = REPO / "experiments" / "chair_pred_pose.yaml"
 OUT_DIR = REPO / "chiprun_out"
 KERNEL_ATOL = 1e-4  # atomics reorder the f32 splat sums from run to run
+# phase 3e: the card's init against the CPU's, per leaf: within INIT_ULPS
+# ulp of the leaf's largest value, on at most INIT_SHARE of its elements
+# (tests/test_torch_init.py's bound against flax; expected bitwise: the
+# draw is integer ops, IEEE float32 adds, multiplies, divides and square
+# roots, and float64 FMAs, each rounded the same on both)
+INIT_ULPS, INIT_SHARE = 2, 1e-3
+DATAGEN_MODELS = 3
+DATAGEN_MASK_FLIPS = 0.005  # tests/test_torch_data.py's mask flip share
+# phase 3f's images: the colour pass divides each cell's colour sum by
+# max(density, 1e-6) (dpcx's formula), so a near-empty cell's colour moves
+# with an ulp of the points' transform; at most DATAGEN_IMAGE_SHARE of the
+# values beyond KERNEL_ATOL, none beyond DATAGEN_IMAGE_ATOL (measured on
+# an NVIDIA H100 80GB HBM3 at 700 W, one car_64_depth model: 36 of 245,760
+# beyond 1e-4, the largest 5.1e-4, while the silhouettes and the blurred
+# grids agree within 1.04e-5)
+DATAGEN_IMAGE_SHARE, DATAGEN_IMAGE_ATOL = 1e-3, 2e-3
+RBF_RTOL = 2e-5  # of the largest value: the renderer's parity on unit scale
 GRAD_RTOL = 1e-3  # backward vs plain: of the largest plain gradient, same
 # reason
 LOSS_RTOL = 1e-4
@@ -602,6 +640,146 @@ def time_draws(errs: dict) -> dict:
     return out
 
 
+def shipped_configs() -> list[Path]:
+    return sorted((REPO / "experiments").glob("*.yaml"))
+
+
+def hold_leaf(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A card leaf against the CPU's: INIT_ULPS ulp of its largest value,
+    on at most INIT_SHARE of its elements; returns the largest error."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    diff = (got.detach().cpu() - want).abs()
+    err = float(diff.max())
+    bound = INIT_ULPS * float(np.spacing(np.float32(want.abs().max())))
+    share = float((diff > 0).float().mean())
+    assert err <= bound and share <= INIT_SHARE, (name, err, bound, share)
+    return err
+
+
+def phase_init() -> dict:
+    """dpcx's init on the card against the CPU (phase 3e); returns the
+    card's init seconds by config."""
+    from dpcx_torch.config import load_config
+    from dpcx_torch.nets.layers import Conv3x3s2, Dense, weight_from_kernel
+    from dpcx_torch.train import create_state
+    from dpcx_torch.utils import prng
+
+    cpu_leaves: dict = {}
+    secs = {}
+    for path in shipped_configs():
+        if path == LARGECLOUD:
+            continue
+        cfg = load_config(path).validate()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = create_state(cfg, "cuda").model
+        torch.cuda.synchronize()
+        secs[path.stem] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        worst, leaves, drawn = 0.0, 0, 0
+        for name, mod in model.named_modules():
+            if not isinstance(mod, (Dense, Conv3x3s2)):
+                continue
+            key = (cfg.seed, name, mod.flax_shape)
+            if key not in cpu_leaves:
+                cpu_leaves[key] = weight_from_kernel(prng.lecun_normal(
+                    prng.param_key(cfg.seed, name.split("."), 1),
+                    mod.flax_shape, mod.fan_in, "cpu")).contiguous()
+                drawn += 1
+            worst = max(worst, hold_leaf(f"{path.stem} {name}", mod.weight,
+                                         cpu_leaves[key]))
+            assert not mod.bias.any(), name
+            leaves += 2
+        n = sum(p.numel() for p in model.parameters())
+        print(f"init {path.stem}: {n} parameters in {leaves} leaves, card "
+              f"{secs[path.stem]:.3f} s; CPU draws of {drawn} new kernels "
+              f"and the holds {time.perf_counter() - t0:.1f} s; largest "
+              f"card-vs-CPU error {worst:.3e} (bound {INIT_ULPS} ulp of "
+              f"each leaf's largest)", flush=True)
+        del model
+        torch.cuda.empty_cache()
+    del cpu_leaves
+    cfg = load_config(LARGECLOUD).validate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = create_state(cfg, "cuda").model
+    torch.cuda.synchronize()
+    secs[LARGECLOUD.stem] = time.perf_counter() - t0
+    fc = model.decoder.fc_points
+    kernel = fc.weight.detach().t().reshape(-1)  # flax's [in, out], flat
+    size, chunk = kernel.numel(), prng.DRAW_CHUNK
+    key = prng.param_key(cfg.seed, ("decoder", "fc_points"), 1)
+    std = prng.lecun_std(fc.fan_in)
+    worst = 0.0
+    for lo, hi in ((0, chunk), (size - chunk, size)):
+        want = prng.truncated_normal_bits(
+            prng.random_bits_range(key, lo, hi, "cpu"), -2.0, 2.0) * std
+        worst = max(worst, hold_leaf(f"largecloud fc_points [{lo}, {hi})",
+                                     kernel[lo:hi], want))
+    n = sum(p.numel() for p in model.parameters())
+    print(f"init {LARGECLOUD.stem}: {n} parameters, card "
+          f"{secs[LARGECLOUD.stem]:.3f} s; fc_points ({size} draws) first "
+          f"and last {chunk} against the CPU: largest error {worst:.3e}",
+          flush=True)
+    del model, kernel
+    torch.cuda.empty_cache()
+    return secs
+
+
+def phase_datagen_devices() -> None:
+    """make_dataset on the card against the CPU (phase 3f)."""
+    from dpcx_torch.config import load_config
+    from dpcx_torch.data.synthetic import make_dataset
+
+    cfg = load_config(CONFIG).validate()
+    got, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[device] = {k: v.cpu() for k, v in make_dataset(
+            cfg, DATAGEN_MODELS, seed=cfg.seed, device=device).items()}
+        torch.cuda.synchronize()
+        secs[device] = time.perf_counter() - t0
+    card, cpu = got["cuda"], got["cpu"]
+    assert card.keys() == cpu.keys()
+    for k in ("gt_points", "quats", "category_idx"):
+        assert torch.equal(card[k], cpu[k]), k
+    flips = (card["masks"] != cpu["masks"])
+    assert float(flips.float().mean()) <= DATAGEN_MASK_FLIPS, flips.sum()
+    same = ~flips
+    depth_err = float((card["depths"] - cpu["depths"])[same].abs().max())
+    image_off = (card["images"] - cpu["images"]).abs()
+    image_err = float(image_off.max())
+    beyond = float((image_off > KERNEL_ATOL).float().mean())
+    assert depth_err <= KERNEL_ATOL, depth_err
+    assert beyond <= DATAGEN_IMAGE_SHARE and image_err <= DATAGEN_IMAGE_ATOL, (
+        beyond, image_err)
+    print(f"datagen card vs CPU car_64_depth: {DATAGEN_MODELS} models x "
+          f"{cfg.num_views} views, card {secs['cuda']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s; points and quats equal, mask flips "
+          f"{int(flips.sum())} of {flips.numel()}, depth err {depth_err:.3e} "
+          f"(atol {KERNEL_ATOL}), image err {image_err:.3e} (atol "
+          f"{DATAGEN_IMAGE_ATOL}), {beyond:.2e} of the image values beyond "
+          f"{KERNEL_ATOL} (at most {DATAGEN_IMAGE_SHARE})", flush=True)
+
+
+def phase_rbf() -> None:
+    """pointcloud2voxels_rbf on the card against the CPU (phase 3g)."""
+    from dpcx_torch.render.voxelize import pointcloud2voxels_rbf
+
+    rng = np.random.default_rng(SEED + 11)
+    pts = torch.from_numpy(rng.uniform(-0.45, 0.45, (2, 4096, 3)).astype(
+        np.float32))
+    want = pointcloud2voxels_rbf(pts, 32, 1.0)
+    got = pointcloud2voxels_rbf(pts.cuda(), 32, torch.tensor(1.0).cuda())
+    torch.cuda.synchronize()
+    err = float((got.cpu() - want).abs().max())
+    peak = float(want.abs().max())
+    assert torch.isfinite(got).all() and err <= RBF_RTOL * peak, (err, peak)
+    print(f"rbf card vs CPU: 2 x 4096 points, D 32, sigma 1 cell: max abs "
+          f"err {err:.3e} of peak {peak:.3f} (rtol {RBF_RTOL})", flush=True)
+
+
 def phase_kernel(cfg, fused, gauss) -> list[dict]:
     """Each forward shape against the plain version; one case per shape,
     with its max abs error."""
@@ -816,8 +994,7 @@ def training_step_fn(cfg, ds):
     draws it trained with)."""
     from dpcx_torch import train as ttrain
 
-    state = ttrain.create_state(
-        cfg, DEVICE, torch.Generator(device=DEVICE).manual_seed(cfg.seed))
+    state = ttrain.create_state(cfg, DEVICE)
     records = ttrain.device_records(ds, DEVICE)
     if hasattr(ttrain, "train_steps_scan"):
         from dpcx_torch.utils import prng
@@ -1020,8 +1197,7 @@ def phase_parity(cfg, ds, want: dict):
             sils.append(out[0].detach())
             return out
 
-        state = create_state(
-            c, DEVICE, torch.Generator(device=DEVICE).manual_seed(c.seed))
+        state = create_state(c, DEVICE)
         before = launch_counts()
         losses, grads, won = [], None, []
         for step in range(3):
@@ -2638,11 +2814,16 @@ def main() -> int:
     aniso_bwd = phase_aniso_backward(aniso, aniso_cases)
     # 3d. K6 and K7 in bfloat16 mode vs their plain bfloat16 version
     aniso_bf16 = phase_aniso_bf16(aniso, aniso_bwd)
+    # 3e. dpcx's init on the card against the CPU
+    phase_init()
+    # 3f. datagen on the card against the CPU
+    phase_datagen_devices()
+    # 3g. the RBF voxelizer on the card against the CPU
+    phase_rbf()
 
     # 4. serve: the first path starts here, with every launch count at 0
     reset_counts()
-    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
-    params = ModelPointCloud(cfg, device="cuda", generator=gen).state_dict()
+    params = ModelPointCloud(cfg, device="cuda").state_dict()
     srv = serve(cfg, params, port=0, batch_size=16)
     port = srv.server_address[1]
     thread = threading.Thread(target=srv.serve_forever, daemon=True)

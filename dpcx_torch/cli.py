@@ -1,5 +1,5 @@
 """dpcx_torch CLI (port of ``dpcx/cli.py``: the ``datagen``, ``train``,
-``eval``, ``predict``, ``serve`` and ``bench`` verbs):
+``eval``, ``predict``, ``serve``, ``bench`` and ``convert`` verbs):
 
     python -m dpcx_torch.cli datagen -f experiments/car_64_depth.yaml -n 32
     python -m dpcx_torch.cli train   -f experiments/car_64_depth.yaml -n 32 --steps 200
@@ -7,12 +7,15 @@
     python -m dpcx_torch.cli predict -f experiments/car_64_depth.yaml -n 32 -o preds.npz
     python -m dpcx_torch.cli serve   -f experiments/car_64_depth.yaml
     python -m dpcx_torch.cli bench
+    python -m dpcx_torch.cli convert -i 'renders/*.tfrecord' -o data/shard0.npz --device cpu
 
 Each prints dpcx's last JSON line. ``eval``, ``predict`` and ``serve`` use
-the newest port checkpoint in ``checkpoint_dir/ckpt``, or the seeded
-initialisation when there is none, like the reference; they refuse an
+the newest port checkpoint in ``checkpoint_dir/ckpt``, or dpcx's init
+for the seed when there is none, like the reference; they refuse an
 Orbax checkpoint, which the port cannot read. ``eval`` and ``predict``
-draw the held-out set at ``seed + 1``.
+draw the held-out set at ``seed + 1``. ``convert`` needs tensorflow, so
+it is a CPU tool (``--device cpu``); without tensorflow it fails on the
+import, as dpcx's does.
 """
 
 from __future__ import annotations
@@ -136,6 +139,19 @@ def cmd_serve(args) -> None:
         srv.server_close()
 
 
+def cmd_convert(args) -> None:
+    """Reference tfrecords -> npz shards (dpcx_torch/data/convert.py)."""
+    from dpcx_torch.data.convert import convert_tfrecords
+
+    stats = convert_tfrecords(
+        args.inp, args.out,
+        mask_size=args.mask_size or None,
+        limit=args.num_models or None,
+        device=args.device,
+    )
+    print(json.dumps(stats))
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="dpcx_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -146,10 +162,13 @@ def main(argv=None) -> None:
         ("datagen", cmd_datagen),
         ("serve", cmd_serve),
         ("bench", cmd_bench),
+        ("convert", cmd_convert),
     ]:
         sp = sub.add_parser(name)
         sp.add_argument("-f", "--config", default=None)
-        sp.add_argument("-n", "--num-models", type=int, default=200)
+        # convert has no limit by default, as dpcx's
+        sp.add_argument("-n", "--num-models", type=int,
+                        default=0 if name == "convert" else 200)
         sp.add_argument("--steps", type=int, default=0)
         # dpcx's command lines carry -o to every verb; predict alone reads
         # it
@@ -177,6 +196,10 @@ def main(argv=None) -> None:
                 "object-side residual axis/angle, chamfer, view; plus "
                 "per-model gauge_spread_deg with --all-views)",
             )
+        if name == "convert":
+            sp.add_argument("-i", "--inp", required=True,
+                            help="tfrecord glob pattern")
+            sp.add_argument("--mask-size", type=int, default=0)
         if name == "serve":
             sp.add_argument("--port", type=int, default=8787)
             sp.add_argument("--batch", type=int, default=16,

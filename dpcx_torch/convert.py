@@ -21,13 +21,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-
-def _weight(kernel: np.ndarray) -> np.ndarray:
-    if kernel.ndim == 2:
-        return kernel.T
-    if kernel.ndim == 4:
-        return kernel.transpose(3, 2, 0, 1)
-    raise ValueError(f"unexpected kernel rank {kernel.ndim}")
+from dpcx_torch.nets.layers import weight_from_kernel
 
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
@@ -38,8 +32,9 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     def walk(node: Mapping, prefix: str) -> None:
         for name, value in node.items():
             if "kernel" in value:
+                kernel = np.asarray(value["kernel"])
                 for key, arr in (
-                    ("weight", _weight(np.asarray(value["kernel"]))),
+                    ("weight", weight_from_kernel(kernel)),
                     ("bias", np.asarray(value["bias"])),
                 ):
                     out[f"{prefix}{name}.{key}"] = torch.tensor(

@@ -131,7 +131,10 @@ def load_shards(path: str | Path) -> dict:
 def load_or_make(cfg: Config, num_models: int, seed: int = 0,
                  device=None) -> Dataset:
     """Load cached shards if present, else generate (rendering on
-    ``device``) and cache, under dpcx's cache file name.
+    ``device``) and cache, under dpcx's cache file name. The name names
+    the same data in both packages: the port's ``make_dataset`` draws
+    dpcx's ``jax.random`` bits, so its shard of a seed is dpcx's within the
+    renderer's parity (atol 2e-5; tests/test_torch_datagen_draws.py).
 
     cfg.dataset == "npz" ingests externally produced shards from
     cfg.data_dir instead of generating synthetic data."""

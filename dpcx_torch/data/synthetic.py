@@ -7,19 +7,23 @@ rendered with the port's own renderer at high fidelity (dense GT cloud,
 small sigma, thresholded silhouette), so at ``renderer: pallas`` the GT
 views go through the fused CUDA kernel on the card.
 
-Random draws come from a CPU ``torch.Generator`` seeded from
-``(seed, model index)``, so a model's draws do not depend on the device
-it is rendered on. These streams cannot equal ``jax.random``'s: the port
-and dpcx make different models from the same seed. Everything after the
-draws (box layout, surface points, cameras, shading, renders) computes
-what dpcx computes on the same draws.
+Random draws are dpcx's: ``jax.random``'s threefry bits
+(``utils/prng.py``) from the keys ``split(PRNGKey(seed), num_models)``,
+split and drawn site by site as dpcx's ``make_model`` does. They run on
+the CPU (a few hundred words a model), so a model's draws do not depend on
+the device it is rendered on. ``choice`` with probabilities is jax's
+(``cumsum(p)[-1] * (1 - uniform)``, then ``searchsorted``), with the
+cumsum in XLA:CPU's order (``cumsum_xla``); the area sum that normalises
+``p`` is summed in torch's order, so where it differs from XLA's by an
+ulp an index may flip at a cumsum boundary (rarely; the tests count
+them). Everything after the draws (box layout, surface points, cameras,
+shading, renders) computes what dpcx computes on the same draws.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -30,6 +34,7 @@ from dpcx_torch.geometry.quaternion import (
     quaternion_rotate,
 )
 from dpcx_torch.render.project import pointcloud_project
+from dpcx_torch.utils import prng
 
 # --- category templates: each shape = K boxes (center xyz, half-size xyz),
 # fitting in the [-0.5, 0.5]^3 box, y-up, "front" facing +z ---
@@ -171,34 +176,67 @@ def _box_surface(boxes: torch.Tensor, choice: torch.Tensor,
     return c + offs, box_idx, normals
 
 
-def _sample_box_surface(generator: torch.Generator, boxes: torch.Tensor,
-                        n: int):
+def _scan_f32(x: torch.Tensor) -> torch.Tensor:
+    """Sequential float32 prefix sums along the last axis (torch.cumsum
+    accumulates float32 in float64 on the CPU)."""
+    cols = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., j])
+    return torch.stack(cols, -1)
+
+
+XLA_SCAN_BLOCK = 16  # XLA:CPU's ReduceWindowRewriter base length
+
+
+def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.cumsum`` of a float32 vector in XLA:CPU's order: its
+    ``ReduceWindowRewriter`` scans blocks of XLA_SCAN_BLOCK in sequence,
+    scans the blocks' totals (recursively), and adds each block's
+    exclusive prefix."""
+    n, base = x.shape[0], XLA_SCAN_BLOCK
+    if n <= base:
+        return _scan_f32(x)
+    nb = -(-n // base)
+    inner = _scan_f32(F.pad(x, (0, nb * base - n)).reshape(nb, base))
+    prefix = F.pad(cumsum_xla(inner[:, -1])[:-1], (1, 0))
+    return (inner + prefix[:, None]).reshape(-1)[:n]
+
+
+def choice_p(key, probs: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.choice(key, len(probs), (n,), p=probs)`` with
+    replacement (``jax/_src/random.py::choice``)."""
+    p_cuml = cumsum_xla(probs)
+    r = p_cuml[-1] * (1.0 - prng.uniform(key, (n,)))
+    return torch.searchsorted(p_cuml, r)
+
+
+def _sample_box_surface(key, boxes: torch.Tensor, n: int):
     """n points on the union of box surfaces, area-weighted -> (points
     [n, 3], box ids [n], outward normals [n, 3])."""
+    kb, _, ku = prng.split(key, 3)
     half = boxes[:, 3:]
     ax = half[:, 1] * half[:, 2]
     ay = half[:, 0] * half[:, 2]
     az = half[:, 0] * half[:, 1]
     areas = torch.stack([ax, ax, ay, ay, az, az], dim=-1).reshape(-1)
     probs = areas / areas.sum().clamp_min(1e-9)
-    choice = torch.multinomial(probs, n, replacement=True,
-                               generator=generator)
-    uv = torch.rand((n, 2), generator=generator) * 2.0 - 1.0
+    choice = choice_p(kb, probs, n)
+    uv = prng.uniform(ku, (n, 2), minval=-1.0, maxval=1.0)
     return _box_surface(boxes, choice, uv)
 
 
-def sample_category_surface(generator: torch.Generator, category: str,
-                            n: int = 16000):
-    """One model: random jitter + surface sample -> (points [n, 3], box
-    ids [n], outward normals [n, 3])."""
-    u = torch.rand(8, generator=generator)
-    return _sample_box_surface(generator, _CATEGORY_FNS[category](u), n)
+def sample_category_surface(key, category: str, n: int = 16000):
+    """One model from the key pair ``key``: random jitter + surface sample
+    -> (points [n, 3], box ids [n], outward normals [n, 3])."""
+    kj, ks = prng.split(key)
+    u = prng.uniform(kj, (8,))
+    return _sample_box_surface(ks, _CATEGORY_FNS[category](u), n)
 
 
-def sample_category_points(generator: torch.Generator, category: str,
+def sample_category_points(key, category: str,
                            n: int = 16000) -> torch.Tensor:
     """GT dense cloud [n, 3]."""
-    return sample_category_surface(generator, category, n)[0]
+    return sample_category_surface(key, category, n)[0]
 
 
 def _render_gt_views(cfg: Config, points: torch.Tensor, quats: torch.Tensor):
@@ -238,33 +276,37 @@ def _render_images(cfg: Config, points: torch.Tensor, quats: torch.Tensor,
     return img.permute(0, 2, 3, 1).clamp(0.0, 1.0)
 
 
-def make_model(generator: torch.Generator, cfg: Config, category: str,
-               gt_points: int = 16000, device=None) -> dict:
-    """One dataset record: V views of one randomized model, rendered on
-    ``device``: images [V, H, W, 3] (textured, lambertian-shaded RGB over
-    a white background), masks [V, D, D], depths [V, D, D], quats [V, 4],
-    gt_points [gt_points, 3]."""
-    g = generator
-    points, box_idx, normals = sample_category_surface(g, category, gt_points)
+def make_model(key, cfg: Config, category: str, gt_points: int = 16000,
+               device=None) -> dict:
+    """One dataset record from the key pair ``key`` (dpcx's ``make_model``
+    key): V views of one randomized model, rendered on ``device``: images
+    [V, H, W, 3] (textured, lambertian-shaded RGB over a white background),
+    masks [V, D, D], depths [V, D, D], quats [V, 4], gt_points
+    [gt_points, 3]."""
+    kp, kv, kc, kt = prng.split(key, 4)
+    points, box_idx, normals = sample_category_surface(kp, category,
+                                                       gt_points)
+    ka, ke = prng.split(kv)
     V = cfg.num_views
-    azim = torch.rand(V, generator=g) * (2 * math.pi)
-    elev = 0.1 + 0.5 * torch.rand(V, generator=g)
+    azim = prng.uniform(ka, (V,), minval=0.0, maxval=2 * math.pi)
+    elev = prng.uniform(ke, (V,), minval=0.1, maxval=0.6)
     quats, _ = camera_from_view_angles(azim, elev, cfg.camera_distance)
 
     # --- textured RGB appearance ---
-    palette = 0.15 + 0.8 * torch.rand((8, 3), generator=g)
+    palette = prng.uniform(kc, (8, 3), minval=0.15, maxval=0.95)
     if cfg.texture_mode == "lowfreq":
         # two-tone front/back split (< 1 cycle across the object)
-        tilt = 0.35 * torch.randn(2, generator=g)
-        front = 0.55 + 0.4 * torch.rand(3, generator=g)
-        back = 0.05 + 0.4 * torch.rand(3, generator=g)
+        kd, kf, kb = prng.split(kt, 3)
+        tilt = 0.35 * prng.normal(kd, (2,))
         axis = torch.stack([tilt[0], tilt[1], torch.tensor(1.0)])
         axis = axis / torch.linalg.vector_norm(axis)
         t = torch.sigmoid((points @ axis) / 0.06)[:, None]  # [N, 1]
+        front = prng.uniform(kf, (3,), minval=0.55, maxval=0.95)
+        back = prng.uniform(kb, (3,), minval=0.05, maxval=0.45)
         two_tone = t * front + (1.0 - t) * back.flip(0)
         albedo = 0.4 * palette[box_idx % 8] + 0.6 * two_tone
     else:
-        stripe_dir = torch.randn(3, generator=g)
+        stripe_dir = prng.normal(kt, (3,))
         stripes = 0.85 + 0.15 * torch.sin(
             40.0 * points @ (stripe_dir / torch.linalg.vector_norm(stripe_dir))
         )
@@ -290,14 +332,6 @@ def make_model(generator: torch.Generator, cfg: Config, category: str,
     }
 
 
-def model_generator(seed: int, index: int) -> torch.Generator:
-    """The CPU generator of model ``index`` of a dataset made from ``seed``:
-    independent streams per model, so any slice of models can be made
-    alone."""
-    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)
-    return torch.Generator().manual_seed(int(state[0]))
-
-
 def make_dataset(
     cfg: Config, num_models: int, seed: int = 0, category: str | None = None,
     gt_points: int = 16000,
@@ -310,7 +344,8 @@ def make_dataset(
     ``category="multi"`` cycles through the three reference categories;
     the per-model category index is recorded in ``category_idx``. Process
     ``p`` of ``P`` makes the strided slice ``p::P`` of the model list, with
-    the same per-model generators as one process would use.
+    the same per-model keys as one process would use: dpcx's
+    ``split(PRNGKey(seed), num_models)``.
     """
     category = category or cfg.category
     if category == "multi":
@@ -320,10 +355,10 @@ def make_dataset(
         if category not in _CATEGORY_FNS:
             category = "chair"
         cats = [category] * num_models
+    keys = prng.split(prng.prng_key(seed), num_models)
     mine = range(process_index, num_models, process_count)
     records = [
-        make_model(model_generator(seed, i), cfg, cats[i], gt_points, device)
-        for i in mine
+        make_model(keys[i], cfg, cats[i], gt_points, device) for i in mine
     ]
     out = {k: torch.stack([r[k] for r in records]) for k in records[0]}
     out["category_idx"] = torch.tensor(

@@ -8,19 +8,18 @@ import torch
 from torch import nn
 
 from dpcx_torch.config import Config
+from dpcx_torch.nets.layers import flax_init_
 from dpcx_torch.nets.net_factory import get_network
 
 
 class ModelPointCloud(nn.Module):
-    """Parameters are drawn from ``generator`` (a ``torch.Generator`` on
-    ``device``), or from one seeded with ``cfg.seed`` when none is given."""
+    """Parameters are dpcx's init, ``model.init(PRNGKey(seed))`` with
+    ``seed`` (``cfg.seed`` when None) through ``nets.layers.flax_init_``,
+    the same on every device."""
 
-    def __init__(self, cfg: Config, device=None,
-                 generator: torch.Generator | None = None):
+    def __init__(self, cfg: Config, device=None, seed: int | None = None):
         super().__init__()
         self.cfg = cfg
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(cfg.seed)
         dtype = getattr(torch, cfg.compute_dtype)
         self.encoder = get_network("img_encoder")(
             image_size=cfg.image_size,
@@ -28,7 +27,6 @@ class ModelPointCloud(nn.Module):
             latent_dim=cfg.latent_dim,
             fc_hidden=cfg.fc_hidden,
             compute_dtype=dtype,
-            generator=generator,
             device=device,
         )
         self.decoder = get_network("pc_decoder")(
@@ -41,7 +39,6 @@ class ModelPointCloud(nn.Module):
             gauss_scale_min=cfg.gauss_scale_min,
             gauss_scale_max=cfg.gauss_scale_max,
             compute_dtype=dtype,
-            generator=generator,
             device=device,
         )
         self.pose_head = (
@@ -52,11 +49,11 @@ class ModelPointCloud(nn.Module):
                 predict_translation=cfg.predict_translation,
                 candidate_offsets=cfg.pose_candidate_offsets,
                 compute_dtype=dtype,
-                generator=generator,
                 device=device,
             )
             if cfg.predict_pose else None
         )
+        flax_init_(self, cfg.seed if seed is None else seed)
 
     def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """images [B, H, W, 3] -> {"points": [B, N, 3], "scale"?: [B, 1],

@@ -18,7 +18,6 @@ class ImageEncoder(nn.Module):
         latent_dim: int = 1024,
         fc_hidden: int = 1024,
         compute_dtype=torch.bfloat16,
-        generator: torch.Generator | None = None,
         device=None,
     ):
         super().__init__()
@@ -26,16 +25,13 @@ class ImageEncoder(nn.Module):
         size, ch = image_size, 3
         for i, f in enumerate(filters):
             setattr(self, f"conv{i}",
-                    Conv3x3s2(ch, f, compute_dtype, generator, device))
+                    Conv3x3s2(ch, f, compute_dtype, device))
             size, ch = -(-size // 2), f
         # fc1 reads the NHWC-flattened feature map, as flax flattens it
-        self.fc1 = Dense(size * size * ch, fc_hidden, compute_dtype,
-                         generator, device)
-        self.fc_latent = Dense(fc_hidden, latent_dim, compute_dtype,
-                               generator, device)
+        self.fc1 = Dense(size * size * ch, fc_hidden, compute_dtype, device)
+        self.fc_latent = Dense(fc_hidden, latent_dim, compute_dtype, device)
         # the pose branch's input layer exists in every config, as in flax
-        self.fc_pose = Dense(fc_hidden, fc_hidden, compute_dtype,
-                             generator, device)
+        self.fc_pose = Dense(fc_hidden, fc_hidden, compute_dtype, device)
 
     def forward(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
         """images [B, H, W, 3] -> {"latent": [B, L], "pose_inp": [B, F]}."""

@@ -23,7 +23,6 @@ class PointCloudDecoder(nn.Module):
         gauss_scale_min: float = 0.005,
         gauss_scale_max: float = 0.06,
         compute_dtype=torch.bfloat16,
-        generator: torch.Generator | None = None,
         device=None,
     ):
         super().__init__()
@@ -32,24 +31,23 @@ class PointCloudDecoder(nn.Module):
         width = latent_dim
         for i, h in enumerate(hidden):
             setattr(self, f"fc{i}",
-                    Dense(width, h, compute_dtype, generator, device))
+                    Dense(width, h, compute_dtype, device))
             width = h
-        self.fc_points = Dense(width, num_points * 3, compute_dtype,
-                               generator, device)
+        self.fc_points = Dense(width, num_points * 3, compute_dtype, device)
         self.fc_rgb = (
-            Dense(width, num_points * 3, compute_dtype, generator, device)
+            Dense(width, num_points * 3, compute_dtype, device)
             if predict_rgb else None
         )
         # per-point stddevs (sigmoid-bounded, NDC units), local orientation
         # (identity-biased quaternion) and opacity
         self.fc_gauss = (
-            Dense(width, num_points * 8, compute_dtype, generator, device)
+            Dense(width, num_points * 8, compute_dtype, device)
             if predict_gauss else None
         )
         self.gauss_scale_min = gauss_scale_min
         self.gauss_scale_max = gauss_scale_max
         self.fc_scale = (
-            Dense(width, 1, compute_dtype, generator, device)
+            Dense(width, 1, compute_dtype, device)
             if predict_scale else None
         )
 

@@ -34,19 +34,18 @@ class PoseHead(nn.Module):
         predict_translation: bool = False,
         candidate_offsets: bool = True,
         compute_dtype=torch.bfloat16,
-        generator: torch.Generator | None = None,
         device=None,
     ):
         super().__init__()
         self.num_candidates = num_candidates
         self.candidate_offsets = candidate_offsets
         K = num_candidates
-        self.fc0 = Dense(features_in, hidden, compute_dtype, generator, device)
-        self.fc_quats = Dense(hidden, K * 4, compute_dtype, generator, device)
+        self.fc0 = Dense(features_in, hidden, compute_dtype, device)
+        self.fc_quats = Dense(hidden, K * 4, compute_dtype, device)
         # flax creates fc_student before fc_trans
-        self.fc_student = (Dense(hidden, 4, compute_dtype, generator, device)
+        self.fc_student = (Dense(hidden, 4, compute_dtype, device)
                            if with_student else None)
-        self.fc_trans = (Dense(hidden, K * 3, compute_dtype, generator, device)
+        self.fc_trans = (Dense(hidden, K * 3, compute_dtype, device)
                          if predict_translation else None)
 
     def forward(self, pose_inp: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -1,12 +1,14 @@
 """Stage 2: trilinear scatter-splat into a D^3 grid (port of
-``dpcx/render/voxelize.py``: the scatter oracle, its rgb path, and point
-dropout as per-point weights).
+``dpcx/render/voxelize.py``: the scatter oracle, its rgb path, point
+dropout as per-point weights, and the dense isotropic RBF voxelizer).
 
 Grid convention: ``grid[b, z, y, x]``. NDC p in [-0.5, 0.5] maps to grid
 units g = (p + 0.5) * D - 0.5; cell i is centred at g = i.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -93,3 +95,34 @@ def pointcloud2voxels_scatter(
         return grid
     rgb_grid = rgb_grid.reshape(B, D, D, D, 3)
     return grid, rgb_grid / grid[..., None].clamp_min(1e-6)
+
+
+def pointcloud2voxels_rbf(points_ndc: torch.Tensor, vox_size: int,
+                          sigma_vox, chunk: int = 512) -> torch.Tensor:
+    """The dense voxelizer: one isotropic Gaussian RBF a point, evaluated
+    over the whole grid -> [B, D, D, D] (dpcx's ``pointcloud2voxels_rbf``,
+    an independent oracle of splat + blur; no config renders with it).
+
+    Separable: per-axis weights ``exp(-d^2 / (2 s^2)) / (sqrt(2 pi) s)``
+    with ``s = max(sigma_vox, 1e-6)`` in cells, contracted over the points
+    one z slab at a time, ``chunk`` points at a time (the memory bound)."""
+    D = vox_size
+    g = ndc_to_grid(points_ndc, D)  # [B, N, 3] (z, y, x)
+    cells = torch.arange(D, dtype=points_ndc.dtype, device=points_ndc.device)
+    s = torch.as_tensor(sigma_vox, dtype=points_ndc.dtype,
+                        device=points_ndc.device).clamp_min(1e-6)
+
+    def gweights(col):
+        d = col[..., None] - cells
+        return torch.exp(-0.5 * (d / s) ** 2) / (math.sqrt(2.0 * math.pi)
+                                                 * s)
+
+    wz, wy, wx = (gweights(g[..., a]) for a in range(3))  # [B, N, D]
+    B, N = g.shape[:2]
+    grid = points_ndc.new_zeros((B, D, D, D))
+    for lo in range(0, N, chunk):
+        hi = min(lo + chunk, N)
+        for z in range(D):
+            wzy = wz[:, lo:hi, z, None] * wy[:, lo:hi]
+            grid[:, z] += torch.einsum("bny,bnx->byx", wzy, wx[:, lo:hi])
+    return grid

@@ -33,8 +33,9 @@ Checkpoints are ``checkpoint_dir/ckpt/<step>.pt`` files holding
 
 The gauge reseed is dpcx's (``gauge_reseed_*``): after the pass that
 crosses ``gauge_reseed_check_step``, a logged ``gauge_spread_deg`` above
-the threshold re-initialises the model from a generator seeded ``seed +
-7919 * attempt``, deletes the dead attempt's checkpoints, writes
+the threshold re-initialises the model with flax's init from ``seed +
+7919 * attempt`` (dpcx's ``PRNGKey(seed + 7919 * attempt)``), deletes the
+dead attempt's checkpoints, writes
 ``{"gauge_reseed": attempt, "gauge_spread_deg": spread}`` and restarts the
 step count and the clock. As in dpcx, the attempt count is not saved in
 checkpoints, a missing ``gauge_spread_deg`` reads as 0 (healthy), and the
@@ -102,10 +103,10 @@ class TrainState:
 
 
 def create_state(cfg: Config, device=None,
-                 generator: torch.Generator | None = None) -> TrainState:
-    """Seeded model (``generator``, or one seeded with ``cfg.seed``) and
-    its Adam."""
-    model = ModelPointCloud(cfg, device=device, generator=generator)
+                 seed: int | None = None) -> TrainState:
+    """dpcx's ``create_state(cfg, PRNGKey(seed))``: the model with flax's
+    init from ``seed`` (``cfg.seed`` when None) and its Adam."""
+    model = ModelPointCloud(cfg, device=device, seed=seed)
     # betas and eps are optax.adam's defaults, as dpcx's create_state uses
     optimizer = torch.optim.Adam(
         model.parameters(), lr=cfg.learning_rate, betas=(0.9, 0.999),
@@ -538,9 +539,9 @@ def train(
                            "gauge_spread_deg": gs}
                     writer.write(step, rec)
                     history.append({"step": step, **rec})
-                    state = create_state(cfg, device, torch.Generator(
-                        device=device).manual_seed(
-                            cfg.seed + 7919 * reseed_attempt))
+                    state = create_state(
+                        cfg, device,
+                        seed=cfg.seed + 7919 * reseed_attempt)
                     if use_checkpoints:
                         # else the dead attempt's checkpoints would win the
                         # newest-step restore on resume

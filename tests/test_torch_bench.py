@@ -20,6 +20,9 @@ from dpcx_torch.config import Config
 from dpcx_torch.render import aniso
 from dpcx_torch.render.gsplat import splat_params
 from dpcx_torch.utils import profiling, timing
+from torch_workers import share_cores
+
+share_cores()
 
 TINY = bench.Shapes(renders=1, points=64, iters=1, extras=False)
 

@@ -27,6 +27,9 @@ import pytest
 import torch
 
 from dpcx_torch.render import fused
+from torch_workers import share_cores
+
+share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 SHARE = 0.25

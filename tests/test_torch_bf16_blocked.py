@@ -34,6 +34,9 @@ from dpcx_torch.convert import adam_state_from_optax, params_from_flax
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 SHARE = 0.25

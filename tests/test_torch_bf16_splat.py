@@ -38,6 +38,9 @@ from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import aniso
 from dpcx_torch.render import gsplat as tgs
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 SHARE = 0.25

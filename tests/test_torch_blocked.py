@@ -40,6 +40,9 @@ from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
 from dpcx_torch.render import project as tproject
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 ATOL = 3e-5
 D = 72  # > 64: dpcx's depth-blocked kernels (9 z-blocks of 8)

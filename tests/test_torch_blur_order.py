@@ -42,6 +42,9 @@ import torch
 
 from dpcx_torch.render import fused
 from dpcx_torch.render.gauss import blur_matrix, gauss_kernel_1d
+from torch_workers import share_cores
+
+share_cores()
 
 RUN = 8  # outputs a thread forms (fused_render.cu kRun)
 BF16_FWD_SHARE, BF16_SHARE, BF16_GRAD_L2 = 1e-5, 2.0**-8, 1e-3

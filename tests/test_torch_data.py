@@ -7,8 +7,9 @@
   are a threshold of the silhouette at 0.4, so a pixel within float error
   of it may flip: at most 0.5% may; depths atol 2e-5 elsewhere; images
   atol 1e-4 (colour normalised by the grid, then resized).
-  The random draws themselves are the port's own (torch.Generator), so
-  whole datasets are compared on their properties, not against dpcx.
+  The random draws are dpcx's jax.random bits; whole datasets are held
+  against dpcx's in tests/test_torch_datagen_draws.py, and here on their
+  properties.
 """
 
 import dataclasses
@@ -27,6 +28,10 @@ from dpcx_torch.config import Config as TConfig
 from dpcx_torch.data import dataset as tds
 from dpcx_torch.data import synthetic as tsyn
 from dpcx_torch.geometry.camera import camera_from_view_angles
+from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 SMALL = dict(vox_size=8, pc_num_points=64, num_views=3, views_per_step=2,
              renderer="pallas", pc_relative_sigma=0.1)
@@ -108,8 +113,8 @@ def test_box_templates_match_dpcx(category, rng):
 def _scene(rng, cfg, n=600):
     """A car's surface points, cameras from datagen's angle ranges, and
     per-view colours, as numpy."""
-    g = torch.Generator().manual_seed(int(rng.integers(1 << 30)))
-    pts, _, _ = tsyn.sample_category_surface(g, "car", n)
+    key = prng.prng_key(int(rng.integers(1 << 30)))
+    pts, _, _ = tsyn.sample_category_surface(key, "car", n)
     azim = rng.uniform(0, 2 * np.pi, cfg.num_views).astype(np.float32)
     elev = rng.uniform(0.1, 0.6, cfg.num_views).astype(np.float32)
     quats, _ = camera_from_view_angles(torch.from_numpy(azim),
@@ -151,13 +156,12 @@ def test_gt_views_and_images_match_dpcx(image_size, rng):
 
 
 def test_surface_samples_lie_on_the_boxes():
-    g = torch.Generator().manual_seed(0)
-    pts, box_idx, normals = tsyn.sample_category_surface(g, "chair", 2000)
+    key = prng.prng_key(0)
+    pts, box_idx, normals = tsyn.sample_category_surface(key, "chair", 2000)
     assert pts.shape == normals.shape == (2000, 3)
     assert torch.equal(normals.abs().sum(-1), torch.ones(2000))
-    # the same generator's first draw is the template jitter u
-    boxes = tsyn._chair_boxes(
-        torch.rand(8, generator=torch.Generator().manual_seed(0)))
+    # the template jitter u is drawn from the key's first split, as dpcx's
+    boxes = tsyn._chair_boxes(prng.uniform(prng.split(key)[0], (8,)))
     c, h = boxes[box_idx, :3], boxes[box_idx, 3:]
     rel = (pts - c) / h.clamp_min(1e-9)
     assert (rel.abs() <= 1 + 1e-5).all()

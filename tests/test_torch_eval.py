@@ -37,6 +37,9 @@ from dpcx_torch.geometry.quaternion import (
     quaternion_conjugate,
     quaternion_multiply,
 )
+from torch_workers import share_cores
+
+share_cores()
 
 
 def _unit(rng, shape):

@@ -15,6 +15,9 @@ from dpcx.render import transform as jt
 from dpcx_torch.geometry import camera as tc
 from dpcx_torch.geometry import quaternion as tq
 from dpcx_torch.render import transform as tt
+from torch_workers import share_cores
+
+share_cores()
 
 ATOL = 1e-6
 

@@ -32,6 +32,9 @@ from dpcx.render import pallas_gsplat as jpg
 from dpcx_torch.config import Config
 from dpcx_torch.render import aniso
 from dpcx_torch.render import gsplat as tgs
+from torch_workers import share_cores
+
+share_cores()
 
 D = 16
 B, N = 2, 256

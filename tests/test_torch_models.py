@@ -24,6 +24,9 @@ from dpcx_torch.convert import params_from_flax
 from dpcx_torch.models.model_pc import ModelPointCloud
 from dpcx_torch.nets import net_factory
 from dpcx_torch.nets.layers import same_pads
+from torch_workers import share_cores
+
+share_cores()
 
 ATOL = 1e-5
 
@@ -132,8 +135,8 @@ def test_seeded_init_follows_flax_defaults():
     cfg = Config(image_size=32, encoder_filters=(8,), latent_dim=256,
                  fc_hidden=512, pc_decoder_hidden=(256,), pc_num_points=64)
     tcfg = _t(cfg)
-    m1 = ModelPointCloud(tcfg, generator=torch.Generator().manual_seed(5))
-    m2 = ModelPointCloud(tcfg, generator=torch.Generator().manual_seed(5))
+    m1 = ModelPointCloud(tcfg, seed=5)
+    m2 = ModelPointCloud(tcfg, seed=5)
     m3 = ModelPointCloud(tcfg)  # seeded from cfg.seed
     m4 = ModelPointCloud(tcfg)
     for (k, a), b in zip(m1.state_dict().items(), m2.state_dict().values()):

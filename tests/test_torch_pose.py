@@ -43,6 +43,9 @@ from dpcx_torch.nets import net_factory
 from dpcx_torch.render import fused
 from dpcx_torch.serve import ServingModel
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 POSE = Config(
     vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
@@ -280,10 +283,9 @@ def test_gauge_reseed_drive(threshold, tmp_path, rng):
     assert len(fired) == 1 and fired[0]["gauge_reseed"] == 1.0
     assert fired[0]["step"] == 5 and fired[0]["gauge_spread_deg"] > 1.0
     assert steps == [1, 2, 3, 4, 5, 5, 1, 2, 3, 4, 5, 6, 7], steps
-    # the new attempt's first step is one from the seed + 7919 init, on
+    # the new attempt's first step is one from dpcx's seed + 7919 init, on
     # the step-0 draws of the device-side stream (device_data)
-    fresh = ttrain.create_state(cfg, "cpu", torch.Generator().manual_seed(
-        cfg.seed + 7919))
+    fresh = ttrain.create_state(cfg, "cpu", seed=cfg.seed + 7919)
     m = ttrain.train_steps_scan(cfg, fresh, ttrain.device_records(ds, "cpu"),
                                 prng.prng_key(cfg.seed + 1), 1)
     assert recs[6]["step"] == 1

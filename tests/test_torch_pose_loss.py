@@ -28,6 +28,10 @@ from dpcx_torch.config import Config as TConfig
 from dpcx_torch.convert import params_from_flax
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.models.model_pc import ModelPointCloud
+from torch_workers import share_cores
+
+share_cores()
+
 POSE = Config(
     vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
     encoder_filters=(8, 16), latent_dim=24, fc_hidden=32,

@@ -13,6 +13,14 @@ masks; the same numpy arrays go to both packages). Tolerances:
   points: tests/test_torch_eval.py);
 - the per-sample lists, rounded as dpcx rounds them (2 decimals for
   degrees, 4 for axes, 6 for Chamfer): one unit of the last decimal;
+- the up-to-flip metrics, where the flip-corrected re-alignment's argmin
+  picks another candidate than dpcx's: rtol 1e-5 to dpcx's own metrics
+  re-aligned at the port's pick, and only under a tie, as chip_smoke.py's
+  ``is_tie`` holds one: the two picks more than 2e-3 and at most 2 degrees
+  apart, dpcx's mean errors at them within 5e-7 rad
+  (tests/test_torch_eval.py's bound for a tie f32 cannot order). dpcx's
+  shards at seed 3 hold one (pose_view0: picks 0.3 degrees apart, mean
+  errors 1.8e-7 rad apart);
 - the periodic eval after training steps: rtol 1e-4 (Adam carries the
   step-to-step differences, tests/test_torch_train.py).
 """
@@ -26,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from dpcx.config import Config
 from dpcx.data.dataset import Dataset as JDataset
@@ -44,6 +53,9 @@ from dpcx_torch.config import load_config, save_config
 from dpcx_torch.convert import params_from_flax
 from dpcx_torch.data.dataset import Dataset
 from dpcx_torch.data.synthetic import make_dataset
+from torch_workers import share_cores
+
+share_cores()
 
 BASE = Config(
     vox_size=16, mask_size=16, pc_num_points=256, image_size=16,
@@ -76,10 +88,92 @@ def _records(cfg, models=5, category=None, seed=3):
         gt_points=200).items()}
 
 
-def _assert_metrics_match(got, want):
-    """Key for key, in dpcx's order, at this file's tolerances."""
+# the metrics of the flip-corrected re-alignment alone
+REALIGNED = ("pose_acc_30deg_up_to_flip", "pose_median_err_deg_up_to_flip")
+# a tie of the re-alignment (chip_smoke.py's is_tie): two picks more than
+# TIE_MIN_DEG and at most TIE_DEG apart, dpcx's mean errors at them within
+# TIE_GAP rad
+TIE_MIN_DEG, TIE_DEG, TIE_GAP = 2e-3, 2.0, 5e-7
+
+
+def _realignment_at_port_pick(cfg, fp, rec, params):
+    """evaluate's second alignment (view 0: each aligned pose, or its
+    180-degree flip where that is nearer the GT, aligned again) on each
+    side; returns the rotation between the port's pick and dpcx's
+    (degrees), dpcx's mean errors at the two picks apart (rad), and dpcx's
+    up-to-flip metrics at the port's pick in place of its own."""
+    from dpcx.eval import pose_metrics as jpm
+    from dpcx.geometry.quaternion import quaternion_angular_distance as j_ad
+    from dpcx.geometry.quaternion import quaternion_multiply as j_qmul
+    from dpcx_torch.eval import pose_metrics as tpm
+    from dpcx_torch.geometry.quaternion import quaternion_multiply
+
+    gq = rec["quats"][:, 0].astype(np.float32)
+    pose_j = j_predict_dataset(cfg, fp, JDataset(rec, cfg), 0, 2)["pose"]
+    pose_t = predict.predict_dataset(_t(cfg), params,
+                                     Dataset(rec, _t(cfg)), 0, 2)["pose"]
+
+    def corrected(pm, qmul, align, p, g, flip):
+        _, al = align(p, g)
+        fl = qmul(al, flip)
+        e0, e1 = (pm(a, g)["angular_err_deg"] for a in (al, fl))
+        return al, fl, e1 < e0
+
+    al, fl, pick = corrected(jpm.pose_error_metrics, j_qmul,
+                             jpm.align_canonical_frame,
+                             jnp.asarray(pose_j), jnp.asarray(gq),
+                             jpm.FLIP_QUAT[None])
+    c_j = jnp.where(pick[:, None], fl, al)
+    al, fl, pick = corrected(tpm.pose_error_metrics, quaternion_multiply,
+                             tpm.align_canonical_frame,
+                             torch.from_numpy(np.asarray(pose_t)),
+                             torch.from_numpy(gq), tpm.FLIP_QUAT)
+    c_t = torch.where(pick[:, None], fl, al)
+    q_j, _ = jpm.align_canonical_frame(c_j, jnp.asarray(gq))
+    q_t, _ = tpm.align_canonical_frame(c_t, torch.from_numpy(gq))
+    q_t = jnp.asarray(q_t.numpy())
+
+    def mean_err(q):
+        aligned = j_qmul(c_j, q[None])
+        return float(jnp.mean(j_ad(aligned, jnp.asarray(gq))))
+
+    # 2 arccos |a . b| in float64, as 4 atan2(|a - b|, |a + b|)
+    a, b = np.float64(q_j), np.float64(q_t)
+    b = b * np.sign(a @ b)
+    deg = np.degrees(4 * np.arctan2(np.linalg.norm(a - b),
+                                    np.linalg.norm(a + b)))
+    fm = jpm.pose_error_metrics_up_to_flip(j_qmul(c_j, q_t[None]),
+                                           jnp.asarray(gq))
+    at_pick = {
+        "pose_acc_30deg_up_to_flip": float(fm["acc_30deg_up_to_flip"]),
+        "pose_median_err_deg_up_to_flip": float(
+            fm["median_err_deg_up_to_flip"]),
+    }
+    return float(deg), abs(mean_err(q_t) - mean_err(q_j)), at_pick
+
+
+def _assert_metrics_match(got, want, realignment=None):
+    """Key for key, in dpcx's order, at this file's tolerances. Where the
+    up-to-flip metrics miss dpcx's, ``realignment()``
+    (_realignment_at_port_pick) must show a tie, and they are held to
+    dpcx's at the port's pick."""
     assert list(got) == list(want)
+    missed = [k for k in REALIGNED if k in want and not np.allclose(
+        got[k], want[k], rtol=RTOL, atol=1e-7)]
+    if missed:
+        assert realignment is not None, missed
+        deg, gap, at_pick = realignment()
+        print(f"re-alignment tie: {missed} miss; picks {deg:.4f} degrees "
+              f"apart, dpcx's mean errors at them {gap:.3e} rad apart; "
+              f"dpcx at the port's pick {at_pick}")
+        assert TIE_MIN_DEG < deg <= TIE_DEG and gap <= TIE_GAP, (
+            missed, deg, gap)
+        for k in missed:
+            np.testing.assert_allclose(got[k], at_pick[k], rtol=RTOL,
+                                       atol=1e-7, err_msg=k)
     for k, w in want.items():
+        if k in missed:
+            continue  # held above to dpcx's at the port's pick
         if k == "per_sample":
             _assert_per_sample_match(got[k], w)
         elif k == "iou_3d_16":
@@ -115,9 +209,13 @@ def test_evaluate_matches_dpcx(name, cfg, kw):
     rec = _records(cfg)
     want = j_evaluate(cfg, fp, JDataset(rec, cfg), batch_size=2, **kw)
     tcfg = _t(cfg)
-    got = predict.evaluate(tcfg, params_from_flax(fp), Dataset(rec, tcfg),
+    params = params_from_flax(fp)
+    got = predict.evaluate(tcfg, params, Dataset(rec, tcfg),
                            batch_size=2, **kw)
-    _assert_metrics_match(got, want)
+    _assert_metrics_match(
+        got, want,
+        (lambda: _realignment_at_port_pick(cfg, fp, rec, params))
+        if kw.get("view_idx", 0) == 0 else None)
     assert ("pose_acc_30deg" in got) == cfg.predict_pose
     assert ("pose_gauge_spread_deg" in got) == (
         cfg.predict_pose and kw.get("view_idx", 0) is None)

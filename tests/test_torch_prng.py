@@ -21,6 +21,9 @@ from dpcx_torch.config import Config as TConfig
 from dpcx_torch.render import project as tproject
 from dpcx_torch.render import voxelize as tvox
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 SEEDS = (0, 1, 7, 123457)
 SHAPES = ((8,), (3, 40), (4, 1000), (16, 16000))

@@ -37,6 +37,9 @@ from dpcx_torch.render import gauss as tgauss
 from dpcx_torch.render import project as tproject
 from dpcx_torch.render import voxelize as tvox
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 ATOL = 2e-5
 D = 16

@@ -38,6 +38,9 @@ from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.render import fused
 from dpcx_torch.serve import ServingModel, serve
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 RTOL = 1e-4

@@ -35,6 +35,9 @@ from dpcx.render import pallas_gsplat as jpg
 from dpcx_torch.render import aniso
 from dpcx_torch.render.fused import _rnd
 from dpcx_torch.render.gsplat import splat_params
+from torch_workers import share_cores
+
+share_cores()
 
 BF16_SHARE, BF16_GRAD_L2 = 2.0**-8, 1e-3  # chip_smoke.py's limits
 F32_RTOL = 1e-5
@@ -139,13 +142,19 @@ def _row_order_backward(pk, z_lo, z_hi, ct, vox, with_rgb, bf16,
                         acc=torch.float32):
     """K7's function in the kernel's order: per row (z, y) the sums over x,
     folded into the point's moments row by row (centred in f32; raw over
-    dpcx's basis in bf16, accumulated in ``acc``, centred in f32)."""
+    dpcx's basis in bf16, accumulated in ``acc``, centred in f32). The
+    terms of a plane's rows are formed at once; only the fold, one add a
+    row for each moment, runs row by row, as the kernel's does."""
     rnd = _rnd if bf16 else (lambda t: t)
     B, _, N = pk.shape
     muz, muy, mux, a00, a01, a02, a11, a12, a22, w = pk[:, :10].unbind(1)
     cells = torch.arange(vox, dtype=torch.float32)
     dx = cells - mux[..., None]                           # [B, N, D(x)]
-    s = [torch.zeros(B, N, dtype=acc) for _ in range(10)]
+    dy = cells - muy[..., None]                           # [B, N, D(y)]
+    ys = torch.arange(vox, dtype=acc)
+    # the bf16 basis' rounded products over the rows y
+    rnd_yy = _rnd(ys.float() * ys.float()).to(acc)
+    s = torch.zeros(10, B, N, dtype=acc)
     v = torch.zeros(B, 3, N)
     for z in range(vox):
         u, t = aniso._cell_terms(aniso._gauss(z, pk, z_lo, z_hi, vox),
@@ -154,23 +163,21 @@ def _row_order_backward(pk, z_lo, z_hi, ct, vox, with_rgb, bf16,
             v[:, c] += rnd(tc).sum((-2, -1))
         u = rnd(u)
         ud = u * dx[:, :, None]
-        rows = (u.sum(-1), ud.sum(-1), (ud * dx[:, :, None]).sum(-1))
-        dz = z - muz
+        r0, r1, r2 = (r.to(acc) for r in (
+            u.sum(-1), ud.sum(-1), (ud * dx[:, :, None]).sum(-1)))
+        if bf16:  # F = (1, z, y, rnd(z z), rnd(z y), rnd(y y))
+            fzz = _rnd(torch.tensor(float(z * z))).item()
+            rnd_zy = _rnd(float(z) * ys.float()).to(acc)
+            terms = (r0, float(z) * r0, ys * r0, fzz * r0, rnd_zy * r0,
+                     rnd_yy * r0, r1, float(z) * r1, ys * r1, r2)
+        else:
+            dz = (z - muz)[..., None]
+            terms = (r0, dz * r0, dy * r0, r1, (dz * dz) * r0,
+                     (dz * dy) * r0, dz * r1, (dy * dy) * r0, dy * r1, r2)
+        terms = torch.stack(terms)                        # [10, B, N, D(y)]
         for y in range(vox):
-            r0, r1, r2 = (r[..., y].to(acc) for r in rows)
-            if bf16:  # F = (1, z, y, rnd(z z), rnd(z y), rnd(y y))
-                f = [float(z), float(y)] + [
-                    _rnd(torch.tensor(float(a * b))).item()
-                    for a, b in ((z, z), (z, y), (y, y))]
-                terms = (r0, f[0] * r0, f[1] * r0, f[2] * r0, f[3] * r0,
-                         f[4] * r0, r1, f[0] * r1, f[1] * r1, r2)
-            else:
-                dy = y - muy
-                terms = (r0, dz * r0, dy * r0, r1, (dz * dz) * r0,
-                         (dz * dy) * r0, dz * r1, (dy * dy) * r0, dy * r1,
-                         r2)
-            for k, term in enumerate(terms):
-                s[k] = s[k] + term
+            s = s + terms[..., y]
+    s = list(s)
     s = [x.float() for x in s]
     if bf16:  # the raw moments, centred as the kernel's centre() does
         p000, pz00, py00, pzz0, pzy0, pyy0, p001, pz01, py01, p002 = s

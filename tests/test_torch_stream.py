@@ -41,6 +41,9 @@ from dpcx_torch.convert import adam_state_from_optax, params_from_flax
 from dpcx_torch.data.dataset import Dataset, save_shards
 from dpcx_torch.data.synthetic import make_dataset
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 # test_torch_train.py's TINY (test_train_e2e.py's), dropout on
 TINY = Config(

@@ -42,6 +42,9 @@ from dpcx_torch.data.synthetic import make_dataset
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 TINY = Config(
     vox_size=12,
@@ -252,7 +255,7 @@ def test_train_step_takes_the_density_fn_it_is_handed(rng):
 
     runs = []
     for fn in (None, plain):
-        state = ttrain.create_state(cfg, "cpu", torch.Generator().manual_seed(0))
+        state = ttrain.create_state(cfg, "cpu", seed=0)
         m = ttrain.train_step(cfg, state, batch, None, density_fn=fn)
         runs.append((m, state.model.state_dict()))
     assert calls == ["float32"]
@@ -288,8 +291,7 @@ def test_train_step_takes_the_project_fn_it_is_handed(predict_pose, rng):
 
     runs = []
     for fn in (None, spy, plain):
-        state = ttrain.create_state(cfg, "cpu",
-                                    torch.Generator().manual_seed(0))
+        state = ttrain.create_state(cfg, "cpu", seed=0)
         m = ttrain.train_step(cfg, state, batch, None, project_fn=fn)
         runs.append((m, state.model.state_dict()))
     K = cfg.pose_predict_num_candidates if predict_pose else 1

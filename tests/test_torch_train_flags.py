@@ -30,6 +30,9 @@ from dpcx_torch.config import Config
 from dpcx_torch.convert import params_from_flax
 from dpcx_torch.data.dataset import Dataset
 from dpcx_torch.utils import prng
+from torch_workers import share_cores
+
+share_cores()
 
 REPO = Path(__file__).resolve().parent.parent
 # largecloud_pointshard's knobs (GT pose, renderer xla, shard_points) at a
