@@ -4,12 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --splat-times TREE
     python3 chip_smoke.py --render-times TREE
+    python3 chip_smoke.py --parallel WORLD
 
 The second form times only K6, K7 and the rgb_splats training step of
 the checkout at TREE (splat_times), for an A/B of a splat kernel change
 against an older commit; the third, the same for the renderer kernels
 (K1, K2 at the car_64_depth and chair_pred_pose renders; K3, K4 + K5 at
-the multicat_128 one) and those configs' steps (render_times). The
+the multicat_128 one) and those configs' steps (render_times); the
+fourth runs phase 9g alone at WORLD ranks (after the datagen and phase 9d
+it needs; NCCL on a machine with a card a rank) and a second one-card
+run of its configs, the one-card path's own spread (parallel_only). The
 first runs these phases, each of which raises on failure (exit code
 non-zero):
 
@@ -171,6 +175,29 @@ non-zero):
               warns once per verb, as dpcx on one device): `cli datagen`
               (32 models) and `cli train` for 30 steps (finite losses, the
               last 10 below the first 10, no kernel launch).
+9g. parallel — two ranks of `python -m torch.distributed.run
+              --standalone --nproc_per_node 2` on the one card (gloo: the
+              ranks share it; a correctness phase, not a speed-up), each
+              first holding a 1 MB all_reduce of a CUDA tensor: (a) `cli
+              train` of car_64_depth at full width, dropout off, 10 steps
+              at W 1 (this process) and W 2 (B 4 a rank, one K1 and one K2
+              launch a step in each rank, counts set to 0 just before):
+              the logged loss_total within rtol 2e-3 and the final
+              checkpoint's parameters within atol 5e-3 of W 1's (dpcx's
+              test_dp_scan_matches_single_device_scan); (b)
+              largecloud_pointshard as shipped at W 2 for 30 steps (the
+              points split over the ranks): no one-device warning,
+              finite, falling, within rtol 2e-3 of 9d's losses at each of
+              the first 4 steps and in their mean (two one-card runs
+              differ by up to 6.3e-3 at a later step); (c) the
+              point- and grid-sharded renderers and the GT-pose loss at D
+              32 and 64 (sum and both DRC modes, rgb where DRC composes
+              it, 8 renders of 16000 points with weights) against the
+              one-rank eager render: silhouette 1e-5, depth and rgb 1e-4,
+              gradients with respect to points, rgb and weights 2e-5
+              (dpcx's tests/test_sharded_render.py). Each run's seconds
+              and step median, W 1 and W 2, beside the card's name and
+              power limit; the ranks' output to OUT_DIR.
 9f. bench   — `cli bench` at dpcx's full shapes (dpcx_torch/bench.py), in
               this process with every launch count 0 just before and read
               just after: every key finite and positive (the headline bf16
@@ -323,6 +350,21 @@ C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
              "dpcx_fused_render_bwd_recompute", "dpcx_aniso_render",
              "dpcx_aniso_render_bwd")
 SHARD_WARNING = "shard_points on a single device is a no-op"
+# phase 9g: two ranks (torch.distributed.run) share the one card over gloo
+PARALLEL_WORLD, DP_STEPS, PARALLEL_TIMEOUT = 2, 10, 480
+# dpcx's test_dp_scan_matches_single_device_scan: the logged loss_total and
+# the parameters of the data-parallel run against the one-device run
+DP_LOSS_RTOL, DP_PARAM_ATOL = 2e-3, 5e-3
+# largecloud_pointshard's two runs of the one-card path already differ by up
+# to 6.3e-3 at a step by step 30 (the splat's float atomics, carried by Adam
+# through bf16 compute; NVIDIA H100 80GB HBM3, 700 W), so its W 2 run is
+# held at DP_LOSS_RTOL step by step over the first LARGECLOUD_EXACT_STEPS,
+# before those differences grow, and on the mean of all its logged losses
+LARGECLOUD_EXACT_STEPS = 4
+# dpcx's tests/test_sharded_render.py: the sharded renderers against the
+# unsharded one (the GT-pose loss's value as the silhouette)
+SHARDED_TOL = {"silhouette": 1e-5, "depth": 1e-4, "rgb": 1e-4, "loss": 1e-5,
+               "grad_points": 2e-5, "grad_rgb": 2e-5, "grad_weights": 2e-5}
 
 
 def card_line() -> str:
@@ -1570,6 +1612,415 @@ def phase_largecloud(cli, fused, tmp: Path) -> None:
                 OUT_DIR / "chip_smoke_largecloud_metrics.jsonl")
 
 
+def step_ms(checkpoint_dir: Path) -> list[float]:
+    """Milliseconds of each logged step after the first of a fresh run
+    logged every step: differences of step / steps_per_sec (the host clock
+    from the run's start, synchronised by each logged read)."""
+    recs = [json.loads(line) for line in
+            (checkpoint_dir / "metrics.jsonl").read_text().splitlines()]
+    ends = [r["step"] / r["steps_per_sec"] for r in recs
+            if "steps_per_sec" in r]
+    return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+
+
+def sharded_cases() -> list[dict]:
+    """Phase 9g (c): each sharded renderer at D 32 and 64, with the sum
+    projection and both DRC modes (rgb where DRC composes it), on 8
+    renders of car_64_depth's 16000 points with weights; and the GT-pose
+    loss at D 64."""
+    cases = []
+    for vox in (32, 64):
+        for mode in ("sum", "drc", "drc_logsum"):
+            for kind in ("point", "grid"):
+                cases.append({"kind": kind, "vox": vox, "mode": mode,
+                              "rgb": mode != "sum" or kind == "point"})
+    cases.append({"kind": "loss", "vox": 64, "mode": "drc", "rgb": True})
+    return cases
+
+
+def sharded_check(case: dict, device) -> dict:
+    """One case of phase 9g (c) in this rank: the sharded render over the
+    world (2 ranks) and the one-rank eager render (renderer xla) of the
+    same seeded inputs, forward and the gradients of a fixed loss with
+    respect to the points, colours and weights -> the largest difference
+    of each output and gradient, and the sharded call's milliseconds."""
+    from dpcx_torch.config import load_config
+    from dpcx_torch.parallel.mesh import make_mesh
+    from dpcx_torch.render import sharded
+    from dpcx_torch.render.project import pointcloud_project_fn
+
+    cfg = load_config(CONFIG).replace(
+        vox_size=case["vox"], renderer="xla", proj_depth=True,
+        proj_type="sum" if case["mode"] == "sum" else "drc",
+        drc_logsum=case["mode"] == "drc_logsum")
+    rng = np.random.default_rng(SEED + case["vox"])
+    B, N = 8, cfg.pc_num_points
+    pts = rng.normal(size=(B, N, 3))
+    pts *= rng.uniform(0.15, 0.4, (B, 1, 3)) / np.linalg.norm(
+        pts, axis=-1, keepdims=True)
+    q = rng.normal(size=(B, 4))
+    inp = {"points": pts, "quat": q / np.linalg.norm(q, axis=1,
+                                                     keepdims=True),
+           "weights": rng.uniform(0.3, 1.0, (B, N)),
+           "target": rng.uniform(0.0, 1.0, (B, cfg.vox_size, cfg.vox_size))}
+    if case["rgb"]:
+        inp["rgb"] = rng.uniform(0.0, 1.0, (B, N, 3))
+    inp = {k: torch.tensor(v, dtype=torch.float32, device=device)
+           for k, v in inp.items()}
+    sigma = torch.tensor(cfg.pc_relative_sigma, device=device)
+    mesh = make_mesh(cfg, device=device)
+
+    def run(render):
+        leaves = {k: inp[k].clone().requires_grad_()
+                  for k in ("points", "rgb", "weights") if k in inp}
+        o = render(leaves)
+        if case["kind"] == "loss":
+            loss, res = o, {"loss": o}
+        else:
+            res = {"silhouette": o.silhouette}
+            loss = torch.mean((o.silhouette - inp["target"]) ** 2)
+            if o.depth is not None and cfg.proj_type == "drc":
+                res["depth"] = o.depth
+                loss = loss + torch.mean(o.depth ** 2)
+            if o.rgb is not None:
+                res["rgb"] = o.rgb
+                loss = loss + torch.mean(o.rgb ** 2)
+        loss.backward()
+        res.update({f"grad_{k}": v.grad for k, v in leaves.items()})
+        return {k: v.detach() for k, v in res.items()}
+
+    masks = (inp["target"] > 0.5).float()
+    tgt_rgb = inp["target"][..., None].expand(-1, -1, -1, 3)
+
+    def sharded_fn(lv):
+        if case["kind"] == "loss":
+            return sharded.gt_pose_projection_loss_sharded(
+                cfg, mesh, lv["points"], inp["quat"], masks, sigma,
+                rgb=lv["rgb"], images_tgt=tgt_rgb,
+                point_weights=lv["weights"])
+        fn = (sharded.pointcloud_project_grid_sharded
+              if case["kind"] == "grid"
+              else sharded.pointcloud_project_point_sharded)
+        return fn(cfg, mesh, lv["points"], inp["quat"], sigma,
+                  point_weights=lv["weights"], rgb=lv.get("rgb"))
+
+    def plain_fn(lv):
+        o = pointcloud_project_fn(cfg, lv["points"], inp["quat"], sigma,
+                                  point_weights=lv["weights"],
+                                  rgb=lv.get("rgb"))
+        if case["kind"] != "loss":
+            return o
+        rgb_cmp = o.rgb + (1.0 - o.silhouette[..., None]) * \
+            cfg.rgb_background
+        w = masks[..., None]
+        return torch.mean((o.silhouette - masks) ** 2) + cfg.rgb_weight * (
+            torch.sum(w * (rgb_cmp - tgt_rgb) ** 2)
+            / (torch.sum(w) * 3.0).clamp_min(1.0))
+
+    got, want = run(sharded_fn), run(plain_fn)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    run(sharded_fn)
+    torch.cuda.synchronize(device)
+    return {"case": case, "ms": (time.perf_counter() - t0) * 1e3,
+            "errs": {k: float((got[k] - want[k]).abs().max())
+                     for k in want},
+            "shapes": {k: list(v.shape) for k, v in got.items()}}
+
+
+def parallel_rank(spec_path: Path) -> int:
+    """One rank of phase 9g, started by torch.distributed.run: a 1 MB
+    all_reduce of a CUDA tensor (gloo takes CUDA tensors), each `cli
+    train` run of the spec (counts set to 0 just before, read just after;
+    the shard_points warnings), then every sharded case; -> the spec's
+    out/rank<r>.json."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from dpcx_torch import cli
+    from dpcx_torch.parallel.mesh import init_from_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(spec_path.read_text())
+    device = init_from_env(spec["device"])
+    rank = dist.get_rank()
+    res = {"rank": rank, "world": dist.get_world_size(),
+           "device": str(device), "backend": dist.get_backend()}
+    x = torch.full((1 << 18,), float(rank + 1), device=device)
+    dist.all_reduce(x)
+    res["all_reduce_1mb"] = float(x.min()), float(x.max())
+    for name, argv in spec["runs"]:
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            cli.main(argv)
+        torch.cuda.synchronize(device)
+        res[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": launch_counts(),
+                     "warnings": [str(w.message) for w in seen
+                                  if SHARD_WARNING in str(w.message)]}
+    res["sharded"] = [sharded_check(c, device) for c in spec["sharded"]]
+    Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(spec: dict, log: Path, world: int) -> list[dict]:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    WORLD chip_smoke.py --parallel-rank SPEC` in its own session,
+    killed whole at PARALLEL_TIMEOUT; its output to ``log``; -> each
+    rank's record."""
+    import os
+    import signal
+
+    out = Path(spec["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(world), str(REPO / "chip_smoke.py"),
+           "--parallel-rank", str(spec_path)]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PARALLEL_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+    if rc != 0:
+        print(log.read_text()[-6000:], flush=True)
+        raise RuntimeError(f"phase 9g ranks ended with {rc}; log {log}")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+class Tee(io.TextIOBase):
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
+
+
+def phase_parallel(cli, tmp: Path, car_cfg, card: str,
+                   world: int = PARALLEL_WORLD) -> None:
+    """Phase 9g (parallel_runs), its output also in OUT_DIR (it lies
+    beyond the tail that a chip call returns)."""
+    OUT_DIR.mkdir(exist_ok=True)
+    with open(OUT_DIR / f"chip_smoke_parallel_w{world}.txt", "w") as f, \
+            contextlib.redirect_stdout(Tee(sys.stdout, f)):
+        parallel_runs(cli, tmp, car_cfg, card, world)
+
+
+def parallel_runs(cli, tmp: Path, car_cfg, card: str, world: int) -> None:
+    """Phase 9g, parallelism on the card: two ranks of
+    torch.distributed.run share it over gloo (a correctness phase: two
+    ranks on one card are no speed-up). (a) `cli train` of car_64_depth at
+    full width (B 8 x 4 views, K1 and K2 in every rank) with dropout off,
+    DP_STEPS steps at W 1 (in this process) and W 2: the logged losses and
+    the final parameters within dpcx's own tolerances; (b)
+    largecloud_pointshard as shipped (shard_points) at W 2 for
+    LARGECLOUD_STEPS: no one-device warning, finite falling losses within
+    DP_LOSS_RTOL of phase 9d's W 1 run (each of the first
+    LARGECLOUD_EXACT_STEPS, and the mean); (c) the sharded renderers against
+    the one-rank eager render (sharded_cases). Every run's seconds and
+    step median, W 1 and W 2."""
+    from dpcx_torch.config import load_config, save_config
+
+    paths = {}
+    for w in (1, world):
+        c = car_cfg.replace(pc_point_dropout=1.0, log_every=1,
+                            save_every=DP_STEPS,
+                            checkpoint_dir=str(tmp / f"dp_w{w}"))
+        paths[w] = str(tmp / f"dp_w{w}.yaml")
+        save_config(c, paths[w])
+    dp_argv = ["-n", str(MODELS), "--steps", str(DP_STEPS)]
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", "-f", paths[1], *dp_argv])
+    torch.cuda.synchronize()
+    w1_secs = time.perf_counter() - t0
+    want = only(fused_render=DP_STEPS, fused_render_bwd=DP_STEPS,
+                **draws(load_config(paths[1]), DP_STEPS))
+    assert launch_counts() == want, launch_counts()
+    lc = load_config(tmp / "largecloud.yaml").replace(
+        checkpoint_dir=str(tmp / f"largecloud_w{world}"))
+    lc_path = str(tmp / f"largecloud_w{world}.yaml")
+    save_config(lc, lc_path)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ranks = run_ranks({
+        "device": "cuda", "out": str(tmp / "parallel"),
+        "runs": [["car", ["train", "-f", paths[world], *dp_argv]],
+                 ["largecloud", ["train", "-f", lc_path, "-n", str(MODELS),
+                                 "--steps", str(LARGECLOUD_STEPS)]]],
+        "sharded": sharded_cases()}, OUT_DIR / "chip_smoke_parallel.log",
+        world)
+    total = sum(range(1, world + 1))
+    # init_from_env's rule: NCCL where every rank has a card of its own
+    shared = world > torch.cuda.device_count()
+    backend = "gloo" if shared else "nccl"
+    note = ("; the ranks share one card: a correctness run, not a speed-up"
+            if shared else "")
+    for r in ranks:
+        print(f"parallel rank {r['rank']} of {r['world']}: {r['device']}, "
+              f"backend {r['backend']}; 1 MB all_reduce of a CUDA tensor "
+              f"min/max {r['all_reduce_1mb']} (want {total})", flush=True)
+        assert r["world"] == world and r["backend"] == backend
+        assert r["all_reduce_1mb"] == [total, total], r["all_reduce_1mb"]
+        assert r["car"]["launches"] == want, r["car"]["launches"]
+        assert r["largecloud"]["launches"] == only(
+            **draws(lc, LARGECLOUD_STEPS)), r["largecloud"]["launches"]
+        assert r["car"]["warnings"] == r["largecloud"]["warnings"] == [], r
+
+    runs = {w: Path(tmp / f"dp_w{w}") for w in (1, world)}
+    for name, d in (("dp_w1", runs[1]), (f"dp_w{world}", runs[world]),
+                    (f"largecloud_w{world}", Path(lc.checkpoint_dir))):
+        shutil.copy(d / "metrics.jsonl",
+                    OUT_DIR / f"chip_smoke_{name}_metrics.jsonl")
+
+    # (a) car_64_depth, W 2 against W 1
+    losses = {w: read_losses(d) for w, d in runs.items()}
+    for w, ls in losses.items():
+        assert [s for s, _ in ls] == list(range(1, DP_STEPS + 1)), (w, ls)
+    a = np.array([v for _, v in losses[1]])
+    b = np.array([v for _, v in losses[world]])
+    loss_rel = float(np.max(np.abs(b - a) / np.abs(a)))
+    p1, p2 = (torch.load(d / "ckpt" / f"{DP_STEPS}.pt", map_location="cpu",
+                         weights_only=True)["params"] for d in runs.values())
+    param_err = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+    secs = {1: w1_secs, world: ranks[0]["car"]["seconds"]}
+    for w, d in runs.items():
+        ms = step_ms(d)
+        rows = car_cfg.batch_size // w
+        print(f"parallel car_64_depth W {w} (B 8 x 4 views, N 16000, D 64, "
+              f"{'the whole batch' if w == 1 else f'B {rows} a rank'}): "
+              f"{DP_STEPS} steps in {secs[w]:.2f} s, step median "
+              f"{statistics.median(ms):.3f} ms (steps 2-{DP_STEPS}) | {card}"
+              + ("" if w == 1 else note), flush=True)
+    print(f"parallel car_64_depth W {world} vs W 1: loss_total "
+          f"relative difference by step "
+          f"{np.array2string(np.abs(b - a) / np.abs(a), precision=2)}, the "
+          f"largest {loss_rel:.3e} (rtol "
+          f"{DP_LOSS_RTOL}), final parameters {param_err:.3e} (atol "
+          f"{DP_PARAM_ATOL}); launches a rank {ranks[0]['car']['launches']}",
+          flush=True)
+    fails = []
+    if not (loss_rel <= DP_LOSS_RTOL and param_err <= DP_PARAM_ATOL):
+        fails.append(("car_64_depth W 2 vs W 1", loss_rel, param_err))
+
+    # (b) largecloud_pointshard, W 2 against phase 9d's W 1
+    one = np.array([v for _, v in read_losses(tmp / "largecloud")])
+    two_recs = read_losses(Path(lc.checkpoint_dir))
+    two = np.array([v for _, v in two_recs])
+    assert [s for s, _ in two_recs] == list(range(1, LARGECLOUD_STEPS + 1))
+    assert np.isfinite(two).all(), two
+    k, e = LARGECLOUD_STEPS // 3, LARGECLOUD_EXACT_STEPS
+    by_step = np.abs(two - one) / np.abs(one)
+    lc_rel = float(by_step[:e].max())
+    mean_rel = abs(two.mean() - one.mean()) / one.mean()
+    for w, d, sec in ((1, tmp / "largecloud", None),
+                      (world, Path(lc.checkpoint_dir),
+                       ranks[0]["largecloud"]["seconds"])):
+        ms = step_ms(d)
+        split = f", the points split over {w} ranks" if w > 1 else ""
+        print(f"parallel largecloud_pointshard W {w} (N 131072, D 32, B 4 x "
+              f"2 views{split}): {'' if sec is None else f'{sec:.2f} s, '}"
+              f"step median {statistics.median(ms):.3f} ms (steps "
+              f"2-{LARGECLOUD_STEPS}) | {card}" + ("" if w == 1 else note),
+              flush=True)
+    print(f"parallel largecloud_pointshard W {world}: loss_total "
+          f"mean of the first {k} {two[:k].mean():.6f}, of the last {k} "
+          f"{two[-k:].mean():.6f}; against W 1: relative difference by step "
+          f"{np.array2string(by_step, precision=2)}, of the first {e} at "
+          f"most {lc_rel:.3e}, of the mean of all {mean_rel:.3e} (rtol "
+          f"{DP_LOSS_RTOL} each); no one-device warning", flush=True)
+    if not (two[-k:].mean() < two[:k].mean() and lc_rel <= DP_LOSS_RTOL
+            and mean_rel <= DP_LOSS_RTOL):
+        fails.append(("largecloud_pointshard W 2 vs W 1", lc_rel, mean_rel))
+
+    # (c) the sharded renderers against the one-rank eager render
+    for r in ranks:
+        for res in r["sharded"]:
+            c = res["case"]
+            label = (f"{c['kind']} D {c['vox']} {c['mode']}"
+                     f"{' rgb' if c['rgb'] else ''}")
+            if r["rank"] == 0:
+                print(f"parallel sharded {label}: "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in
+                                  res["errs"].items())
+                      + f"; {res['ms']:.2f} ms forward + backward (W "
+                      f"{world}) | {card}", flush=True)
+            fails += [(r["rank"], label, k, v)
+                      for k, v in res["errs"].items()
+                      if not v <= SHARDED_TOL[k]]
+    assert not fails, fails
+
+
+def parallel_only(world: int) -> int:
+    """Phase 9g alone at ``world`` ranks, after what it needs
+    (car_64_depth's datagen, phase 9d), then a second one-card run of
+    car_64_depth's and largecloud_pointshard's: their losses against the
+    first are the one-card path's own spread (the splat's float atomics),
+    beside which phase 9g's differences read."""
+    from dpcx_torch import _build, cli
+    from dpcx_torch.config import load_config, save_config
+    from dpcx_torch.render import fused
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main()
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card} x {torch.cuda.device_count()}; torch "
+          f"{torch.__version__}", flush=True)
+    _build.build()
+    _build.load()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp_name:
+        tmp = Path(tmp_name)
+        car_cfg = load_config(CONFIG).replace(
+            data_dir=str(tmp / "data"), checkpoint_dir=str(tmp / "car"),
+            log_every=1, save_every=100)
+        save_config(car_cfg, tmp / "car.yaml")
+        phase_datagen(cli, fused, str(tmp / "car.yaml"), MODELS,
+                      "car_64_depth")
+        phase_largecloud(cli, fused, tmp)
+        t0 = time.perf_counter()
+        phase_parallel(cli, tmp, car_cfg, card, world)
+        print(f"phase 9g at W {world}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for name, steps in (("dp_w1", DP_STEPS),
+                            ("largecloud", LARGECLOUD_STEPS)):
+            path = tmp / f"{name}_again.yaml"
+            save_config(load_config(tmp / f"{name}.yaml").replace(
+                checkpoint_dir=str(tmp / f"{name}_again")), path)
+            cli.main(["train", "-f", str(path), "-n", str(MODELS),
+                      "--steps", str(steps)])
+            a, b = (np.array([v for _, v in read_losses(tmp / d)])
+                    for d in (name, f"{name}_again"))
+            by_step = np.abs(b - a) / np.abs(a)
+            print(f"one card, two runs of {name}: loss_total relative "
+                  f"difference by step {np.array2string(by_step, precision=2)}"
+                  f", the worst {by_step.max():.3e}, of the mean "
+                  f"{abs(b.mean() - a.mean()) / a.mean():.3e} | {card}",
+                  flush=True)
+    return 0
+
+
 def splat_inputs(renders: int, n: int, vox: int, seed: int, with_rgb: bool,
                  keep: float = 0.1):
     """Seeded K6/K7 inputs as the gsplat renderer makes them
@@ -2758,6 +3209,12 @@ def main() -> int:
                     help="time only the renderer kernels (K1-K5) and the "
                          "car_64_depth, chair_pred_pose and multicat_128 "
                          "steps of the checkout at TREE (see render_times)")
+    ap.add_argument("--parallel", metavar="WORLD", type=int,
+                    help="phase 9g alone at WORLD ranks (NCCL where each "
+                         "has a card), and the one-card path's own spread "
+                         "(see parallel_only)")
+    ap.add_argument("--parallel-rank", metavar="SPEC", type=Path,
+                    help=argparse.SUPPRESS)  # phase 9g's ranks
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2767,6 +3224,10 @@ def main() -> int:
         return splat_times(args.splat_times)
     if args.render_times is not None:
         return render_times(args.render_times)
+    if args.parallel_rank is not None:
+        return parallel_rank(args.parallel_rank)
+    if args.parallel is not None:
+        return parallel_only(args.parallel)
 
     from dpcx_torch import _build, cli
     from dpcx_torch.config import load_config, save_config
@@ -2914,6 +3375,9 @@ def main() -> int:
             phase_eval(cli, str(tmp / "chair_pred_pose.yaml"), car_path)
             # 9d. largecloud_pointshard: shard_points on one card
             phase_largecloud(cli, fused, tmp)
+            # 9g. parallelism: two ranks on the card (DP car_64_depth,
+            # largecloud_pointshard sharded, the sharded renderers)
+            phase_parallel(cli, tmp, car_cfg, card)
             # 9f. the bench verb at dpcx's shapes through K1-K7
             phase_bench(cli, card)
 

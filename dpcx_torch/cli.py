@@ -3,6 +3,8 @@
 
     python -m dpcx_torch.cli datagen -f experiments/car_64_depth.yaml -n 32
     python -m dpcx_torch.cli train   -f experiments/car_64_depth.yaml -n 32 --steps 200
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m dpcx_torch.cli train -f experiments/largecloud_pointshard.yaml
     python -m dpcx_torch.cli eval    -f experiments/chair_pred_pose.yaml -n 32 --all-views
     python -m dpcx_torch.cli predict -f experiments/car_64_depth.yaml -n 32 -o preds.npz
     python -m dpcx_torch.cli serve   -f experiments/car_64_depth.yaml
@@ -33,14 +35,29 @@ def _load_cfg(args, validate: bool = True):
 
 
 def cmd_train(args) -> None:
+    """Train on one device, or, under ``torch.distributed.run``, as one
+    rank of its world (``parallel.mesh.init_from_env``: the group is made
+    before the config is validated, so that ``shard_points`` counts the
+    real world; ``--device cuda`` is this rank's card). Rank 0 prints the
+    last record."""
+    import torch.distributed as dist
+
+    from dpcx_torch.parallel.mesh import init_from_env, rank
     from dpcx_torch.train import train
 
-    cfg = _load_cfg(args, validate=False)  # train() validates
-    if args.steps:
-        cfg = cfg.replace(max_number_of_steps=args.steps)
-    _, history = train(cfg, num_models=args.num_models, device=args.device)
-    if history:
-        print(json.dumps(history[-1]))
+    joined = not dist.is_initialized()
+    device = init_from_env(args.device)
+    joined = joined and dist.is_initialized()
+    try:
+        cfg = _load_cfg(args, validate=False)  # train() validates
+        if args.steps:
+            cfg = cfg.replace(max_number_of_steps=args.steps)
+        _, history = train(cfg, num_models=args.num_models, device=device)
+        if history and rank() == 0:
+            print(json.dumps(history[-1]))
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def cmd_datagen(args) -> None:

@@ -5,8 +5,10 @@ The port reads the same ``experiments/*.yaml`` as dpcx, so ``Config`` has
 the same fields, types and defaults, and ``validate()`` the same checks and
 messages (``tests/test_torch_config.py`` pins the copy to dpcx's). The copy
 exists so that this package imports nothing of dpcx. Where dpcx counts
-jax devices (the ``shard_points`` warning), the port counts the processes
-of the ``torch.distributed`` group, one card each (``world_size``).
+jax devices (the ``shard_points`` warning, ``train``'s mesh, the point
+shards), the port counts the processes of the ``torch.distributed`` group,
+one device each (``world_size``); ``mesh_shape`` and ``mesh_axes`` shape
+its process mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations

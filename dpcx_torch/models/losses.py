@@ -23,6 +23,19 @@ and ``pc_point_dropout < 1`` the points carry Bernoulli keep weights drawn
 from the ``utils.prng`` key passed in: dpcx's ``jax.random`` draws, bit for
 bit.
 
+With ``shard_points`` in a ``torch.distributed`` world of more than one
+process, the GT-pose render is ``render/sharded.py``'s point-sharded one
+over ``nd`` ranks, ``nd`` the largest divisor of N not above the world (the
+others hold empty shards), as dpcx shards over its devices. Its point
+cotangent comes back whole on every rank. With a ``batch_mesh`` (the
+host-fed step of data parallelism, whose result is dpcx's one-device step
+of the whole batch) the rank holds its rows of the batch: the dropout
+weights are its rows of the whole batch's draw, and the terms that are not
+means over the batch are formed from sums over the ranks, with gradients
+through them: the GT-pose colour loss (a ratio of sums), and the batch
+means of the predicted-pose selection (``rgb_sel_normalize``'s and the
+softmin's temperature).
+
 Masks, depths and target images stored at another resolution than
 ``vox_size`` are resized at loss time as the reference resizes them with
 ``jax.image.resize``: masks and images bilinearly with antialiasing
@@ -36,19 +49,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dpcx_torch.config import Config
+from dpcx_torch.config import Config, world_size
 from dpcx_torch.eval.chamfer import chamfer_distance
 from dpcx_torch.eval.pose_metrics import gauge_spread_deg
 from dpcx_torch.geometry.quaternion import (
     quaternion_conjugate,
     quaternion_multiply,
 )
+from dpcx_torch.parallel.mesh import all_sum, make_mesh, shard_bounds
 from dpcx_torch.render.gsplat import gsplat_project
 from dpcx_torch.render.project import (
     keep_prob_schedule,
     pointcloud_project_fn,
     sigma_schedule,
 )
+from dpcx_torch.render.sharded import pointcloud_project_point_sharded
 from dpcx_torch.render.voxelize import pc_point_dropout_weights
 
 
@@ -71,6 +86,19 @@ def _resize(x: torch.Tensor, size: int, mode: str) -> torch.Tensor:
     return out.reshape(*lead, size, size)
 
 
+def _batch_sum(x: torch.Tensor, batch_mesh) -> torch.Tensor:
+    """``x`` summed over the ranks that hold the batch's rows (``x`` itself
+    without a ``batch_mesh``), the cotangent summed back."""
+    return x if batch_mesh is None else all_sum(x, batch_mesh)
+
+
+def _batch_mean(x: torch.Tensor, batch_mesh) -> torch.Tensor:
+    """The mean of ``x`` [B_local, ...] over the whole batch."""
+    if batch_mesh is None:
+        return x.mean()
+    return all_sum(x.sum(), batch_mesh) / (x.numel() * batch_mesh.size)
+
+
 def _clip01(x: float) -> float:
     return min(max(x, 0.0), 1.0)
 
@@ -88,16 +116,19 @@ def candidate_scores(
     l_k: torch.Tensor,
     rgb_l_k: torch.Tensor | None,
     ramp: float = 1.0,
+    batch_mesh=None,
 ) -> torch.Tensor:
     """Per-candidate selection score [B, K] (or [B, K, V]) for the hard-min
     argmin. With rgb and ``cfg.rgb_sel_normalize`` each error is divided by
-    its detached batch mean, so silhouette and colour weigh O(1) each;
-    the loss values are unaffected, only the argmin's input changes."""
+    its detached batch mean (of the whole batch, over ``batch_mesh``), so
+    silhouette and colour weigh O(1) each; the loss values are unaffected,
+    only the argmin's input changes."""
     if rgb_l_k is None:
         return cfg.proj_weight * l_k
     if cfg.rgb_sel_normalize:
-        return l_k / (l_k.mean().detach() + 1e-8) + ramp * rgb_l_k / (
-            rgb_l_k.mean().detach() + 1e-8)
+        return l_k / (_batch_mean(l_k.detach(), batch_mesh) + 1e-8) + \
+            ramp * rgb_l_k / (_batch_mean(rgb_l_k.detach(), batch_mesh)
+                              + 1e-8)
     return cfg.proj_weight * l_k + cfg.rgb_weight * ramp * rgb_l_k
 
 
@@ -117,6 +148,7 @@ def compute_loss(
     train: bool = True,
     density_fn=None,
     project_fn=None,
+    batch_mesh=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total loss + metrics dict.
 
@@ -128,7 +160,9 @@ def compute_loss(
     ``utils.prng`` key) draws the point dropout weights on the points'
     device; it is needed only when ``train`` and ``pc_point_dropout < 1``. ``density_fn`` goes to
     ``gsplat_project``, ``project_fn`` to ``pointcloud_project_fn`` (None:
-    the kernels' dispatchers).
+    the kernels' dispatchers). ``batch_mesh``: the mesh whose ranks hold the
+    rows of one batch, this rank's the ones given (None: the batch is
+    whole).
     """
     points = preds["points"]  # [B, N, 3]
     B = points.shape[0]
@@ -149,13 +183,18 @@ def compute_loss(
         if key is None:
             raise ValueError("point dropout needs a key")
         keep = keep_prob_schedule(cfg, step)
+        rows = B if batch_mesh is None else B * batch_mesh.size
         point_weights = pc_point_dropout_weights(
-            key, B, points.shape[1], keep, points.device
+            key, rows, points.shape[1], keep, points.device
         )
+        if batch_mesh is not None:  # this rank's rows of the whole draw
+            lo, hi = shard_bounds(rows, batch_mesh)
+            point_weights = point_weights[lo:hi]
     metrics: dict[str, torch.Tensor] = {"sigma_rel": sigma_rel}
     pose_loss = _predicted_pose_loss if cfg.predict_pose else _gt_pose_loss
     total = pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
-                      point_weights, step, metrics, density_fn, project_fn)
+                      point_weights, step, metrics, density_fn, project_fn,
+                      batch_mesh)
 
     if cfg.predict_scale and cfg.scale_weight > 0 and "scale" in preds:
         s_loss = torch.mean((preds["scale"] - 0.7) ** 2)
@@ -176,7 +215,7 @@ def compute_loss(
 
 def _gt_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
                   point_weights, step, metrics, density_fn,
-                  project_fn) -> torch.Tensor:
+                  project_fn, batch_mesh) -> torch.Tensor:
     """The GT-pose branch: render B*V views in one batched call."""
     points = preds["points"]
     B, V, D = points.shape[0], masks.shape[1], cfg.vox_size
@@ -198,6 +237,17 @@ def _gt_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
             preds["gauss_rot"].repeat_interleave(V, dim=0),
             opacity=opacity, rgb=rgb, density_fn=density_fn,
         )
+    elif cfg.shard_points and world_size() > 1:
+        # every rank renders the whole batch; the points shard over the
+        # largest count of ranks that divides N, the others splat nothing
+        N, nd = points.shape[1], world_size()
+        while N % nd:
+            nd -= 1
+        mesh = make_mesh(cfg, ranks=range(nd), device=points.device,
+                         join_all=True)
+        out = pointcloud_project_point_sharded(cfg, mesh, pts, quats,
+                                               sigma_rel, point_weights=pw,
+                                               rgb=rgb)
     else:
         out = pointcloud_project_fn(cfg, pts, quats, sigma_rel,
                                     point_weights=pw, rgb=rgb,
@@ -216,8 +266,9 @@ def _gt_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
         rgb_proj = rgb_proj.reshape(B, V, D, D, 3)
         rgb_proj = rgb_proj + (1.0 - sil[..., None]) * cfg.rgb_background
         w = masks[..., None]
-        rgb_loss = torch.sum(w * (rgb_proj - tgt) ** 2) / (
-            torch.sum(w) * 3.0).clamp_min(1.0)
+        rgb_loss = _batch_sum(torch.sum(w * (rgb_proj - tgt) ** 2),
+                              batch_mesh) / (
+            _batch_sum(torch.sum(w), batch_mesh) * 3.0).clamp_min(1.0)
         total = total + cfg.rgb_weight * rgb_loss
         metrics["loss_rgb"] = rgb_loss
     if cfg.proj_depth and cfg.drc_weight > 0:
@@ -240,7 +291,7 @@ def _iou(sil: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
                          point_weights, step, metrics, density_fn,
-                         project_fn) -> torch.Tensor:
+                         project_fn, batch_mesh) -> torch.Tensor:
     """The predicted-pose branch: K candidates, hard-min selection."""
     points = preds["points"]
     B, V, D = points.shape[0], masks.shape[1], cfg.vox_size
@@ -314,7 +365,7 @@ def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
         denom = (w.sum(axes) * 3.0).clamp_min(1.0)
         rgb_l_k = (w * (rgb_cmp - tgt[:, None]) ** 2).sum(axes) / denom
     ramp = rgb_ramp(cfg, step)
-    comb_k = candidate_scores(cfg, l_k, rgb_l_k, ramp)
+    comb_k = candidate_scores(cfg, l_k, rgb_l_k, ramp, batch_mesh)
     k_star = torch.argmin(comb_k, dim=1)  # [B] or [B, V]
     sel_w = None
     if cfg.pose_softmin_temp > 0 and cfg.pose_softmin_steps > 0:
@@ -322,7 +373,8 @@ def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
         # at a relative temperature decaying to ~0
         frac = _clip01(1.0 - float(step) / cfg.pose_softmin_steps)
         scores = comb_k.detach()
-        t_eff = cfg.pose_softmin_temp * frac * scores.mean() + 1e-8
+        t_eff = cfg.pose_softmin_temp * frac * _batch_mean(
+            scores, batch_mesh) + 1e-8
         sel_w = torch.softmax(-scores / t_eff, dim=1)
         proj_loss = torch.mean((sel_w * l_k).sum(1))
         metrics["sel_entropy"] = torch.mean(

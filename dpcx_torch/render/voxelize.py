@@ -36,31 +36,38 @@ def pc_point_dropout_weights(key, batch: int, num_points: int, keep_prob,
                                        device)
 
 
-def pointcloud2voxels_scatter(
+def splat_raw(
     points_ndc: torch.Tensor,
     vox_size: int,
     point_weights: torch.Tensor | None = None,
     rgb: torch.Tensor | None = None,
-) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
-    """Scatter-add splat. points_ndc [B, N, 3] -> grid [B, D, D, D].
+    z_range: tuple[int, int] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The scatter-add splat before colour normalisation: points_ndc
+    [B, N, 3] -> (density [B, Z, D, D], colour numerator [B, Z, D, D, 3] or
+    None), of grid slabs ``z_range = (lo, hi)`` (default all D; slabs
+    outside the grid stay 0).
 
     Each point adds its 8 trilinear corner weights (times its point weight)
-    with ``index_add_`` on a flattened grid; out-of-grid corners are dropped.
-    With ``rgb`` [B, N, 3], also returns rgb_grid [B, D, D, D, 3] holding
-    weight-normalised colours.
+    with ``index_add_`` on a flattened grid; out-of-grid corners and corners
+    outside the slabs are dropped.
     """
     B, N, _ = points_ndc.shape
     D = vox_size
+    lo, hi = (0, D) if z_range is None else z_range
+    Z = hi - lo
     g = ndc_to_grid(points_ndc, D)  # [B, N, 3] in (z, y, x)
     i0 = torch.floor(g)
     frac = g - i0
     i0 = i0.to(torch.int64)
-    base = torch.arange(B, device=g.device)[:, None] * D**3  # [B, 1]
+    base = torch.arange(B, device=g.device)[:, None] * (Z * D * D)  # [B, 1]
 
-    grid = torch.zeros(B * D**3, dtype=points_ndc.dtype, device=g.device)
+    grid = torch.zeros(B * Z * D * D, dtype=points_ndc.dtype,
+                       device=g.device)
     rgb_grid = (
         None if rgb is None
-        else torch.zeros(B * D**3, 3, dtype=points_ndc.dtype, device=g.device)
+        else torch.zeros(B * Z * D * D, 3, dtype=points_ndc.dtype,
+                         device=g.device)
     )
     for dz in (0, 1):
         for dy in (0, 1):
@@ -77,23 +84,38 @@ def pointcloud2voxels_scatter(
                 # torch negative indices wrap like JAX's, so out-of-grid
                 # corners must be masked, not just clipped
                 valid = (
-                    (iz >= 0) & (iz < D)
+                    (iz >= max(lo, 0)) & (iz < min(hi, D))
                     & (iy >= 0) & (iy < D)
                     & (ix >= 0) & (ix < D)
                 )
                 w = torch.where(valid, w, torch.zeros_like(w))
                 flat = (base + (
-                    iz.clamp(0, D - 1) * D + iy.clamp(0, D - 1)
+                    (iz - lo).clamp(0, Z - 1) * D + iy.clamp(0, D - 1)
                 ) * D + ix.clamp(0, D - 1)).reshape(-1)
                 grid.index_add_(0, flat, w.reshape(-1))
                 if rgb_grid is not None:
                     rgb_grid.index_add_(
                         0, flat, (w[..., None] * rgb).reshape(-1, 3)
                     )
-    grid = grid.reshape(B, D, D, D)
+    grid = grid.reshape(B, Z, D, D)
+    if rgb_grid is not None:
+        rgb_grid = rgb_grid.reshape(B, Z, D, D, 3)
+    return grid, rgb_grid
+
+
+def pointcloud2voxels_scatter(
+    points_ndc: torch.Tensor,
+    vox_size: int,
+    point_weights: torch.Tensor | None = None,
+    rgb: torch.Tensor | None = None,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-add splat. points_ndc [B, N, 3] -> grid [B, D, D, D]
+    (``splat_raw``). With ``rgb`` [B, N, 3], also returns rgb_grid
+    [B, D, D, D, 3] holding weight-normalised colours.
+    """
+    grid, rgb_grid = splat_raw(points_ndc, vox_size, point_weights, rgb)
     if rgb_grid is None:
         return grid
-    rgb_grid = rgb_grid.reshape(B, D, D, D, 3)
     return grid, rgb_grid / grid[..., None].clamp_min(1e-6)
 
 

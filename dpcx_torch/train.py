@@ -44,14 +44,31 @@ logged steps restart from 0 after a reseed.
 With an ``eval_dataset``, ``train`` evaluates it (``predict.evaluate``,
 view 0) after every pass that crosses a multiple of ``eval_every`` and
 logs ``val_<metric>`` records, as dpcx does; without one dpcx evaluates
-nothing either, and ``eval_every`` only sets the chunk. ``shard_points``
-on one process renders unsharded, as dpcx on one device
-(``Config.validate`` warns). With ``profile_dir`` one pass of the loop is
-traced, as dpcx traces one: the one after the first, by
-``utils.profiling.trace``. Not ported yet, and refused: point sharding
-over more than one process (item 5). On one device dpcx's multi-device
-scan (``train_steps_scan_dp``, which folds the device index into each
-dropout key) does not arise.
+nothing either, and ``eval_every`` only sets the chunk. With
+``profile_dir`` one pass of the loop is traced, as dpcx traces one: the one
+after the first, by ``utils.profiling.trace``.
+
+In a ``torch.distributed`` world of W processes (``torch.distributed.run``;
+one rank a device) ``train`` is dpcx's ``train`` over a mesh of W devices:
+
+- data parallelism over ``n`` ranks, ``n`` the largest divisor of
+  ``batch_size`` not above W. With ``device_data`` each step is
+  ``train_steps_scan_dp``'s (dpcx's multi-device scan): every rank draws
+  the whole batch, takes its rows and folds its index into the dropout
+  key, and the gradients and metrics are averaged over the ranks before
+  Adam. Host-fed, the rank takes its rows of the host batch and the step is
+  dpcx's one-device step of the whole batch (``compute_loss``'s
+  ``batch_mesh``). Ranks beyond ``n`` take no step: they wait in one
+  ``broadcast`` a pass of the loop and receive rank 0's final state;
+- with ``shard_points`` every rank steps on the whole batch and the loss
+  shards the points over the ranks (``models/losses.py``);
+- rank 0's state after ``restore_checkpoint`` goes to every rank, and
+  only rank 0 writes ``metrics.jsonl``, config, checkpoints, image
+  summaries, ``val_*`` records and the trace; every stepping rank runs the
+  periodic eval and holds the same logged records.
+
+``shard_points`` on one process renders unsharded, as dpcx on one device
+(``Config.validate`` warns).
 """
 
 from __future__ import annotations
@@ -71,6 +88,16 @@ from dpcx_torch.config import Config, world_size
 from dpcx_torch.data.dataset import Dataset, load_or_make
 from dpcx_torch.models.losses import compute_loss
 from dpcx_torch.models.model_pc import ModelPointCloud
+from dpcx_torch.parallel.mesh import (
+    Mesh,
+    all_mean_,
+    barrier,
+    broadcast_,
+    make_mesh,
+    rank,
+    shard_batch,
+    shard_bounds,
+)
 from dpcx_torch.predict import evaluate
 from dpcx_torch.utils import prng
 from dpcx_torch.utils.profiling import trace
@@ -148,13 +175,17 @@ def update(
     drop_key,
     density_fn=None,
     project_fn=None,
+    mesh: Mesh | None = None,
+    batch_mesh: Mesh | None = None,
 ) -> dict[str, torch.Tensor]:
     """One step (forward, render, backward, Adam) on ``state`` in place,
     with point dropout drawn from ``drop_key`` (a ``utils.prng`` key);
     returns the metrics as device tensors, ``grad_norm`` included.
     ``density_fn`` and ``project_fn`` go to ``compute_loss`` (the
     anisotropic splats' density and the fused renderer; None: the kernels'
-    dispatchers).
+    dispatchers), and so does ``batch_mesh``. With a ``mesh`` the gradients
+    and metrics are averaged over its ranks before Adam (dpcx's ``pmean``),
+    in one ``all_reduce``; ``grad_norm`` is the averaged gradient's.
 
     With ``cfg.remat`` model plus loss run under ``torch.utils.checkpoint``
     (dpcx's ``jax.checkpoint`` of its ``loss_fn``): their activations are
@@ -165,7 +196,7 @@ def update(
         preds = apply_model(cfg, state.model, batch)
         return compute_loss(cfg, preds, batch, state.step, drop_key,
                             train=True, density_fn=density_fn,
-                            project_fn=project_fn)
+                            project_fn=project_fn, batch_mesh=batch_mesh)
 
     if cfg.remat:
         from torch.utils.checkpoint import checkpoint
@@ -184,22 +215,29 @@ def update(
         # global one
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    metrics = {k: v.detach().clone() for k, v in metrics.items()}
+    if mesh is not None:
+        all_mean_([p.grad for p in params] + list(metrics.values()), mesh)
     metrics["grad_norm"] = torch.linalg.vector_norm(
         torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
     )  # optax.global_norm
     opt.step()
     state.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def train_step(cfg: Config, state: TrainState, batch: dict[str, torch.Tensor],
-               key, density_fn=None, project_fn=None
-               ) -> dict[str, torch.Tensor]:
+               key, density_fn=None, project_fn=None,
+               mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
     """dpcx's host-fed step (``dpcx/train.py::train_step``): ``update``
     with the dropout key ``fold_in(key, state.step)`` (None: no dropout
-    key, for a config without dropout)."""
+    key, for a config without dropout). With a ``mesh`` of more than one
+    rank ``batch`` is this rank's rows (``shard_batch``) and the step is
+    dpcx's step of the whole batch on a sharded batch: its loss, gradients
+    and metrics."""
     drop_key = None if key is None else prng.fold_in(key, state.step)
-    return update(cfg, state, batch, drop_key, density_fn, project_fn)
+    return update(cfg, state, batch, drop_key, density_fn, project_fn,
+                  mesh=mesh, batch_mesh=mesh)
 
 
 def device_records(dataset: Dataset, device,
@@ -276,14 +314,21 @@ def gather_batch(cfg: Config, records: dict[str, torch.Tensor],
 
 
 def scan_batch(cfg: Config, records: dict[str, torch.Tensor], key,
-               step: int) -> tuple[dict[str, torch.Tensor], Any]:
+               step: int, mesh: Mesh | None = None
+               ) -> tuple[dict[str, torch.Tensor], Any]:
     """One step's draws of dpcx's device-resident scan
     (``dpcx/train.py:153-190``) -> (the batch gathered from ``records``,
     the dropout key). ``kk = fold_in(key, step)`` splits into the keys of
     the model ids, the input views, the target views' uniforms and the
     dropout; ``fold_in(kk, 7)`` is the second input view's, drawn when
     ``pose_consistency_weight > 0``. One ``prng.batch_draws`` launch on
-    the card; no host sync."""
+    the card; no host sync.
+
+    With a ``mesh`` the batch is this rank's rows of the whole batch, as
+    dpcx's multi-device scan takes them (``dpcx/train.py:272-296``), the
+    dropout key not yet folded: there every device draws the second input
+    view's offsets for its own rows alone, from ``k_vin2``, so each slice
+    takes the offsets of the whole batch's first rows (dpcx's, matched)."""
     M, V = records["images"].shape[:2]
     kk = prng.fold_in(key, step)
     k_m, k_vin, k_tgt, k_drop = prng.split(kk, 4)
@@ -291,6 +336,17 @@ def scan_batch(cfg: Config, records: dict[str, torch.Tensor], key,
     rows = prng.batch_draws(k_m, k_vin, k_tgt, k_vin2, cfg.batch_size, M, V,
                             min(cfg.views_per_step, V),
                             records["images"].device)
+    if mesh is not None:
+        lo, hi = shard_bounds(cfg.batch_size, mesh)
+        if k_vin2 is not None:
+            # rows[:, 1] = m V + (v_in + 1 + off) % V: the slice keeps its
+            # m and v_in and takes off of rows [0, hi - lo)
+            v_in = rows[:, 0] % V
+            off = (rows[:, 1] % V - v_in - 1) % V
+            rows = rows.clone()
+            rows[lo:hi, 1] = (rows[lo:hi, 0] // V) * V + (
+                v_in[lo:hi] + 1 + off[:hi - lo]) % V
+        rows = rows[lo:hi]
     return gather_batch(cfg, records, rows), k_drop
 
 
@@ -308,6 +364,26 @@ def train_steps_scan(cfg: Config, state: TrainState,
     for _ in range(n_steps):
         batch, k_drop = scan_batch(cfg, records, key, state.step)
         metrics = update(cfg, state, batch, k_drop, density_fn, project_fn)
+    return metrics
+
+
+def train_steps_scan_dp(cfg: Config, state: TrainState,
+                        records: dict[str, torch.Tensor], key, n_steps: int,
+                        mesh: Mesh, density_fn=None, project_fn=None
+                        ) -> dict[str, torch.Tensor]:
+    """``n_steps`` data-parallel steps (dpcx's ``train_steps_scan_dp``):
+    each rank of ``mesh`` draws the step's whole batch from the shared
+    key and takes its rows (``scan_batch``), folds its index into the
+    dropout key, and runs the loss and backward on its rows; the gradients
+    and the metrics are averaged over the ranks before Adam (``update``),
+    so ``grad_norm`` is the averaged gradient's and a batch statistic is
+    the mean of the slices' values, as in dpcx. Returns the last step's
+    metrics as device tensors."""
+    metrics = {}
+    for _ in range(n_steps):
+        batch, k_drop = scan_batch(cfg, records, key, state.step, mesh)
+        metrics = update(cfg, state, batch, prng.fold_in(k_drop, mesh.index),
+                         density_fn, project_fn, mesh=mesh)
     return metrics
 
 
@@ -435,13 +511,50 @@ def restore_checkpoint(cfg: Config, state: TrainState) -> TrainState:
     return state
 
 
-def _refuse_unported(cfg: Config) -> None:
-    """Raise for what ``train`` does not port yet."""
-    if cfg.shard_points and world_size() > 1:
-        raise NotImplementedError(
-            "shard_points over more than one process is not ported yet "
-            "(ROADMAP queue 1 item 5)"
-        )
+def broadcast_state(state: TrainState) -> None:
+    """Rank 0's step, parameters and Adam state into ``state`` on every
+    rank of the default group, as dpcx re-places a restored state over its
+    mesh."""
+    device = next(state.model.parameters()).device
+    step = torch.tensor([state.step], device=device)
+    broadcast_([step])
+    state.step = int(step)
+    params = list(state.model.parameters())
+    broadcast_([p.detach() for p in params])
+    if state.step == 0:  # no Adam state to carry (torch makes it lazily)
+        return
+    opt = state.optimizer
+    for p in params:
+        if not opt.state[p]:
+            opt.state[p] = {"step": torch.tensor(0.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+    adam = [opt.state[p] for p in params]
+    counts = torch.stack([s["step"] for s in adam]).to(device)
+    broadcast_([counts] + [s[k] for s in adam
+                           for k in ("exp_avg", "exp_avg_sq")])
+    for s, c in zip(adam, counts.cpu()):
+        s["step"].copy_(c)
+
+
+def data_ranks(cfg: Config, world: int) -> int:
+    """dpcx's count of devices that take batch rows: the largest divisor
+    of ``batch_size`` not above ``world``; 1 with ``shard_points``, whose
+    batch stays whole (the points shard instead)."""
+    if cfg.shard_points:
+        return 1
+    n = world
+    while cfg.batch_size % n:
+        n -= 1
+    return n
+
+
+def _beat(device, running: bool) -> bool:
+    """One ``broadcast`` of rank 0's loop state to every rank of the
+    default group: the ranks that take no step wait in it each pass."""
+    flag = torch.tensor([int(running)], device=device)
+    broadcast_([flag])
+    return bool(flag)
 
 
 def train(
@@ -452,19 +565,44 @@ def train(
     use_checkpoints: bool = True,
     device="cuda",
     eval_dataset: Dataset | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[TrainState, list[dict]]:
-    """Full training entry on one ``device`` (dpcx's ``train`` on one
-    device); returns the state and the logged metric records (``val_*``
-    ones too, with ``eval_dataset``)."""
+    """Full training entry (dpcx's ``train``) on ``device``, over ``mesh``
+    (None: dpcx's choice of ranks from the default group, one device each;
+    see the module's docstring); returns the state and the logged metric
+    records (``val_*`` ones too, with ``eval_dataset``). A rank that takes
+    no step returns rank 0's final state and no records."""
     cfg.validate()
     device = torch.device(device)
+    world, lead = world_size(), rank() == 0
+    if mesh is None:
+        mesh = make_mesh(cfg, ranks=range(data_ranks(cfg, world)),
+                         device=device, join_all=cfg.shard_points)
+    if cfg.shard_points and mesh.size > 1:
+        raise ValueError("shard_points keeps the batch whole: its mesh is "
+                         "the points', so train takes a mesh of one rank")
+    # shard_points: every rank steps on the whole batch (the loss shards
+    # the points over them); else the mesh's ranks step on their rows
+    stepping = cfg.shard_points or mesh.index is not None
+    dp = mesh if mesh.size > 1 else None
+    waiting = world > mesh.world and not cfg.shard_points
     if dataset is None:
+        if not lead:  # rank 0 makes and caches the shards first
+            barrier(device)
         dataset = load_or_make(cfg, num_models, seed=cfg.seed, device=device)
-    _refuse_unported(cfg)
+        if lead:
+            barrier(device)
     state = create_state(cfg, device)
-    if use_checkpoints:
+    if use_checkpoints and lead:
         record_and_check_run_config(cfg)
         state = restore_checkpoint(cfg, state)
+    if world > 1:
+        broadcast_state(state)
+    if not stepping:
+        while _beat(device, True):
+            pass
+        broadcast_state(state)
+        return state, []
 
     def crossed(prev: int, cur: int, every: int) -> bool:
         return every > 0 and cur // every > prev // every
@@ -490,10 +628,13 @@ def train(
         records = device_records(dataset, device) if cfg.device_data else None
     # one pass of the loop after the first (which holds the kernels' build
     # and the allocator's warm-up) runs under the trace, as in dpcx
-    trace_state = "armed" if cfg.profile_dir else "off"
+    trace_state = "armed" if cfg.profile_dir and lead else "off"
     tracer = contextlib.ExitStack()
-    with MetricWriter(cfg.checkpoint_dir) as writer, tracer:
+    writer = MetricWriter(cfg.checkpoint_dir) if lead else None
+    with tracer, writer or contextlib.nullcontext():
         while step < max_steps:
+            if waiting:
+                _beat(device, True)
             prev_step = step
             if trace_state == "armed" and step >= start_step + chunk:
                 tracer.enter_context(trace(cfg.profile_dir))
@@ -511,18 +652,26 @@ def train(
                     # the chunk stays inside its block, so the stream is a
                     # function of (seed, step) across resumes
                     n = min(n, (bi + 1) * block_period - step)
-                metrics = train_steps_scan(cfg, state, records, base_key, n)
+                if dp is None:
+                    metrics = train_steps_scan(cfg, state, records, base_key,
+                                               n)
+                else:
+                    metrics = train_steps_scan_dp(cfg, state, records,
+                                                  base_key, n, dp)
                 batch = None
             else:
                 batch = host_batch(cfg, dataset, step, device)
-                metrics = train_step(cfg, state, batch, base_key)
+                metrics = train_step(
+                    cfg, state, batch if dp is None else shard_batch(batch, dp),
+                    base_key, mesh=dp)
             step = state.step
             if crossed(prev_step, step, cfg.log_every) or \
                     prev_step == start_step:
                 rec = {k: float(v) for k, v in metrics.items()}
                 rec["steps_per_sec"] = (step - start_step) / max(
                     time.time() - t0, 1e-9)
-                writer.write(step, rec)
+                if writer:
+                    writer.write(step, rec)
                 history.append({"step": step, **rec})
             if (
                 cfg.gauge_reseed_threshold_deg > 0
@@ -531,18 +680,20 @@ def train(
             ):
                 # the gauge never cohered: re-roll the init from a
                 # per-attempt seed and restart the step count; the batch
-                # stream stays a function of (seed, step)
+                # stream stays a function of (seed, step). The averaged
+                # metric is the same on every rank, and so is the choice
                 gs = float(metrics.get("gauge_spread_deg", 0.0))
                 if gs > cfg.gauge_reseed_threshold_deg:
                     reseed_attempt += 1
                     rec = {"gauge_reseed": reseed_attempt,
                            "gauge_spread_deg": gs}
-                    writer.write(step, rec)
+                    if writer:
+                        writer.write(step, rec)
                     history.append({"step": step, **rec})
                     state = create_state(
                         cfg, device,
                         seed=cfg.seed + 7919 * reseed_attempt)
-                    if use_checkpoints:
+                    if use_checkpoints and lead:
                         # else the dead attempt's checkpoints would win the
                         # newest-step restore on resume
                         for old in checkpoint_steps(cfg):
@@ -551,22 +702,29 @@ def train(
                     step = start_step = 0
                     t0 = time.time()
                     continue
-            if use_checkpoints and crossed(prev_step, step, cfg.save_every):
+            if use_checkpoints and lead and crossed(prev_step, step,
+                                                    cfg.save_every):
                 save_checkpoint(cfg, state)
                 if batch is None:  # dpcx's summary takes the host batch
                     batch = host_batch(cfg, dataset, step, device)
                 _write_image_summary(cfg, state.model, batch, step)
             if eval_dataset is not None and crossed(prev_step, step,
                                                     cfg.eval_every or 0):
-                # periodic held-out eval (the reference's train_eval)
+                # periodic held-out eval (the reference's train_eval), on
+                # every stepping rank so that none waits in a collective
                 val = evaluate(cfg, state.params, eval_dataset, batch_size=min(
                     cfg.batch_size, eval_dataset.num_models))
                 val_rec = {f"val_{k}": v for k, v in val.items()}
-                writer.write(step, val_rec)
+                if writer:
+                    writer.write(step, val_rec)
                 history.append({"step": step, **val_rec})
         tracer.close()  # a trace that spanned the last chunk
-        if use_checkpoints:
+        if use_checkpoints and lead:
             save_checkpoint(cfg, state)
+    if waiting:
+        _beat(device, False)
+    if world > 1:  # the ranks end with rank 0's state
+        broadcast_state(state)
     return state, history
 
 

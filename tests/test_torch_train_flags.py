@@ -1,8 +1,9 @@
 """Config knobs that dpcx runs on one device and the port once refused:
-``shard_points`` (a no-op that warns), ``eval_every`` without an eval
-dataset (evaluates nothing) and ``device_records_models`` where dpcx does
-not rotate blocks (CPU). Where dpcx does rotate, the port rotates as it
-does (``tests/test_torch_train.py::test_train_refuses_unported``,
+``shard_points`` (a no-op that warns on one process; over a world of
+processes it shards the points and does not warn), ``eval_every`` without
+an eval dataset (evaluates nothing) and ``device_records_models`` where
+dpcx does not rotate blocks (CPU). Where dpcx does rotate, the port
+rotates as it does (``tests/test_torch_train.py::test_train_refuses_unported``,
 ``tests/test_torch_stream.py``).
 
 dpcx's side of ``shard_points`` runs in a one-device subprocess
@@ -12,6 +13,8 @@ points over 8 devices). Tolerances as ``tests/test_torch_train.py``:
 ``loss_total`` and ``grad_norm`` rtol 1e-4, parameters atol 1e-6.
 """
 
+import dataclasses
+import json
 import os
 import socket
 import subprocess
@@ -28,8 +31,9 @@ from dpcx_torch import config as tconfig
 from dpcx_torch import train as ttrain
 from dpcx_torch.config import Config
 from dpcx_torch.convert import params_from_flax
-from dpcx_torch.data.dataset import Dataset
+from dpcx_torch.data.dataset import Dataset, load_shards, save_shards
 from dpcx_torch.utils import prng
+from torch_ranks import dp_world, run_world
 from torch_workers import share_cores
 
 share_cores()
@@ -190,18 +194,31 @@ def test_shard_points_step_matches_dpcx_on_one_device(dpcx_one_device):
                                    err_msg=k)
 
 
-def test_shard_points_over_processes_is_refused(tmp_path, rng, monkeypatch):
-    """Over more than one process the points would shard: not ported yet
-    (ROADMAP queue 1 item 5); validate() does not warn there."""
-    monkeypatch.setattr(tconfig, "world_size", lambda: 2)
-    monkeypatch.setattr(ttrain, "world_size", lambda: 2)
-    cfg = Config(**SHARD_CFG).replace(checkpoint_dir=str(tmp_path))
+def test_shard_points_over_processes_trains(tmp_path):
+    """In a gloo world of 2 the shard_points config trains with the points
+    split over both ranks (every rank the whole batch) and does not warn:
+    3 steps log the losses of the one-process run, which renders
+    unsharded (rtol 1e-4), the same on both ranks."""
+    cfg = Config(**SHARD_CFG).replace(log_every=1)
+    save_shards(_records(np.random.default_rng(3), cfg),
+                tmp_path / "shards.npz")
+    run_world(dp_world, 2, tmp_path, {"train": {"shard": (
+        dataclasses.asdict(cfg.replace(
+            checkpoint_dir=str(tmp_path / "run"))), [3])}})
     with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        cfg.validate()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ttrain.train(cfg, dataset=Dataset(_records(rng, cfg), cfg),
-                     max_steps=1, device="cpu")
+        warnings.simplefilter("ignore")  # the one-process warning
+        _, want = ttrain.train(
+            cfg.replace(checkpoint_dir=str(tmp_path / "one")),
+            dataset=Dataset(load_shards(tmp_path / "shards.npz"), cfg),
+            max_steps=3, device="cpu", use_checkpoints=False)
+    for rank in (0, 1):
+        got = json.loads((tmp_path / f"shard_r{rank}.json").read_text())
+        assert got["warnings"] == []
+        hist = got["calls"][0]
+        assert [h["step"] for h in hist] == [1, 2, 3]
+        np.testing.assert_allclose([h["loss_total"] for h in hist],
+                                   [h["loss_total"] for h in want],
+                                   rtol=1e-4)
 
 
 def _losses(cfg, tmp_path, name, rng_seed=3):
