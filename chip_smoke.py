@@ -1614,12 +1614,17 @@ def phase_largecloud(cli, fused, tmp: Path) -> None:
 
 def step_ms(checkpoint_dir: Path) -> list[float]:
     """Milliseconds of each logged step after the first of a fresh run
-    logged every step: differences of step / steps_per_sec (the host clock
-    from the run's start, synchronised by each logged read)."""
+    logged every step: differences of the host clock at each logged read
+    (synchronised by the read). ``steps_per_sec`` is the first record's
+    steps over the seconds from the run's start, and every later one's
+    steps since the first record over the seconds since its read."""
     recs = [json.loads(line) for line in
             (checkpoint_dir / "metrics.jsonl").read_text().splitlines()]
-    ends = [r["step"] / r["steps_per_sec"] for r in recs
-            if "steps_per_sec" in r]
+    recs = [r for r in recs if "steps_per_sec" in r]
+    first = recs[0]["step"]
+    t1 = first / recs[0]["steps_per_sec"]
+    ends = [t1] + [t1 + (r["step"] - first) / r["steps_per_sec"]
+                   for r in recs[1:]]
     return [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
 
 

@@ -197,9 +197,10 @@ class Config:
     save_every: int = 2000
     log_every: int = 100
     eval_every: int = 0                # 0 = no periodic eval during train
-    profile_dir: str = ""              # capture ONE jax.profiler trace of
-                                       # the post-compile train chunk here
-                                       # (SURVEY §5 tracing; tensorboard)
+    profile_dir: str = ""              # write ONE torch.profiler trace
+                                       # of the chunk after the first here
+                                       # (Chrome JSON; the program's spans,
+                                       # utils/profiling.py, over kernels)
     seed: int = 0
     compute_dtype: str = "bfloat16"    # encoder/decoder matmul dtype
     renderer_dtype: str = "float32"    # splat/blur/DRC accumulate dtype

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from dpcx_torch.config import Config, world_size
+from dpcx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,11 +164,13 @@ def all_mean_(tensors: Sequence[torch.Tensor], mesh: Mesh) -> None:
     through one ``all_reduce`` of their concatenation (dpcx's ``pmean``)."""
     if mesh.world == 1:
         return
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat /= mesh.world
-    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-        t.detach().copy_(part.view_as(t))
+    sizes = [t.numel() for t in tensors]
+    with span("parallel.all_mean", bytes=4 * sum(sizes)):  # float32
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        dist.all_reduce(flat, group=mesh.group)
+        flat /= mesh.world
+        for t, part in zip(tensors, flat.split(sizes)):
+            t.detach().copy_(part.view_as(t))
 
 
 class _AllSum(torch.autograd.Function):

@@ -52,6 +52,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from dpcx_torch.render.fused import ACC_DTYPES, _keep, _rnd
+from dpcx_torch.utils.profiling import span
 
 MAX_ANISO_VOX = 64  # dpcx's gsplat_impl: pallas refuses D > 64
 PAD_MU_Z = 1e4  # pads sort to the end and take no mass
@@ -416,7 +417,8 @@ class _AnisoSplat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pk, order, band_lo, band_hi, vox, with_rgb, bf16):
         table = (order, band_lo, band_hi)
-        out = _launch_forward(pk, table, vox, with_rgb, bf16)
+        with span("render.fwd"):
+            out = _launch_forward(pk, table, vox, with_rgb, bf16)
         ctx.save_for_backward(pk, *table)
         ctx.vox, ctx.with_rgb, ctx.bf16 = vox, with_rgb, bf16
         return out
@@ -425,8 +427,9 @@ class _AnisoSplat(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         pk, *table = ctx.saved_tensors
-        dpk = _launch_backward(pk, table, dout, ctx.vox, ctx.with_rgb,
-                               ctx.bf16)
+        with span("render.bwd"):
+            dpk = _launch_backward(pk, table, dout, ctx.vox, ctx.with_rgb,
+                                   ctx.bf16)
         return dpk, None, None, None, None, None, None
 
 

@@ -47,6 +47,7 @@ from dpcx_torch.render.gauss import (
     smoothen_voxels3d,
 )
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
+from dpcx_torch.utils.profiling import span
 
 MAX_FUSED_VOX = 128  # the kernels' grid is D^3 f32 per render, D <= 128
 BLOCKED_VOX = 64  # above this, dpcx runs the depth-blocked kernels K3-K5
@@ -332,9 +333,10 @@ class _PlainRender(torch.autograd.Function):
         ctx.vox, ctx.radius, ctx.with_depth = vox, radius, with_depth
         ctx.acc_dtype = acc_dtype
         ctx.set_materialize_grads(False)
-        sil, depth = fused_project_reference(
-            ndc_t, vox, sigma_vox, radius, point_weights, with_depth,
-            acc_dtype=acc_dtype)
+        with span("render.fwd"):
+            sil, depth = fused_project_reference(
+                ndc_t, vox, sigma_vox, radius, point_weights, with_depth,
+                acc_dtype=acc_dtype)
         return (sil, depth) if with_depth else sil
 
     @staticmethod
@@ -343,9 +345,10 @@ class _PlainRender(torch.autograd.Function):
         ndc_t, point_weights, sigma_vox = ctx.saved_tensors
         if dsil is None:  # only the depth output reached the loss
             dsil = torch.zeros_like(ddepth)
-        d_ndc, d_w = fused_backward_reference(
-            ndc_t, ctx.vox, sigma_vox, ctx.radius, point_weights,
-            ctx.with_depth, dsil, ddepth, ctx.acc_dtype)
+        with span("render.bwd"):
+            d_ndc, d_w = fused_backward_reference(
+                ndc_t, ctx.vox, sigma_vox, ctx.radius, point_weights,
+                ctx.with_depth, dsil, ddepth, ctx.acc_dtype)
         return (d_ndc, None if point_weights is None else d_w,
                 None, None, None, None, None)
 
@@ -473,9 +476,10 @@ class _FusedRender(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coords, weights, taps, radius, vox, with_depth,
                 save_grid, bf16):
-        sil, depth, grid = _launch_forward(
-            coords, weights, taps, radius, vox, with_depth, bf16
-        )
+        with span("render.fwd"):
+            sil, depth, grid = _launch_forward(
+                coords, weights, taps, radius, vox, with_depth, bf16
+            )
         keep = save_grid or vox <= BLOCKED_VOX
         ctx.save_for_backward(coords, weights, taps, grid if keep else None)
         ctx.radius, ctx.vox, ctx.with_depth = radius, vox, with_depth
@@ -489,13 +493,14 @@ class _FusedRender(torch.autograd.Function):
     def backward(ctx, dsil, ddepth=None):
         coords, weights, taps, grid = ctx.saved_tensors
         want_coords, want_weights = ctx.needs_input_grad[:2]
-        if dsil is None:  # only the depth output reached the loss
-            dsil = torch.zeros_like(ddepth)
-        dcoords, dweights = _launch_backward(
-            coords, weights, taps, ctx.radius, grid, dsil.contiguous(),
-            None if ddepth is None else ddepth.contiguous(),
-            ctx.vox, ctx.with_depth, want_weights, ctx.bf16,
-        )
+        with span("render.bwd"):
+            if dsil is None:  # only the depth output reached the loss
+                dsil = torch.zeros_like(ddepth)
+            dcoords, dweights = _launch_backward(
+                coords, weights, taps, ctx.radius, grid, dsil.contiguous(),
+                None if ddepth is None else ddepth.contiguous(),
+                ctx.vox, ctx.with_depth, want_weights, ctx.bf16,
+            )
         return (dcoords if want_coords else None, dweights,
                 None, None, None, None, None, None)
 

@@ -29,6 +29,7 @@ from dpcx_torch.render.transform import (
     pc_perspective_transform_t,
 )
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
+from dpcx_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,7 @@ def keep_prob_schedule(cfg: Config, step) -> torch.Tensor:
     return cfg.pc_point_dropout + (1.0 - cfg.pc_point_dropout) * frac
 
 
+@span("render.project")
 def pointcloud_project_fn(
     cfg: Config,
     points: torch.Tensor,

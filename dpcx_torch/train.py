@@ -46,7 +46,8 @@ view 0) after every pass that crosses a multiple of ``eval_every`` and
 logs ``val_<metric>`` records, as dpcx does; without one dpcx evaluates
 nothing either, and ``eval_every`` only sets the chunk. With
 ``profile_dir`` one pass of the loop is traced, as dpcx traces one: the one
-after the first, by ``utils.profiling.trace``.
+after the first, by ``utils.profiling.trace``, the program's spans
+(``utils.profiling.span``) nested over its kernels.
 
 In a ``torch.distributed`` world of W processes (``torch.distributed.run``;
 one rank a device) ``train`` is dpcx's ``train`` over a mesh of W devices:
@@ -100,7 +101,7 @@ from dpcx_torch.parallel.mesh import (
 )
 from dpcx_torch.predict import evaluate
 from dpcx_torch.utils import prng
-from dpcx_torch.utils.profiling import trace
+from dpcx_torch.utils.profiling import span, trace
 
 KEEP_CHECKPOINTS = 3
 
@@ -193,10 +194,12 @@ def update(
     draws the same dropout weights from the same key.
     """
     def loss_fn():
-        preds = apply_model(cfg, state.model, batch)
-        return compute_loss(cfg, preds, batch, state.step, drop_key,
-                            train=True, density_fn=density_fn,
-                            project_fn=project_fn, batch_mesh=batch_mesh)
+        with span("train.forward"):
+            preds = apply_model(cfg, state.model, batch)
+        with span("train.loss"):
+            return compute_loss(cfg, preds, batch, state.step, drop_key,
+                                train=True, density_fn=density_fn,
+                                project_fn=project_fn, batch_mesh=batch_mesh)
 
     if cfg.remat:
         from torch.utils.checkpoint import checkpoint
@@ -206,22 +209,26 @@ def update(
         loss, metrics = loss_fn()
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
-    loss.backward()
-    params = [p for g in opt.param_groups for p in g["params"]]
-    for p in params:
-        # optax updates every leaf; a parameter the loss never reached
-        # (the pose branch's fc_pose without predicted pose) takes a zero
-        # gradient here too, so each parameter's Adam step count stays the
-        # global one
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    metrics = {k: v.detach().clone() for k, v in metrics.items()}
-    if mesh is not None:
-        all_mean_([p.grad for p in params] + list(metrics.values()), mesh)
-    metrics["grad_norm"] = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
-    )  # optax.global_norm
-    opt.step()
+    with span("train.backward"):
+        loss.backward()
+    with span("train.grads"):
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            # optax updates every leaf; a parameter the loss never reached
+            # (the pose branch's fc_pose without predicted pose) takes a
+            # zero gradient here too, so each parameter's Adam step count
+            # stays the global one
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        if mesh is not None:
+            all_mean_([p.grad for p in params] + list(metrics.values()),
+                      mesh)
+        metrics["grad_norm"] = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
+        )  # optax.global_norm
+    with span("train.adam"):
+        opt.step()
     state.step += 1
     return metrics
 
@@ -235,9 +242,10 @@ def train_step(cfg: Config, state: TrainState, batch: dict[str, torch.Tensor],
     rank ``batch`` is this rank's rows (``shard_batch``) and the step is
     dpcx's step of the whole batch on a sharded batch: its loss, gradients
     and metrics."""
-    drop_key = None if key is None else prng.fold_in(key, state.step)
-    return update(cfg, state, batch, drop_key, density_fn, project_fn,
-                  mesh=mesh, batch_mesh=mesh)
+    with span("train.step", step=state.step):
+        drop_key = None if key is None else prng.fold_in(key, state.step)
+        return update(cfg, state, batch, drop_key, density_fn, project_fn,
+                      mesh=mesh, batch_mesh=mesh)
 
 
 def device_records(dataset: Dataset, device,
@@ -313,6 +321,7 @@ def gather_batch(cfg: Config, records: dict[str, torch.Tensor],
             if k in _batch_keys(cfg) and r in records}
 
 
+@span("train.draw")
 def scan_batch(cfg: Config, records: dict[str, torch.Tensor], key,
                step: int, mesh: Mesh | None = None
                ) -> tuple[dict[str, torch.Tensor], Any]:
@@ -361,9 +370,12 @@ def train_steps_scan(cfg: Config, state: TrainState,
     changes the stream. Returns the last step's metrics as device tensors;
     reads nothing back on the host."""
     metrics = {}
-    for _ in range(n_steps):
-        batch, k_drop = scan_batch(cfg, records, key, state.step)
-        metrics = update(cfg, state, batch, k_drop, density_fn, project_fn)
+    with span("train.chunk", step=state.step):
+        for _ in range(n_steps):
+            with span("train.step", step=state.step):
+                batch, k_drop = scan_batch(cfg, records, key, state.step)
+                metrics = update(cfg, state, batch, k_drop, density_fn,
+                                 project_fn)
     return metrics
 
 
@@ -380,10 +392,14 @@ def train_steps_scan_dp(cfg: Config, state: TrainState,
     the mean of the slices' values, as in dpcx. Returns the last step's
     metrics as device tensors."""
     metrics = {}
-    for _ in range(n_steps):
-        batch, k_drop = scan_batch(cfg, records, key, state.step, mesh)
-        metrics = update(cfg, state, batch, prng.fold_in(k_drop, mesh.index),
-                         density_fn, project_fn, mesh=mesh)
+    with span("train.chunk", step=state.step):
+        for _ in range(n_steps):
+            with span("train.step", step=state.step):
+                batch, k_drop = scan_batch(cfg, records, key, state.step,
+                                           mesh)
+                metrics = update(cfg, state, batch,
+                                 prng.fold_in(k_drop, mesh.index),
+                                 density_fn, project_fn, mesh=mesh)
     return metrics
 
 
@@ -613,6 +629,7 @@ def train(
     max_steps = max_steps or cfg.max_number_of_steps
     history: list[dict] = []
     t0 = time.time()
+    first_log = None  # (step, host time) of the first logged read-back
     start_step = step = state.step
     reseed_attempt = 0
     # dpcx's host-boundary chunk: with device_data the loop advances a
@@ -667,9 +684,19 @@ def train(
             step = state.step
             if crossed(prev_step, step, cfg.log_every) or \
                     prev_step == start_step:
-                rec = {k: float(v) for k, v in metrics.items()}
-                rec["steps_per_sec"] = (step - start_step) / max(
-                    time.time() - t0, 1e-9)
+                with span("train.readback", step=step):
+                    rec = {k: float(v) for k, v in metrics.items()}
+                # from the first logged chunk's read-back on, the rate
+                # leaves out that chunk's warm-up (the kernels' build, the
+                # allocator's growth)
+                now = time.time()
+                if first_log is None:
+                    rec["steps_per_sec"] = (step - start_step) / max(
+                        now - t0, 1e-9)
+                    first_log = (step, now)
+                else:
+                    rec["steps_per_sec"] = (step - first_log[0]) / max(
+                        now - first_log[1], 1e-9)
                 if writer:
                     writer.write(step, rec)
                 history.append({"step": step, **rec})
@@ -700,7 +727,7 @@ def train(
                             (Path(cfg.checkpoint_dir) / "ckpt"
                              / f"{old}.pt").unlink()
                     step = start_step = 0
-                    t0 = time.time()
+                    t0, first_log = time.time(), None
                     continue
             if use_checkpoints and lead and crossed(prev_step, step,
                                                     cfg.save_every):

@@ -131,12 +131,8 @@ def test_render_throughput_on_cpu(backward):
 
 
 def test_profiling_on_cpu(tmp_path):
-    """benchmark_fn times a call; trace writes one Chrome trace of the
-    block into its directory."""
+    """trace writes one Chrome trace of the block into its directory."""
     x = torch.ones(64, 64)
-    stats = profiling.benchmark_fn(lambda: x @ x, iters=3, warmup=1)
-    assert stats["sec_per_iter"] > 0
-    assert stats["iters_per_sec"] == pytest.approx(1 / stats["sec_per_iter"])
     with profiling.trace(tmp_path / "prof") as log_dir:
         (x @ x).sum()
     (path,) = log_dir.glob("*.pt.trace.json")

@@ -235,3 +235,23 @@ def sharded_world(rank: int, out: Path, spec: dict) -> None:
         _save(out, name, rank, state,
               warnings=np.array([str(w.message) for w in seen] or [""]),
               **{f"metric/{k}": v.item() for k, v in m.items()})
+
+
+def spans_world(rank: int, out: Path, spec: dict) -> None:
+    """``all_mean_`` of ``spec["sizes"]`` float32 tensors (rank r's all
+    r + 1) over the world's mesh under a CPU ``torch.profiler`` ->
+    ``spans_r<rank>.json``: each recorded span's name and counts, and
+    whether every tensor came back as the ranks' mean."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpcx_torch.parallel.mesh import all_mean_, make_mesh
+    from dpcx_torch.utils import profiling
+
+    mesh = make_mesh(_config({"batch_size": 2}), device="cpu")
+    tensors = [torch.full((n,), float(rank + 1)) for n in spec["sizes"]]
+    with profile(activities=[ProfilerActivity.CPU]):
+        all_mean_(tensors, mesh)
+    want = sum(range(1, mesh.world + 1)) / mesh.world
+    (out / f"spans_r{rank}.json").write_text(json.dumps({
+        "spans": [[s.name, s.counts] for s in profiling.RECORDER.finished()],
+        "mean": all(bool((t == want).all()) for t in tensors)}))
