@@ -177,7 +177,7 @@ def compute_loss(
         # nearest: bilinear would blend background depth into silhouette
         # boundary pixels and corrupt the masked depth loss
         depths = _resize(depths, D, "nearest-exact")
-    sigma_rel = sigma_schedule(cfg, step).to(points.device)
+    sigma_rel = sigma_schedule(cfg, step, points.device)
     point_weights = None
     if train and cfg.pc_point_dropout < 1.0:
         if key is None:

@@ -207,7 +207,7 @@ def resolve_pose_flips(
     quats [M, 4], changed fraction).
     """
     M, D = quats.shape[0], cfg.vox_size
-    sig = sigma_schedule(cfg, 10**9)
+    sig = sigma_schedule(cfg, 10**9, device)
     rcfg = cfg.replace(renderer="xla")
     flip_q = FLIP_QUAT.to(device)
     flip = np.zeros(M, bool)

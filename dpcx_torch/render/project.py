@@ -47,12 +47,20 @@ def _step_frac(step, total_steps: int) -> torch.Tensor:
     return (step / max(total_steps, 1)).clamp(0.0, 1.0)
 
 
-def sigma_schedule(cfg: Config, step) -> torch.Tensor:
-    """Exponential coarse->fine anneal of the relative Gaussian sigma."""
+def sigma_schedule(cfg: Config, step, device=None) -> torch.Tensor:
+    """Exponential coarse->fine anneal of the relative Gaussian sigma: a
+    float32 0-d tensor on ``device`` (None: the default device).
+
+    The value is computed on the host in float32 from the host's ``step``
+    and reaches ``device`` as the argument of a fill: a copy of a host
+    tensor to the card would synchronise the stream once a step and drain
+    the card's queue. The card's ``expf`` may differ from the host's in
+    the last bit, so the exponential stays on the host."""
     frac = _step_frac(step, cfg.sigma_anneal_steps)
     log_s0 = math.log(cfg.pc_relative_sigma)
     log_s1 = math.log(cfg.pc_relative_sigma_end)
-    return torch.exp(log_s0 + (log_s1 - log_s0) * frac)
+    sigma = torch.exp(log_s0 + (log_s1 - log_s0) * frac)
+    return torch.full((), sigma.item(), dtype=torch.float32, device=device)
 
 
 def keep_prob_schedule(cfg: Config, step) -> torch.Tensor:

@@ -21,6 +21,7 @@ the same inputs are bitwise equal.
 
 import json
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -1087,3 +1088,117 @@ def test_batch_draws_kernel_matches_plain(cuda, B, M, V, V_use, with_in2):
         torch.cuda.synchronize()
         assert _same_bits(got, want), step
     assert prng.LAUNCHES["batch_draws"] == before + 3
+
+
+# a small car_64_depth: D 64, depth with DRC, point dropout, bf16 nets; two
+# points a cloud, so no cell of K1's atomic splat takes more than two
+# addends and its sums cannot reorder from run to run
+SYNC_FREE = Config(
+    vox_size=64, mask_size=64, pc_num_points=2, image_size=16,
+    encoder_filters=(8, 16), latent_dim=24, fc_hidden=32,
+    pc_decoder_hidden=(32,), num_views=3, views_per_step=2, batch_size=2,
+    renderer="pallas", proj_depth=True, drc_weight=0.1,
+    pc_point_dropout=0.5, compute_dtype="bfloat16", seed=2,
+)  # seed 2: both steps keep a point, so the gradients are not zero
+
+
+def _parent_loss_sigma(cfg, step, device=None):
+    """The loss's sigma as the parent made it: a host tensor copied to the
+    card, which synchronises the stream."""
+    from dpcx_torch.render.project import sigma_schedule
+
+    return sigma_schedule(cfg, step).to(device)
+
+
+def _parent_predict_sigma(cfg, step, device=None):
+    """The mirror pass's sigma as the parent made it: a host tensor, copied
+    to the card by each renderer call."""
+    from dpcx_torch.render.project import sigma_schedule
+
+    return sigma_schedule(cfg, step)
+
+
+def _sync_count(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: (its result, the
+    synchronising CUDA operations it made)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def test_train_chunk_makes_no_stream_sync(cuda, monkeypatch):
+    """A two-step chunk of ``train_steps_scan`` raises nothing under
+    ``set_sync_debug_mode("error")``, and gives the loss, metrics,
+    parameters and Adam state, bit for bit, of the same steps with the
+    sigma made as the parent made it (a host tensor copied to the card,
+    which the mode refuses). The mirror pass of ``predict.py`` reads numpy
+    and returns numpy, so it syncs for those; on the same two steps' clouds
+    it makes one sync a batch fewer than with the parent's sigma, and the
+    same flips."""
+    from dpcx_torch import predict
+    from dpcx_torch.data.dataset import Dataset
+    from dpcx_torch.data.synthetic import make_dataset
+    from dpcx_torch.models import losses
+    from dpcx_torch.render.project import sigma_schedule
+    from dpcx_torch.train import create_state, device_records, train_steps_scan
+    from dpcx_torch.utils import prng
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = SYNC_FREE
+    ds = Dataset({k: v.cpu().numpy() for k, v in make_dataset(
+        cfg, 4, seed=5, gt_points=2000, device=cuda).items()}, cfg)
+    records = device_records(ds, cuda)
+    key = prng.prng_key(cfg.seed)
+
+    def chunk(sigma_fn):
+        state = create_state(cfg, cuda, seed=0)
+        with monkeypatch.context() as m:
+            m.setattr(losses, "sigma_schedule", sigma_fn)
+            metrics = train_steps_scan(cfg, state, records, key, 2)
+        torch.cuda.synchronize()
+        return state, metrics
+
+    want_state, want = chunk(_parent_loss_sigma)  # also loads the kernels
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_state, got = chunk(sigma_schedule)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            chunk(_parent_loss_sigma)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.keys() == want.keys() and "sigma_rel" in got
+    assert want["grad_norm"].item() > 0
+    assert got["sigma_rel"].device.type == "cuda"
+    assert _same_bits(got["sigma_rel"].cpu(), sigma_schedule(cfg, 1))
+    for k in want:
+        assert _same_bits(got[k], want[k]), k
+    assert got_state.step == want_state.step == 2
+    for (k, a), b in zip(got_state.model.named_parameters(),
+                         want_state.model.parameters()):
+        assert _same_bits(a.detach(), b.detach()), k
+        sa = got_state.optimizer.state[a]
+        sb = want_state.optimizer.state[b]
+        for m in ("exp_avg", "exp_avg_sq"):
+            assert _same_bits(sa[m], sb[m]), (k, m)
+
+    with torch.no_grad():
+        points = got_state.model(records["images"][:, 0])["points"]
+    args = (cfg, points.float().cpu().numpy(),
+            records["quats"][:, 0].cpu().numpy(),
+            records["masks"][:, 0].cpu().numpy())
+    batches = 2  # 4 models, 2 a batch
+    new, n_new = _sync_count(
+        lambda: predict.resolve_pose_flips(*args, batch_size=2, device=cuda))
+    with monkeypatch.context() as m:
+        m.setattr(predict, "sigma_schedule", _parent_predict_sigma)
+        old, n_old = _sync_count(lambda: predict.resolve_pose_flips(
+            *args, batch_size=2, device=cuda))
+    assert n_old - n_new == batches, (n_old, n_new)
+    np.testing.assert_array_equal(new[0], old[0])
+    assert new[1] == old[1]

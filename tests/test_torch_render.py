@@ -17,6 +17,7 @@ Tolerances:
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -483,15 +484,31 @@ def test_project_refuses_unported_paths(rng, monkeypatch):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("step", [0, 30_000, 200_000])
+def _bits(x) -> int:
+    return int(np.asarray(x, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("step", [0, 30_000, 200_000, 1, 12_345,
+                                  Config().sigma_anneal_steps, 10**9])
 def test_schedules(step):
+    """The sigma anneal is a float32 0-d tensor on the device asked for,
+    with the bits of the host formula it is computed by (the exponential
+    in float32 on the host) and of dpcx's schedule at these steps; the
+    keep-prob ramp within 1e-6 of dpcx's."""
     from dpcx.render.project import keep_prob_schedule, sigma_schedule
 
     cfg = Config()
-    np.testing.assert_allclose(
-        tproject.sigma_schedule(_t(cfg), step).numpy(),
-        np.asarray(sigma_schedule(cfg, jnp.asarray(step))), rtol=1e-6,
-    )
+    frac = (torch.tensor(step, dtype=torch.float32)
+            / cfg.sigma_anneal_steps).clamp(0.0, 1.0)
+    log_s0 = math.log(cfg.pc_relative_sigma)
+    host = torch.exp(
+        log_s0 + (math.log(cfg.pc_relative_sigma_end) - log_s0) * frac)
+    for device in (None, "cpu", torch.device("cpu")):
+        got = tproject.sigma_schedule(_t(cfg), step, device)
+        assert got.shape == () and got.dtype == torch.float32
+        assert got.device == torch.device("cpu")
+        assert _bits(got) == _bits(host)
+    assert _bits(host) == _bits(sigma_schedule(cfg, jnp.asarray(step)))
     np.testing.assert_allclose(
         tproject.keep_prob_schedule(_t(cfg), step).numpy(),
         np.asarray(keep_prob_schedule(cfg, jnp.asarray(step))), rtol=1e-6,

@@ -41,6 +41,7 @@ from dpcx_torch.data.dataset import Dataset, save_shards
 from dpcx_torch.data.synthetic import make_dataset
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
+from dpcx_torch.render.project import sigma_schedule
 from dpcx_torch.utils import prng
 from torch_workers import share_cores
 
@@ -100,10 +101,12 @@ def _torch_batch(batch):
 
 
 @pytest.mark.parametrize("renderer", ["pallas", "xla"])
-@pytest.mark.parametrize("step", [0, 30_000])
+@pytest.mark.parametrize("step", [0, 30_000, 1, 12_345,
+                                  SMALL.sigma_anneal_steps, 10**9])
 def test_compute_loss_dropout_matches_dpcx(renderer, step, rng, monkeypatch):
     """train=True with point dropout, on the same injected weights: the
-    loss and d loss / d points, with the weights repeated per view."""
+    loss and d loss / d points, with the weights repeated per view; the
+    logged ``sigma_rel`` is the schedule's, bit for bit."""
     cfg = SMALL.replace(renderer=renderer, pc_point_dropout=0.3)
     B, N = 3, cfg.pc_num_points
     keep = rng.random((B, N)) < 0.5
@@ -139,6 +142,13 @@ def test_compute_loss_dropout_matches_dpcx(renderer, step, rng, monkeypatch):
     total_t.backward()
     assert calls[0] == pytest.approx(calls[1])  # the same keep-prob
     assert m_t.keys() == set(m_j)
+    sigma = sigma_schedule(_t(cfg), step)
+    assert m_t["sigma_rel"].dtype == torch.float32
+    assert (m_t["sigma_rel"].numpy().view(np.int32)
+            == sigma.numpy().view(np.int32))
+    # XLA's float32 exp and PyTorch's differ in the last bit at some steps
+    np.testing.assert_allclose(sigma.numpy(), np.asarray(m_j["sigma_rel"]),
+                               rtol=1e-6)
     np.testing.assert_allclose(total_t.item(), float(total_j), rtol=1e-4)
     assert np.abs(np.asarray(g_j)).max() > 0
     np.testing.assert_allclose(p_t.grad.numpy(), np.asarray(g_j), atol=1e-6)
