@@ -18,8 +18,10 @@ def quaternion_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
-    """(w, x, y, z) -> (w, -x, -y, -z). Inverse for unit quaternions."""
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    """(w, x, y, z) -> (w, -x, -y, -z). Inverse for unit quaternions.
+    Made on ``q``'s device (a host constant would be a copy that
+    synchronises a card's stream)."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quaternion_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:

@@ -65,6 +65,7 @@ from dpcx_torch.render.project import (
 )
 from dpcx_torch.render.sharded import pointcloud_project_point_sharded
 from dpcx_torch.render.voxelize import pc_point_dropout_weights
+from dpcx_torch.utils.profiling import span
 
 
 def _masked_depth_loss(
@@ -297,42 +298,51 @@ def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
     B, V, D = points.shape[0], masks.shape[1], cfg.vox_size
     K = cfg.pose_predict_num_candidates
     per_view_pose = cfg.pose_from_views and "quats_views" in preds
-    if per_view_pose:
-        # each target view's candidates were predicted from that view's own
-        # image, so q_k(v) is object -> camera v: no GT rig transform
-        cand_v = preds["quats_views"]  # [B, V, K, 4]
-        q_full = cand_v.transpose(1, 2)  # [B, K, V, 4]
-    else:
-        cand = preds["quats"]  # [B, K, 4]
-        q_rel = quaternion_multiply(
-            batch["quats"], quaternion_conjugate(batch["quat_in"])[:, None])
-        # object -> camera v for each (candidate, view): q_rel(v) * q_k
-        q_full = quaternion_multiply(q_rel[:, None], cand[:, :, None])
 
     def bc(x: torch.Tensor) -> torch.Tensor:
         """[B, ...] -> [B*K*V, ...] candidate/view broadcast."""
         return x[:, None, None].expand((B, K, V) + x.shape[1:]).reshape(
             (B * K * V,) + x.shape[1:])
 
-    pts = bc(points)
-    pw = None if point_weights is None else bc(point_weights)
-    trans = None
-    if per_view_pose and "translation" in preds:
-        # each target view's offset from that view's own pose head
-        if "translations_views" not in preds:
-            raise ValueError(
-                "pose_from_views with predict_translation needs per-view "
-                "translations (preds['translations_views'] — apply_model "
-                "builds them from pose_only)"
-            )
-        trans = preds["translations_views"].transpose(1, 2).reshape(
-            B * K * V, 3)
-    elif "translation" in preds:
-        trans = preds["translation"][:, :, None].expand(B, K, V, 3).reshape(
-            B * K * V, 3)
+    # the rows the fan-out materialises: each sample's points and keep
+    # weights, and each row's camera (and offset) in float32
+    floats = 4 + (3 if "translation" in preds else 0)
+    fan_bytes = B * K * V * (4 * floats + sum(
+        x.numel() // B * x.element_size() for x in (points, point_weights)
+        if x is not None))
+    with span("pose.fanout", bytes=fan_bytes):
+        if per_view_pose:
+            # each target view's candidates were predicted from that
+            # view's own image, so q_k(v) is object -> camera v: no GT rig
+            # transform
+            cand_v = preds["quats_views"]  # [B, V, K, 4]
+            q_full = cand_v.transpose(1, 2)  # [B, K, V, 4]
+        else:
+            cand = preds["quats"]  # [B, K, 4]
+            q_rel = quaternion_multiply(
+                batch["quats"],
+                quaternion_conjugate(batch["quat_in"])[:, None])
+            # object -> camera v for each (candidate, view): q_rel(v) * q_k
+            q_full = quaternion_multiply(q_rel[:, None], cand[:, :, None])
+        pts = bc(points)
+        pw = None if point_weights is None else bc(point_weights)
+        trans = None
+        if per_view_pose and "translation" in preds:
+            # each target view's offset from that view's own pose head
+            if "translations_views" not in preds:
+                raise ValueError(
+                    "pose_from_views with predict_translation needs "
+                    "per-view translations (preds['translations_views'] — "
+                    "apply_model builds them from pose_only)"
+                )
+            trans = preds["translations_views"].transpose(1, 2).reshape(
+                B * K * V, 3)
+        elif "translation" in preds:
+            trans = preds["translation"][:, :, None].expand(
+                B, K, V, 3).reshape(B * K * V, 3)
+        q_flat = q_full.reshape(B * K * V, 4)
     use_rgb = (cfg.pc_rgb and "rgb" in preds and "images_tgt" in batch
                and cfg.rgb_weight > 0)
-    q_flat = q_full.reshape(B * K * V, 4)
     if cfg.pc_gauss and "gauss_scales" in preds:
         opacity = bc(preds["gauss_opacity"])
         if pw is not None:
@@ -350,100 +360,106 @@ def _predicted_pose_loss(cfg, preds, batch, masks, depths, sigma_rel,
             cfg, pts, q_flat, sigma_rel, point_weights=pw,
             rgb=bc(preds["rgb"]) if use_rgb else None, translation=trans,
             project_fn=project_fn)
-    sil, depth = out.silhouette.reshape(B, K, V, D, D), out.depth
-    # per-sample per-candidate loss over pixels (and over views in
-    # input-view-pose mode; per-view selection keeps the view axis)
-    l_kv = torch.mean((sil - masks[:, None]) ** 2, dim=(3, 4))  # [B, K, V]
-    l_k = l_kv if per_view_pose else l_kv.mean(2)
-    rgb_l_k = None
-    if use_rgb:
-        tgt = _resize_images(batch["images_tgt"], D)
-        rgb_cmp = out.rgb.reshape(B, K, V, D, D, 3) + (
-            1.0 - sil[..., None]) * cfg.rgb_background
-        w = masks[:, None, :, :, :, None]  # [B, 1, V, D, D, 1]
-        axes = (3, 4, 5) if per_view_pose else (2, 3, 4, 5)
-        denom = (w.sum(axes) * 3.0).clamp_min(1.0)
-        rgb_l_k = (w * (rgb_cmp - tgt[:, None]) ** 2).sum(axes) / denom
-    ramp = rgb_ramp(cfg, step)
-    comb_k = candidate_scores(cfg, l_k, rgb_l_k, ramp, batch_mesh)
-    k_star = torch.argmin(comb_k, dim=1)  # [B] or [B, V]
-    sel_w = None
-    if cfg.pose_softmin_temp > 0 and cfg.pose_softmin_steps > 0:
-        # softmin -> hard-min anneal: a softmax over the detached scores
-        # at a relative temperature decaying to ~0
-        frac = _clip01(1.0 - float(step) / cfg.pose_softmin_steps)
-        scores = comb_k.detach()
-        t_eff = cfg.pose_softmin_temp * frac * _batch_mean(
-            scores, batch_mesh) + 1e-8
-        sel_w = torch.softmax(-scores / t_eff, dim=1)
-        proj_loss = torch.mean((sel_w * l_k).sum(1))
-        metrics["sel_entropy"] = torch.mean(
-            -(sel_w * torch.log(sel_w + 1e-12)).sum(1))
-    else:
-        # the winner alone receives projection gradient
-        proj_loss = torch.mean(torch.take_along_dim(l_k, k_star[:, None], 1))
-    total = cfg.proj_weight * proj_loss
-    metrics["loss_proj"] = proj_loss
-    metrics["cand_spread"] = torch.mean(
-        comb_k.amax(1) - comb_k.amin(1))
-    if per_view_pose:
-        # gauge-coherence telemetry of the winners (a metric only)
-        q_sel = torch.take_along_dim(
-            q_full, k_star[:, None, :, None], 1).squeeze(1)  # [B, V, 4]
-        metrics["gauge_spread_deg"] = torch.mean(gauge_spread_deg(
-            q_sel.detach().transpose(0, 1), batch["quats"].transpose(0, 1)))
-    if use_rgb:
-        if sel_w is not None:
-            rgb_loss = torch.mean((sel_w * rgb_l_k).sum(1))
+    # the scores, the hard min, its gathers, the student and the
+    # telemetry
+    with span("pose.select"):
+        sil, depth = out.silhouette.reshape(B, K, V, D, D), out.depth
+        # per-sample per-candidate loss over pixels (and over views in
+        # input-view-pose mode; per-view selection keeps the view axis)
+        l_kv = torch.mean((sil - masks[:, None]) ** 2, dim=(3, 4))  # [B, K, V]
+        l_k = l_kv if per_view_pose else l_kv.mean(2)
+        rgb_l_k = None
+        if use_rgb:
+            tgt = _resize_images(batch["images_tgt"], D)
+            rgb_cmp = out.rgb.reshape(B, K, V, D, D, 3) + (
+                1.0 - sil[..., None]) * cfg.rgb_background
+            w = masks[:, None, :, :, :, None]  # [B, 1, V, D, D, 1]
+            axes = (3, 4, 5) if per_view_pose else (2, 3, 4, 5)
+            denom = (w.sum(axes) * 3.0).clamp_min(1.0)
+            rgb_l_k = (w * (rgb_cmp - tgt[:, None]) ** 2).sum(axes) / denom
+        ramp = rgb_ramp(cfg, step)
+        comb_k = candidate_scores(cfg, l_k, rgb_l_k, ramp, batch_mesh)
+        k_star = torch.argmin(comb_k, dim=1)  # [B] or [B, V]
+        sel_w = None
+        if cfg.pose_softmin_temp > 0 and cfg.pose_softmin_steps > 0:
+            # softmin -> hard-min anneal: a softmax over the detached scores
+            # at a relative temperature decaying to ~0
+            frac = _clip01(1.0 - float(step) / cfg.pose_softmin_steps)
+            scores = comb_k.detach()
+            t_eff = cfg.pose_softmin_temp * frac * _batch_mean(
+                scores, batch_mesh) + 1e-8
+            sel_w = torch.softmax(-scores / t_eff, dim=1)
+            proj_loss = torch.mean((sel_w * l_k).sum(1))
+            metrics["sel_entropy"] = torch.mean(
+                -(sel_w * torch.log(sel_w + 1e-12)).sum(1))
         else:
-            rgb_loss = torch.mean(
-                torch.take_along_dim(rgb_l_k, k_star[:, None], 1))
-        total = total + cfg.rgb_weight * ramp * rgb_loss
-        metrics["loss_rgb"] = rgb_loss
-    student = "student_quat_views" if per_view_pose else "student_quat"
-    if cfg.pose_student and student in preds:
+            # the winner alone receives projection gradient
+            proj_loss = torch.mean(
+                torch.take_along_dim(l_k, k_star[:, None], 1))
+        total = cfg.proj_weight * proj_loss
+        metrics["loss_proj"] = proj_loss
+        metrics["cand_spread"] = torch.mean(
+            comb_k.amax(1) - comb_k.amin(1))
         if per_view_pose:
-            q_teacher = torch.take_along_dim(
-                cand_v, k_star[:, :, None, None], 2).squeeze(2)  # [B, V, 4]
-        else:
-            q_teacher = torch.take_along_dim(
-                cand, k_star[:, None, None], 1).squeeze(1)  # [B, 4]
-        dot = (preds[student] * q_teacher.detach()).sum(-1)
-        student_loss = torch.mean(1.0 - dot**2)  # sign-invariant
-        sw = cfg.pose_student_weight
-        if cfg.pose_student_warmup_steps > 0:
-            sw = sw * _clip01(float(step) / cfg.pose_student_warmup_steps)
-        total = total + sw * student_loss
-        metrics["loss_student"] = student_loss
-    if cfg.pose_anchor_weight > 0 and "correction_quats" in preds:
-        # pull each candidate's pre-offset correction toward identity
-        aw = cfg.pose_anchor_weight
-        if cfg.pose_anchor_steps > 0:
-            aw = aw * _clip01(1.0 - float(step) / cfg.pose_anchor_steps)
-        corr = (preds["correction_quats_views"]
-                if per_view_pose and "correction_quats_views" in preds
-                else preds["correction_quats"])
-        if cfg.pose_anchor_mode == "azimuth":
-            # only the vertical-axis component, q_y = sin(theta / 2)
-            anchor_loss = torch.mean(corr[..., 2] ** 2)
-        else:
-            anchor_loss = torch.mean(1.0 - corr[..., 0] ** 2)
-        total = total + aw * anchor_loss
-        metrics["loss_anchor"] = anchor_loss
-    if cfg.pose_consistency_weight > 0 and "points_view2" in preds:
-        # two input views of one model must decode to the same cloud
-        cons = torch.mean(
-            chamfer_distance(points, preds["points_view2"])["chamfer"])
-        total = total + cfg.pose_consistency_weight * cons
-        metrics["loss_consistency"] = cons
-    win_idx = (k_star[:, None, :, None, None] if per_view_pose
-               else k_star[:, None, None, None, None])  # into [B, K, V, D, D]
-    if cfg.proj_depth and cfg.drc_weight > 0:
-        d_win = torch.take_along_dim(
-            depth.reshape(B, K, V, D, D), win_idx, 1).squeeze(1)
-        d_loss = torch.mean(_masked_depth_loss(d_win, depths, masks))
-        total = total + cfg.drc_weight * d_loss
-        metrics["loss_depth"] = d_loss
-    metrics["iou"] = _iou(
-        torch.take_along_dim(sil, win_idx, 1).squeeze(1), masks)
-    return total
+            # gauge-coherence telemetry of the winners (a metric only)
+            q_sel = torch.take_along_dim(
+                q_full, k_star[:, None, :, None], 1).squeeze(1)  # [B, V, 4]
+            metrics["gauge_spread_deg"] = torch.mean(gauge_spread_deg(
+                q_sel.detach().transpose(0, 1),
+                batch["quats"].transpose(0, 1)))
+        if use_rgb:
+            if sel_w is not None:
+                rgb_loss = torch.mean((sel_w * rgb_l_k).sum(1))
+            else:
+                rgb_loss = torch.mean(
+                    torch.take_along_dim(rgb_l_k, k_star[:, None], 1))
+            total = total + cfg.rgb_weight * ramp * rgb_loss
+            metrics["loss_rgb"] = rgb_loss
+        student = "student_quat_views" if per_view_pose else "student_quat"
+        if cfg.pose_student and student in preds:
+            if per_view_pose:
+                q_teacher = torch.take_along_dim(  # [B, V, 4]
+                    cand_v, k_star[:, :, None, None], 2).squeeze(2)
+            else:
+                q_teacher = torch.take_along_dim(
+                    cand, k_star[:, None, None], 1).squeeze(1)  # [B, 4]
+            dot = (preds[student] * q_teacher.detach()).sum(-1)
+            student_loss = torch.mean(1.0 - dot**2)  # sign-invariant
+            sw = cfg.pose_student_weight
+            if cfg.pose_student_warmup_steps > 0:
+                sw = sw * _clip01(float(step) / cfg.pose_student_warmup_steps)
+            total = total + sw * student_loss
+            metrics["loss_student"] = student_loss
+        if cfg.pose_anchor_weight > 0 and "correction_quats" in preds:
+            # pull each candidate's pre-offset correction toward identity
+            aw = cfg.pose_anchor_weight
+            if cfg.pose_anchor_steps > 0:
+                aw = aw * _clip01(1.0 - float(step) / cfg.pose_anchor_steps)
+            corr = (preds["correction_quats_views"]
+                    if per_view_pose and "correction_quats_views" in preds
+                    else preds["correction_quats"])
+            if cfg.pose_anchor_mode == "azimuth":
+                # only the vertical-axis component, q_y = sin(theta / 2)
+                anchor_loss = torch.mean(corr[..., 2] ** 2)
+            else:
+                anchor_loss = torch.mean(1.0 - corr[..., 0] ** 2)
+            total = total + aw * anchor_loss
+            metrics["loss_anchor"] = anchor_loss
+        if cfg.pose_consistency_weight > 0 and "points_view2" in preds:
+            # two input views of one model must decode to the same cloud
+            cons = torch.mean(
+                chamfer_distance(points, preds["points_view2"])["chamfer"])
+            total = total + cfg.pose_consistency_weight * cons
+            metrics["loss_consistency"] = cons
+        win_idx = (  # into [B, K, V, D, D]
+            k_star[:, None, :, None, None] if per_view_pose
+            else k_star[:, None, None, None, None])
+        if cfg.proj_depth and cfg.drc_weight > 0:
+            d_win = torch.take_along_dim(
+                depth.reshape(B, K, V, D, D), win_idx, 1).squeeze(1)
+            d_loss = torch.mean(_masked_depth_loss(d_win, depths, masks))
+            total = total + cfg.drc_weight * d_loss
+            metrics["loss_depth"] = d_loss
+        metrics["iou"] = _iou(
+            torch.take_along_dim(sil, win_idx, 1).squeeze(1), masks)
+        return total

@@ -24,6 +24,13 @@ from dpcx_torch.geometry.quaternion import (
 from dpcx_torch.nets.layers import Dense
 
 
+def _plus_identity(q: torch.Tensor) -> torch.Tensor:
+    """``q + (1, 0, 0, 0)`` over the last axis, made on ``q``'s device: a
+    constant built on the host would reach a card through a copy that
+    synchronises the stream."""
+    return torch.cat([q[..., :1] + 1.0, q[..., 1:]], dim=-1)
+
+
 class PoseHead(nn.Module):
     def __init__(
         self,
@@ -53,9 +60,8 @@ class PoseHead(nn.Module):
         [B, K, 4], "student_quat"?: [B, 4], "translation"?: [B, K, 3]}."""
         x = F.leaky_relu(self.fc0(pose_inp), 0.2)
         B, K = x.shape[0], self.num_candidates
-        identity = x.new_tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32)
         quats = quaternion_normalize(
-            self.fc_quats(x).float().reshape(B, K, 4) + identity)
+            _plus_identity(self.fc_quats(x).float().reshape(B, K, 4)))
         corrections = quats
         if self.candidate_offsets and K > 1:
             theta = 2.0 * math.pi * torch.arange(
@@ -67,7 +73,7 @@ class PoseHead(nn.Module):
         out = {"quats": quats, "correction_quats": corrections}
         if self.fc_student is not None:
             out["student_quat"] = quaternion_normalize(
-                self.fc_student(x).float() + identity)
+                _plus_identity(self.fc_student(x).float()))
         if self.fc_trans is not None:
             out["translation"] = 0.2 * torch.tanh(
                 self.fc_trans(x).float()).reshape(B, K, 3)

@@ -156,7 +156,8 @@ def apply_model(cfg: Config, model: ModelPointCloud,
     if "images_v" in batch:
         iv = batch["images_v"]
         Bv, Vu = iv.shape[:2]
-        pv = model.pose_only(iv.reshape((Bv * Vu,) + iv.shape[2:]))
+        with span("pose.views"):
+            pv = model.pose_only(iv.reshape((Bv * Vu,) + iv.shape[2:]))
         preds["quats_views"] = pv["quats"].reshape(Bv, Vu, -1, 4)
         preds["correction_quats_views"] = pv["correction_quats"].reshape(
             Bv, Vu, -1, 4)

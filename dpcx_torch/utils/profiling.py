@@ -8,8 +8,15 @@ A span marks one layer's stretch of the program:
 ``train.step``      each step of a chunk; the host-fed ``train_step``
 ``train.draw``      ``scan_batch``: the draw kernel and the gather
 ``train.forward``   the encoder and decoder forward
+``pose.views``      predicted pose from the views: the target views'
+                    encoder and pose heads (``model.pose_only``)
 ``train.loss``      ``compute_loss``: loss terms, camera transform, the
                     renderer's glue
+``pose.fanout``     predicted pose: the points, keep weights and cameras
+                    broadcast to B x K x V rows, counting the ``bytes``
+                    they materialise
+``pose.select``     predicted pose: the candidates' scores, the hard
+                    min, its gathers, the student and the telemetry
 ``render.project``  ``pointcloud_project_fn``
 ``render.fwd``      the renderer's forward launch (K1 / K3; K6)
 ``train.backward``  ``loss.backward()``

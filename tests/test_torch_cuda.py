@@ -1202,3 +1202,42 @@ def test_train_chunk_makes_no_stream_sync(cuda, monkeypatch):
     assert n_old - n_new == batches, (n_old, n_new)
     np.testing.assert_array_equal(new[0], old[0])
     assert new[1] == old[1]
+
+
+def test_pose_chunk_makes_no_stream_sync(cuda):
+    """A whole 100-step chunk of ``train_steps_scan`` at
+    ``chair_pred_pose``'s configuration and the benchmark's B 512 (K 8
+    candidates of 4 target views: 16,384 renders of 2,048 points at D 32
+    a step, 2,560 images encoded) raises nothing under
+    ``set_sync_debug_mode("error")``: the predicted-pose step makes no
+    stream sync. Its metrics stay finite."""
+    from pathlib import Path
+
+    from dpcx_torch.config import load_config
+    from dpcx_torch.train import create_state, train_steps_scan
+    from dpcx_torch.utils import prng
+
+    cfg = load_config(Path(__file__).resolve().parent.parent / "experiments"
+                      / "chair_pred_pose.yaml").replace(batch_size=512)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    M, V, S, D = 32, cfg.num_views, cfg.image_size, cfg.mask_size
+    quats = torch.randn(M, V, 4, generator=g, device=cuda)
+    records = {
+        "images": torch.rand(M, V, S, S, 3, generator=g, device=cuda),
+        "masks": (torch.rand(M, V, D, D, generator=g, device=cuda)
+                  < 0.3).float(),
+        "depths": torch.ones(M, V, D, D, device=cuda),
+        "quats": quats / quats.norm(dim=-1, keepdim=True)}
+    state = create_state(cfg, cuda, seed=0)
+    key = prng.prng_key(1)
+    train_steps_scan(cfg, state, records, key, 2)  # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = train_steps_scan(cfg, state, records, key, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert state.step == 102
+    assert {"loss_student", "gauge_spread_deg"} <= set(metrics)
+    for k, v in metrics.items():
+        assert torch.isfinite(v).all(), k

@@ -270,6 +270,44 @@ def test_spans_leave_training_bitwise_unchanged():
         assert torch.equal(p_a[k], p_b[k]), k
 
 
+# predicted pose from the views: K 4 candidates of V 2 target views
+POSE = CFG.replace(predict_pose=True, pose_from_views=True,
+                   pose_predict_num_candidates=4, pose_student=True,
+                   proj_depth=False, drc_weight=0.0)
+POSE_PARENTS = {"pose.views": "train.forward", "pose.fanout": "train.loss",
+                "pose.select": "train.loss"}
+
+
+@pytest.mark.parametrize("cfg,pose", [(CFG, False), (POSE, True)],
+                         ids=["gt_pose", "predicted_pose"])
+def test_pose_spans_once_a_step_on_the_pose_path_alone(cfg, pose):
+    """Two steps: ``pose.views`` under the forward, ``pose.fanout`` and
+    ``pose.select`` under the loss, once a step each with predicted pose
+    and never with GT pose; the fan-out counts the bytes of the rows it
+    materialises: each sample's points and keep weights and each row's
+    camera, B x K x V x (N x (3 + 1) + 4) float32 values."""
+    state = ttrain.create_state(cfg, "cpu", seed=0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ttrain.train_steps_scan(cfg, state, _records(cfg), prng.prng_key(1),
+                                2, project_fn=_plain)
+    spans = [s for s in profiling.RECORDER.finished()
+             if s.name.startswith("pose.")]
+    if not pose:
+        assert spans == []
+        return
+    assert sorted((s.step, s.name) for s in spans) == [
+        (step, name) for step in (0, 1) for name in sorted(POSE_PARENTS)]
+    for s in spans:
+        assert s.parent.name == POSE_PARENTS[s.name], s.name
+        assert s.step == s.parent.step
+    rows = cfg.batch_size * cfg.pose_predict_num_candidates \
+        * cfg.views_per_step
+    for s in spans:
+        if s.name == "pose.fanout":
+            assert s.counts == {
+                "bytes": 4 * rows * (cfg.pc_num_points * (3 + 1) + 4)}
+
+
 def test_all_mean_counts_its_bytes(tmp_path):
     """Over two gloo ranks, ``all_mean_``'s span counts the float32 bytes
     of the concatenation it exchanges, and the tensors come back as the
