@@ -325,6 +325,14 @@ POSE_STEPS, RESEED_STEPS, RESEED_CHECK, POSE_BF16_STEPS = 200, 60, 30, 100
 # boundary). The float32 mode on the same inputs must miss the forward's and
 # the relative L2 limits, which shows the rounding points are the kernels'
 BF16_FWD_SHARE, BF16_SHARE, BF16_GRAD_L2 = 1e-5, 2.0**-8, 1e-3
+# phase 3h's bf16 gradients in max abs, of the largest plain one: the
+# kernels sum the rotation in another order than the plain version's GEMM,
+# so a coordinate an ulp away can move a bf16-rounded hat weight by one
+# bf16 ulp, up to 2^-7 of it (the pose render's d points read 4.31e-3 of
+# the largest, where phase 3c's, at the same coordinates on both sides,
+# read 5.4e-4; NVIDIA H100 80GB HBM3, 700 W); relative L2 stays
+# BF16_GRAD_L2
+BF16_FLIP_SHARE = 2.0**-7
 SPLAT_GRAD_RTOL = 2e-4  # K7 vs plain: relative L2, dpcx's own bound for
 # its Pallas backward against the dense oracle
 # the kernels of csrc/fused_render.cu, as torch.profiler names them
@@ -347,8 +355,17 @@ NO_FRAME_KERNELS = ("blur_slab_kernel", "blur_z_kernel", "zblur_drc_kernel",
                     "drc_bwd_kernel", "drc_bwd_tile_kernel")
 # their C entry points (csrc/*.cu), which launch_event_ms times
 C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
-             "dpcx_fused_render_bwd_recompute", "dpcx_aniso_render",
+             "dpcx_fused_render_bwd_recompute", "dpcx_fused_render_world",
+             "dpcx_fused_render_world_bwd", "dpcx_aniso_render",
              "dpcx_aniso_render_bwd")
+# the renders the main path makes (pointcloud_project_fn on the card: world
+# clouds through fused_project_world, one render a cloud as the losses call
+# it): (name, renders, points, D, depth, whether the cameras learn)
+WORLD_SHAPES = (
+    ("car_64_depth", 32, 16000, 64, True, False),
+    ("chair_pred_pose", 256, 2048, 32, False, True),
+    ("multicat_128", 16, 16000, 128, False, False),
+)
 SHARD_WARNING = "shard_points on a single device is a no-op"
 # phase 9g: two ranks (torch.distributed.run) share the one card over gloo
 PARALLEL_WORLD, DP_STEPS, PARALLEL_TIMEOUT = 2, 10, 480
@@ -868,6 +885,155 @@ def phase_kernel(cfg, fused, gauss) -> list[dict]:
     return cases
 
 
+def world_grads(render, points, quat, pw, cam, dsil, ddepth):
+    """render(points, quat, pw) -> (sil, depth or None): its outputs and
+    the gradients of <dsil, sil> + <ddepth, depth> into points, pw and,
+    with ``cam``, quat, in that order."""
+    leaves = [points.detach().requires_grad_(), pw.detach().requires_grad_(),
+              quat.detach().requires_grad_(cam)]
+    sil, depth = render(leaves[0], leaves[2], leaves[1])
+    loss = (sil * dsil).sum()
+    if depth is not None:
+        loss = loss + (depth * ddepth).sum()
+    grads = torch.autograd.grad(
+        loss, [t for t in leaves if t.requires_grad])
+    return (sil.detach(), None if depth is None else depth.detach()), grads
+
+
+def phase_world(cfg, fused, gauss) -> list[dict]:
+    """3h. The main path's renderer, fused_project_world (world clouds and
+    cameras in; K1-K5's splat stages run the camera transform), against
+    the plain version on the same inputs (pc_perspective_transform_t, then
+    fused_project_plain, whose backward is K2's function) at the renders
+    the cells make (WORLD_SHAPES), with keep weights and seeded_ndc's
+    shell and box as world clouds (some points project outside the grid),
+    in both operand modes and at D > 64 in both backward modes: sil and
+    depth within KERNEL_ATOL; the gradients of points, weights and, where
+    the cameras learn, quaternions within GRAD_RTOL of the largest plain
+    one in f32, BF16_FLIP_SHARE of it and BF16_GRAD_L2 relative L2 in
+    bf16. The rotation's sums (FMAs in the kernels, a GEMM in the plain
+    version) may move a coordinate by an ulp, inside these limits
+    (tests/test_torch_front_cuda.py). One case per shape and mode."""
+    from dpcx_torch.render.transform import pc_perspective_transform_t
+
+    rng = np.random.default_rng(SEED + 5)
+    focal, dist = cfg.focal_length, cfg.camera_distance
+    out = []
+    for name, renders, n, vox, wd, cam in WORLD_SHAPES:
+        points = torch.from_numpy(np.ascontiguousarray(
+            seeded_ndc(rng, renders, n).transpose(0, 2, 1))).to(DEVICE)
+        quat = torch.from_numpy(
+            rng.normal(size=(renders, 4)).astype(np.float32)).to(DEVICE)
+        pw = torch.from_numpy(
+            rng.uniform(0.0, 1.0, (renders, n)).astype(np.float32)
+        ).to(DEVICE)
+        radius = gauss.kernel_radius(
+            max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
+            cfg.gauss_kernel_truncate,
+        )
+        sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
+        for acc in ("float32", "bfloat16"):
+            bf16 = acc == "bfloat16"
+
+            def plain(p, q, w):
+                ndc = pc_perspective_transform_t(p, q, focal, dist)
+                return fused.fused_project_plain(ndc, vox, sigma, radius, w,
+                                                 wd, acc)
+
+            with torch.no_grad():
+                sil_p, dep_p = plain(points, quat, pw)
+            dsil, ddepth = linear_functional(rng, sil_p, dep_p)
+            _, g_p = world_grads(plain, points, quat, pw, cam, dsil, ddepth)
+            fwd_key = f"{fused.launch_family(vox)}_render" + (
+                "_bf16" if bf16 else "")
+            label = f"{name} ({acc})"
+            fwd_err = bwd_err = 0.0
+            missed = []  # every row is printed before any limit is enforced
+            for save in (True, False) if vox > 64 else (True,):
+                bwd_key = fused._bwd_name(vox, not save, bf16)
+                before = launch_counts()
+                (sil_k, dep_k), g_k = world_grads(
+                    lambda p, q, w: fused.fused_project_world(
+                        p, q, vox, sigma, radius, point_weights=w,
+                        focal_length=focal, camera_distance=dist,
+                        with_depth=wd, acc_dtype=acc, save_grid=save),
+                    points, quat, pw, cam, dsil, ddepth)
+                torch.cuda.synchronize()
+                made = {k: v - before[k] for k, v in launch_counts().items()}
+                assert made == only(**{fwd_key: 1, bwd_key: 1}), (label,
+                                                                  made)
+                for what, a, b in (("sil", sil_k, sil_p),
+                                   ("depth", dep_k, dep_p)):
+                    assert (a is None) == (b is None) == (
+                        what == "depth" and not wd), what
+                    if b is None:
+                        continue
+                    err = (a - b).abs().max().item()
+                    print(f"world check {label} {what}: max abs err "
+                          f"{err:.3e} (atol {KERNEL_ATOL})", flush=True)
+                    if not err <= KERNEL_ATOL:
+                        missed.append((what, err))
+                    fwd_err = max(fwd_err, err)
+                names = ("d points", "d weights", "d quat")[:len(g_p)]
+                for what, a, b in zip(names, g_k, g_p):
+                    err = (a - b).abs().max().item()
+                    peak = b.abs().max().item()
+                    rel = (torch.linalg.vector_norm(a - b)
+                           / torch.linalg.vector_norm(b)).item()
+                    share, l2 = ((BF16_FLIP_SHARE, BF16_GRAD_L2) if bf16
+                                 else (GRAD_RTOL, None))
+                    print(f"world check {label} {what} ({bwd_key}): max abs "
+                          f"err {err:.3e}, largest plain {peak:.3e}, ratio "
+                          f"{err / peak:.3e} (bound {share:.3e}), relative "
+                          f"L2 {rel:.3e}" + (f" (bound {l2:.1e})" if l2
+                                             else ""), flush=True)
+                    assert np.isfinite(err) and peak > 0, (label, what)
+                    if not (err <= share * peak
+                            and (l2 is None or rel <= l2)):
+                        missed.append((what, bwd_key, err, peak, rel))
+                    bwd_err = max(bwd_err, err)
+            assert not missed, (label, missed)
+            out.append(dict(name=name, acc=acc, points=points, quat=quat,
+                            pw=pw, vox=vox, sigma=sigma, radius=radius,
+                            with_depth=wd, cam=cam, dsil=dsil, ddepth=ddepth,
+                            camera=(float(focal), float(dist)),
+                            fwd_err=fwd_err, bwd_err=bwd_err))
+    return out
+
+
+def time_world(fused, case, save_grid: bool = True):
+    """CUDA-event ms of the world forward through fused_project_world (the
+    rotations, the taps and the launch) and of the backward launch alone
+    (on the forward's grid, or the recompute launch; the cameras'
+    gradients where they learn); and that backward launch for the
+    profiler."""
+    from dpcx_torch.geometry.quaternion import quaternion_to_matrix
+    from dpcx_torch.render.gauss import gauss_kernel_1d
+
+    points, pw, vox, radius = (case[k] for k in ("points", "pw", "vox",
+                                                 "radius"))
+    wd, bf16 = case["with_depth"], case["acc"] == "bfloat16"
+    camera = case["camera"]
+    kw = dict(point_weights=pw, focal_length=camera[0],
+              camera_distance=camera[1], with_depth=wd,
+              acc_dtype=case["acc"], save_grid=save_grid)
+    f_ms = cuda_ms(lambda: fused.fused_project_world(
+        points, case["quat"], vox, case["sigma"], radius, **kw))
+    rot = quaternion_to_matrix(case["quat"]).contiguous()
+    taps = gauss_kernel_1d(case["sigma"], radius).contiguous()
+    _, _, grid = fused._launch_world_forward(points, pw, rot, None, camera,
+                                             taps, radius, vox, wd, bf16)
+    if not save_grid:
+        grid = None
+
+    def bwd():
+        fused._launch_world_backward(
+            points, pw, rot, None, camera, taps, radius, grid, case["dsil"],
+            case["ddepth"], vox, wd, True, case["cam"], bf16)
+
+    return f_ms, cuda_ms(bwd), bwd
+
+
 def linear_functional(rng, sil, depth):
     """Random cotangents (dsil, ddepth or None) of <dsil, sil> +
     <ddepth, depth>."""
@@ -1200,15 +1366,19 @@ def phase_parity(cfg, ds, want: dict):
     from the same key): per-parameter first-step gradients and the three
     losses within TRAIN_RTOL, and under predicted pose every step's winners
     equal.
-    The plain side is handed to train_step: fused_project_plain (whose
-    backward is K2's function, the hat derivative 0 at an exactly integer
-    grid coordinate included), and aniso_density_reference in float32 or
-    aniso_density_plain (K7's bfloat16 function written out) in bfloat16.
+    The kernel side takes the main path (no project_fn:
+    pointcloud_project_fn's fused_project_world, whose splat stages run the
+    camera transform; its silhouettes recorded around that call). The
+    plain side is handed to train_step: pc_perspective_transform_t, then
+    fused_project_plain (whose backward is K2's function, the hat
+    derivative 0 at an exactly integer grid coordinate included), and
+    aniso_density_reference in float32 or aniso_density_plain (K7's
+    bfloat16 function written out) in bfloat16.
     ``want``: the
     renderer launches the kernel steps make (the plain steps make none);
     both make the draw launches. Returns the kernel run's (losses,
     first-step gradients)."""
-    from dpcx_torch.render import aniso, fused
+    from dpcx_torch.render import aniso, fused, project
     from dpcx_torch.train import create_state, device_records, scan_batch
     from dpcx_torch.train import update
     from dpcx_torch.utils import prng
@@ -1229,12 +1399,13 @@ def phase_parity(cfg, ds, want: dict):
     records = device_records(ds, DEVICE)
     key = prng.prng_key(c.seed + 1)
     runs = {}
-    for label, project, density in (
-            ("kernel", fused.fused_project_t, aniso.aniso_density),
-            ("plain", fused_plain, aniso_plain)):
+    world = project.fused_project_world
+    for label, density in (("kernel", aniso.aniso_density),
+                           ("plain", aniso_plain)):
         sils = []
 
-        def recorded(*a, render=project, **k):
+        def recorded(*a, render=world if label == "kernel" else fused_plain,
+                     **k):
             out = render(*a, **k)
             sils.append(out[0].detach())
             return out
@@ -1242,16 +1413,22 @@ def phase_parity(cfg, ds, want: dict):
         state = create_state(c, DEVICE)
         before = launch_counts()
         losses, grads, won = [], None, []
-        for step in range(3):
-            batch, k_drop = scan_batch(c, records, key, step)
-            m = update(c, state, batch, k_drop, density_fn=density,
-                       project_fn=recorded)
-            losses.append(m["loss_total"].item())
-            if grads is None:
-                grads = {n: p.grad.detach().clone()
-                         for n, p in state.model.named_parameters()}
-            if c.predict_pose:
-                won.append(winners(c, sils[-1], batch["masks"]).cpu())
+        if label == "kernel":
+            project.fused_project_world = recorded
+        try:
+            for step in range(3):
+                batch, k_drop = scan_batch(c, records, key, step)
+                m = update(c, state, batch, k_drop, density_fn=density,
+                           project_fn=None if label == "kernel"
+                           else recorded)
+                losses.append(m["loss_total"].item())
+                if grads is None:
+                    grads = {n: p.grad.detach().clone()
+                             for n, p in state.model.named_parameters()}
+                if c.predict_pose:
+                    won.append(winners(c, sils[-1], batch["masks"]).cpu())
+        finally:
+            project.fused_project_world = world
         torch.cuda.synchronize()
         made = {k: v - before[k] for k, v in launch_counts().items()}
         assert made == (only(**want, **draws(c, 3)) if label == "kernel"
@@ -3275,6 +3452,9 @@ def main() -> int:
     bwd_cases = phase_backward(cases, fused)
     # 3c. K1 and K2 in bfloat16 mode vs their plain bfloat16 version
     bf16_cases = phase_bf16(bwd_cases, fused)
+    # 3h. the main path's renderer (world clouds, the camera transform in
+    # the splat stages) vs the plain version, both modes
+    world_cases = phase_world(cfg, fused, gauss)
     # 3b. K6 and K7 vs their plain version
     aniso_cases = phase_aniso_kernel(aniso)
     aniso_bwd = phase_aniso_backward(aniso, aniso_cases)
@@ -3400,13 +3580,12 @@ def main() -> int:
                       f"renders x {args[0].shape[2]} points, D {args[1]}): "
                       f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}",
                       flush=True)
-            bwd_timings, bwd_launch = {}, {}
+            bwd_timings = {}
             for case in bwd_cases:
                 modes = (True, False) if case["vox"] > 64 else (True,)
                 for save in modes:
-                    k_ms, p_ms, bwd = time_backward(fused, case, save)
+                    k_ms, p_ms, _ = time_backward(fused, case, save)
                     bwd_timings[case["name"], save] = k_ms, p_ms
-                    bwd_launch.setdefault((case["name"], save), bwd)
                     which = ("K2" if case["vox"] <= 64 else
                              "K4 + K5" + ("" if save else " (recompute)"))
                     print(f"time {which} {case['name']} "
@@ -3414,6 +3593,23 @@ def main() -> int:
                           f"{case['ndc'].shape[2]} points, D {case['vox']}): "
                           f"kernel {k_ms:.4f} ms, plain backward "
                           f"{p_ms:.4f} ms | {card}", flush=True)
+            world_timings, world_launch = {}, {}
+            for case in world_cases:
+                for save in (True, False) if case["vox"] > 64 else (True,):
+                    f_ms, b_ms, bwd = time_world(fused, case, save)
+                    world_timings[case["name"], case["acc"], save] = (f_ms,
+                                                                      b_ms)
+                    world_launch[case["name"], case["acc"], save] = bwd
+                    fwd, bwd_name = (("K3", "K4 + K5") if case["vox"] > 64
+                                     else ("K1", "K2"))
+                    print(f"time world {fwd}/{bwd_name} {case['acc']} "
+                          f"{case['name']} ({case['points'].shape[0]} renders "
+                          f"x {case['points'].shape[1]} points, D "
+                          f"{case['vox']}{'' if save else ', recompute'}"
+                          f"{', camera gradient' if case['cam'] else ''}): "
+                          f"{fwd} through fused_project_world {f_ms:.4f} ms, "
+                          f"{bwd_name} launch {b_ms:.4f} ms | {card}",
+                          flush=True)
             imgs16 = requests[2][:16]
             direct_ms = host_ms(lambda: srv.model(imgs16))
             http_ms = host_ms(lambda: post_npz(port, imgs16))
@@ -3488,7 +3684,7 @@ def main() -> int:
                 print(f"time train step rgb_splats {label} operands (B 8 x 4 "
                       f"views, N 4096, D 32, rgb + gauss, bf16 compute): "
                       f"median {ms:.3f} ms per step | {card}", flush=True)
-            bf16_timings, bf16_launch = {}, {}
+            bf16_timings = {}
             for case in bf16_cases:
                 fwd_args = tuple(case[k] for k in (
                     "ndc", "vox", "sigma", "radius", "pw", "with_depth"))
@@ -3499,10 +3695,9 @@ def main() -> int:
                 fwd, bwd_name = (("K3", "K4 + K5") if case["vox"] > 64
                                  else ("K1", "K2"))
                 for save in (True, False) if case["vox"] > 64 else (True,):
-                    b_ms, pb_ms, bwd = time_backward(fused, case, save, True)
+                    b_ms, pb_ms, _ = time_backward(fused, case, save, True)
                     bf16_timings[case["name"], save] = (f_ms, b_ms, pf_ms,
                                                         pb_ms)
-                    bf16_launch[case["name"], save] = bwd
                     print(f"time {fwd}/{bwd_name} bf16 {case['name']} "
                           f"({case['ndc'].shape[0]} renders x "
                           f"{case['ndc'].shape[2]} points, D {case['vox']}"
@@ -3524,17 +3719,32 @@ def main() -> int:
 
         # 11. profile
         print(f"profile on {card}", flush=True)
-        for case in (cases[0], cases[2], cases[3]):
-            device_profile(
-                lambda: fused.fused_project_t(*case["args"], **case["kw"]),
-                f"{'K3' if case['args'][1] > 64 else 'K1'} {case['name']}",
-            )
-        device_profile(bwd_launch["car_64_depth", True],
-                       "K2 car_64_depth (launch on saved residuals)")
-        device_profile(bwd_launch["multicat_128", True],
-                       "K4 + K5 multicat_128 (launch on saved residuals)")
-        device_profile(bwd_launch["multicat_128", False],
-                       "K4 + K5 multicat_128 (recompute launch)")
+        by_world = {(c["name"], c["acc"]): c for c in world_cases}
+
+        def world_fwd(shape, acc):
+            c = by_world[shape, acc]
+            return lambda: fused.fused_project_world(
+                c["points"], c["quat"], c["vox"], c["sigma"], c["radius"],
+                point_weights=c["pw"], focal_length=c["camera"][0],
+                camera_distance=c["camera"][1], with_depth=c["with_depth"],
+                acc_dtype=acc)
+
+        for shape in ("car_64_depth", "chair_pred_pose", "multicat_128"):
+            device_profile(world_fwd(shape, "float32"),
+                           f"{'K3' if shape == 'multicat_128' else 'K1'} "
+                           f"{shape} (world clouds)")
+        device_profile(world_launch["car_64_depth", "float32", True],
+                       "K2 car_64_depth (world clouds, launch on saved "
+                       "residuals)")
+        device_profile(world_launch["chair_pred_pose", "float32", True],
+                       "K2 chair_pred_pose (world clouds, camera gradient, "
+                       "launch on saved residuals)")
+        device_profile(world_launch["multicat_128", "float32", True],
+                       "K4 + K5 multicat_128 (world clouds, launch on saved "
+                       "residuals)")
+        device_profile(world_launch["multicat_128", "float32", False],
+                       "K4 + K5 multicat_128 (world clouds, recompute "
+                       "launch)")
         with torch.no_grad():
             score = device_profile(
                 lambda: compute_loss(cfg, preds, batch, step=0, train=False),
@@ -3567,21 +3777,19 @@ def main() -> int:
             step = device_profile(fn, f"train step rgb_splats {label}",
                                   runs=10, top=16, host_top=12)
             print_step_breakdown(step, f"rgb_splats {label}")
-        pp_case = next(c for c in bf16_cases
-                       if c["name"] == "chair_pred_pose")
-        device_profile(lambda: fused.fused_project_t(
-            pp_case["ndc"], 32, pp_case["sigma"], pp_case["radius"],
-            pp_case["pw"], acc_dtype="bfloat16"), "K1 bf16 chair_pred_pose")
-        device_profile(bf16_launch["chair_pred_pose", True],
-                       "K2 bf16 chair_pred_pose (launch on saved residuals)")
-        mc_case = next(c for c in bf16_cases if c["name"] == "multicat_128")
-        device_profile(lambda: fused.fused_project_t(
-            mc_case["ndc"], 128, mc_case["sigma"], mc_case["radius"],
-            mc_case["pw"], acc_dtype="bfloat16"), "K3 bf16 multicat_128")
-        device_profile(bf16_launch["multicat_128", True],
-                       "K4 + K5 bf16 multicat_128 (launch on saved residuals)")
-        device_profile(bf16_launch["multicat_128", False],
-                       "K4 + K5 bf16 multicat_128 (recompute launch)")
+        device_profile(world_fwd("chair_pred_pose", "bfloat16"),
+                       "K1 bf16 chair_pred_pose (world clouds)")
+        device_profile(world_launch["chair_pred_pose", "bfloat16", True],
+                       "K2 bf16 chair_pred_pose (world clouds, camera "
+                       "gradient, launch on saved residuals)")
+        device_profile(world_fwd("multicat_128", "bfloat16"),
+                       "K3 bf16 multicat_128 (world clouds)")
+        device_profile(world_launch["multicat_128", "bfloat16", True],
+                       "K4 + K5 bf16 multicat_128 (world clouds, launch on "
+                       "saved residuals)")
+        device_profile(world_launch["multicat_128", "bfloat16", False],
+                       "K4 + K5 bf16 multicat_128 (world clouds, recompute "
+                       "launch)")
         for label, fn in pp_step_fns.items():
             step = device_profile(fn, f"train step chair_pred_pose {label}",
                                   runs=10, top=16, host_top=8)
@@ -3602,29 +3810,45 @@ def main() -> int:
     source = "dpcx_torch/csrc/fused_render.cu"
     plain_bwd_note = ("plain_ms: fused_backward_reference, which recomputes "
                       "the grid")
-    by_name = {c["name"]: c for c in bwd_cases}
+    world_note = ("world clouds in (fused_project_world, the main path): "
+                  "the splat stages run the camera transform; ms: the "
+                  "forward through fused_project_world, or the backward "
+                  "launch alone; max_abs_err against the plain version "
+                  "(pc_perspective_transform_t, then fused_project_plain); "
+                  "plain_ms and bound_ms from grid coordinates, with no "
+                  "transform")
 
-    def entry(name, replaces, launches_, case, backward, note=None):
-        ndc, vox, radius = case["ndc"], case["vox"], case["radius"]
-        if backward:
-            k_ms, p_ms = bwd_timings[case["name"], True]
+    def world_row(shape, acc, backward):
+        """(ms, plain ms, bound, bound_by, max abs err) of the world
+        route at ``shape``'s render; the error the largest of the world
+        checks of its kernel family and mode."""
+        case = by_world[shape, acc]
+        f_ms, b_ms = world_timings[shape, acc, True]
+        if acc == "bfloat16":
+            _, _, pf_ms, pb_ms = bf16_timings[shape, True]
         else:
-            k_ms, p_ms = timings[case["name"]]
+            pf_ms, pb_ms = timings[shape][1], bwd_timings[shape, True][1]
         bound_ms, bound_by = render_bound(
-            ndc.shape[0], ndc.shape[2], vox, radius, case["with_depth"],
-            True, backward)
-        checked = [c["err"] for c in (bwd_cases if backward else cases)
-                   if (c["vox"] > 64) == (vox > 64)]
-        out = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches_,
-               "max_abs_err": max(checked), "ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": None}
-        if backward:
-            note = "; ".join(filter(None, (note, plain_bwd_note)))
-        if note:
-            out["note"] = note
-        return out
+            case["points"].shape[0], case["points"].shape[1], case["vox"],
+            case["radius"], case["with_depth"], True, backward,
+            bf16=acc == "bfloat16")
+        err = max(c["bwd_err" if backward else "fwd_err"]
+                  for c in world_cases if c["acc"] == acc
+                  and (c["vox"] > 64) == (case["vox"] > 64))
+        return (b_ms if backward else f_ms, pb_ms if backward else pf_ms,
+                bound_ms, bound_by, err)
+
+    def entry(name, replaces, launches_, shape, backward, note=None):
+        k_ms, p_ms, bound_ms, bound_by, err = world_row(shape, "float32",
+                                                        backward)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None,
+                "note": "; ".join(filter(None, (
+                    note, world_note, plain_bwd_note if backward
+                    else None)))}
 
     def splat_entry(name, replaces, backward):
         case = aniso_bwd[0]
@@ -3665,26 +3889,21 @@ def main() -> int:
                          + ("; plain_ms: aniso_backward_reference"
                             if backward else ""))}
 
-    def bf16_entry(name, replaces, backward, case, run_launches, note):
-        f_ms, b_ms, pf_ms, pb_ms = bf16_timings[case["name"], True]
-        bound_ms, bound_by = render_bound(
-            case["ndc"].shape[0], case["ndc"].shape[2], case["vox"],
-            case["radius"], case["with_depth"], True, backward, bf16=True)
-        key = "bwd_err" if backward else "fwd_err"
-        fam = fused.launch_family(case["vox"])
+    def bf16_entry(name, replaces, backward, shape, run_launches, note):
+        k_ms, p_ms, bound_ms, bound_by, err = world_row(shape, "bfloat16",
+                                                        backward)
+        fam = fused.launch_family(by_world[shape, "bfloat16"]["vox"])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": run_launches[
                     f"{fam}_render_bwd_bf16" if backward
                     else f"{fam}_render_bf16"],
-                "max_abs_err": max(c[key] for c in bf16_cases
-                                   if (c["vox"] > 64) == (case["vox"] > 64)),
-                "ms": b_ms if backward else f_ms,
-                "plain_ms": pb_ms if backward else pf_ms,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None,
                 "note": "; ".join(filter(None, (
-                    note, plain_bwd_note if backward else None)))}
+                    note, world_note,
+                    plain_bwd_note if backward else None)))}
 
     def draw_entry(name, replaces):
         d = draw_times[name]
@@ -3715,34 +3934,35 @@ def main() -> int:
               "ms and bound_ms are that launch's")
     print(json.dumps({"kernels": [
         entry("fused_render", "dpcx/render/pallas_kernel.py:75",
-              launches["fused_render"], by_name["car_64_depth"], False),
+              launches["fused_render"], "car_64_depth", False),
         entry("fused_render_bwd", "dpcx/render/pallas_kernel.py:254",
-              launches["fused_render_bwd"], by_name["car_64_depth"], True),
+              launches["fused_render_bwd"], "car_64_depth", True),
         entry("blocked_render", "dpcx/render/pallas_blocked.py:289",
-              mc_launches["blocked_render"], by_name["multicat_128"], False),
+              mc_launches["blocked_render"], "multicat_128", False),
         entry("blocked_render_bwd:K4",
               "dpcx/render/pallas_blocked.py:376",
-              mc_launches["blocked_render_bwd"], by_name["multicat_128"],
+              mc_launches["blocked_render_bwd"], "multicat_128",
               True, shared),
         entry("blocked_render_bwd:K5",
               "dpcx/render/pallas_blocked.py:451",
-              mc_launches["blocked_render_bwd"], by_name["multicat_128"],
+              mc_launches["blocked_render_bwd"], "multicat_128",
               True, shared),
         splat_entry("aniso_render", "dpcx/render/pallas_gsplat.py:88", False),
         splat_entry("aniso_render_bwd", "dpcx/render/pallas_gsplat.py:187",
                     True),
         bf16_entry("fused_render:bf16", "dpcx/render/pallas_kernel.py:75",
-                   False, pp_case, pp_bf_launches, pp_note),
+                   False, "chair_pred_pose", pp_bf_launches, pp_note),
         bf16_entry("fused_render_bwd:bf16",
-                   "dpcx/render/pallas_kernel.py:254", True, pp_case,
+                   "dpcx/render/pallas_kernel.py:254", True,
+                   "chair_pred_pose",
                    pp_bf_launches, pp_note),
         bf16_entry("blocked_render:bf16", "dpcx/render/pallas_blocked.py:289",
-                   False, mc_case, mc_bf_launches, mc_note),
+                   False, "multicat_128", mc_bf_launches, mc_note),
         bf16_entry("blocked_render_bwd:K4:bf16",
-                   "dpcx/render/pallas_blocked.py:376", True, mc_case,
+                   "dpcx/render/pallas_blocked.py:376", True, "multicat_128",
                    mc_bf_launches, f"{mc_note}; {shared}"),
         bf16_entry("blocked_render_bwd:K5:bf16",
-                   "dpcx/render/pallas_blocked.py:451", True, mc_case,
+                   "dpcx/render/pallas_blocked.py:451", True, "multicat_128",
                    mc_bf_launches, f"{mc_note}; {shared}"),
         splat_bf16_entry("aniso_render:bf16",
                          "dpcx/render/pallas_gsplat.py:88", False),

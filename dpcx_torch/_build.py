@@ -117,6 +117,21 @@ def load() -> ctypes.CDLL:
             i32, i32, ptr,
         ]
         fn.restype = i32
+    # the same renderer from world clouds: points, weights, rot, trans,
+    # focal length, camera distance, renders per cloud, then as above (the
+    # backward: grid, recompute, the cotangents, dgrid, dpoints, dweights,
+    # drot, dtrans)
+    f32 = ctypes.c_float
+    lib.dpcx_fused_render_world.argtypes = [
+        ptr, ptr, ptr, ptr, f32, f32, i32, ptr, i32, ptr, ptr, ptr, i32, i32,
+        i32, i32, i32, ptr,
+    ]
+    lib.dpcx_fused_render_world.restype = i32
+    lib.dpcx_fused_render_world_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, f32, f32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+    ]
+    lib.dpcx_fused_render_world_bwd.restype = i32
     # csrc/aniso_splat.cu: the anisotropic splat forward (K6) and backward
     # (K7): the packed points, the chunk table (order, band_lo, band_hi),
     # then the grids; renders, N, sorted positions, chunks, D, rgb, and the

@@ -22,7 +22,14 @@
 // design keeps none of that, and one kernel family covers every D <= 128:
 //   (a) splat: one thread per point, 8 atomicAdds into a zeroed f32 grid
 //       [R, D, D, D] in device memory (R = renders). Bound by atomics:
-//       8 per point, contended where many points share a cell.
+//       8 per point, contended where many points share a cell. The points
+//       come as grid coordinates [R, 3, N], or as world clouds [C, N, 3]
+//       with each render's camera (the _world entries): then a thread takes
+//       one point of a cloud, reads it once, and for each of the cloud's
+//       R / C renders runs dpcx's camera transform (rotation, translation,
+//       perspective divide with its clamp) and the NDC -> grid affine in
+//       registers before it splats. No coordinate tensor, and no batched
+//       3x3 GEMM, reaches device memory.
 //   (b) blur y and x (blur_slab_kernel): one block per (render, z) holds
 //       the slab in one buffer of padded(D) rows of slab_pitch(D) floats
 //       (17 KiB at D 64, 66 KiB at D 128, where three blocks share an SM
@@ -90,7 +97,13 @@
 //       grouping (below), dh = -1 / +1 on the low / high corner, and dh = 0
 //       along an axis whose coordinate is an exact integer, as the
 //       reference's _dhat_t gives (a floor-based form would be one-sided
-//       there).
+//       there). From world clouds the thread projects the point again, as
+//       the forward did, carries d(grid) through the affine, the divide and
+//       the clamp and the transposed rotation, and sums the cloud's renders
+//       in registers into d points [C, N, 3] and d weights [C, N], each
+//       written once; where the cameras want a gradient, d rot and d trans
+//       of each render are summed over a warp by shuffles, one atomicAdd a
+//       value a warp.
 // (e) and (g) are bound by bytes like (d) and the forward splat.
 //
 // Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16"). The Pallas
@@ -193,9 +206,98 @@ __device__ __forceinline__ float hat(float t, int hi) {
   return hi ? 1.f - fabsf(t - 1.f) : 1.f - t;
 }
 
+// The points of the splat stages as world clouds: points [C, N, 3], and
+// render r's camera, rot [R, 3, 3] (p_cam = rot p + trans) and trans [R, 3]
+// or null, with the focal length and the camera distance. Render r reads
+// cloud r / per_cloud (per_cloud = R / C).
+struct World {
+  const float* points;
+  const float* rot;
+  const float* trans;
+  float focal, dist;
+  int per_cloud;
+};
+
+constexpr float kMinDepth = 1e-2f;  // the perspective divide's clamp
+
+// One point seen by render r's camera, in the f32 operations of
+// render/transform.py::pc_perspective_transform_t and the NDC -> grid affine
+// of render/fused.py: the rotation's 3-term sums as FMAs in the order a
+// GEMM accumulates them, then, with nothing contracted, + trans, z + dist
+// clamped below at kMinDepth (NaN passes, as clamp_min), x f / z and
+// y f / z, and (ndc + 0.5) D - 0.5 per axis.
+struct Projected {
+  float cam[3];   // the camera-frame point
+  float xn, yn;   // its NDC x and y
+  float zs;       // z + dist, clamped
+  bool clamped;   // z + dist below the clamp: no gradient reaches it
+  float g[3];     // grid coordinates, rows (z, y, x)
+};
+
+__device__ __forceinline__ float to_grid(float ndc, float fd) {
+  return __fsub_rn(__fmul_rn(__fadd_rn(ndc, 0.5f), fd), 0.5f);
+}
+
+__device__ __forceinline__ Projected project(const World& w, int64_t r,
+                                             float px, float py, float pz,
+                                             float fd) {
+  Projected q;
+  const float* m = w.rot + r * 9;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    q.cam[j] = fmaf(__ldg(m + 3 * j + 2), pz,
+                    fmaf(__ldg(m + 3 * j + 1), py,
+                         __fmul_rn(__ldg(m + 3 * j), px)));
+    if (w.trans != nullptr) {
+      q.cam[j] = __fadd_rn(q.cam[j], __ldg(w.trans + r * 3 + j));
+    }
+  }
+  const float zf = __fadd_rn(q.cam[2], w.dist);
+  q.clamped = !(zf >= kMinDepth);
+  q.zs = zf < kMinDepth ? kMinDepth : zf;
+  q.xn = __fdiv_rn(__fmul_rn(q.cam[0], w.focal), q.zs);
+  q.yn = __fdiv_rn(__fmul_rn(q.cam[1], w.focal), q.zs);
+  q.g[0] = to_grid(q.cam[2], fd);
+  q.g[1] = to_grid(q.yn, fd);
+  q.g[2] = to_grid(q.xn, fd);
+  return q;
+}
+
+// (a) for one point of one render: grid g [D, D, D]; (gz, gy, gx) in grid
+// units; weight pw. A corner adds a h_x with a = (h_z pw) h_y, each operand
+// rounded in the bf16 mode as the Pallas kernel's matmul operands are.
+template <bool kBf16>
+__device__ __forceinline__ void splat_point(float* __restrict__ g, float gz,
+                                            float gy, float gx, float pw,
+                                            int d) {
+  const float top = static_cast<float>(d - 1);
+  const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
+  const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float cz = fz + dz;
+    // compare as floats: far-away points must not overflow an int cast
+    if (!(cz >= 0.f && cz <= top)) continue;
+    const float wzp = operand<kBf16>(hat(tz, dz) * pw);
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float cy = fy + dy;
+      if (!(cy >= 0.f && cy <= top)) continue;
+      const float a = operand<kBf16>(wzp * operand<kBf16>(hat(ty, dy)));
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const float cx = fx + dx;
+        if (!(cx >= 0.f && cx <= top)) continue;
+        const int64_t cell =
+            (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
+            static_cast<int64_t>(cx);
+        atomicAdd(g + cell, a * operand<kBf16>(hat(tx, dx)));
+      }
+    }
+  }
+}
+
 // (a) coords [R, 3, N] rows (z, y, x) in grid units; weights [R, N] or null.
-// A corner adds a h_x with a = (h_z pw) h_y, each operand rounded in the
-// bf16 mode as the Pallas kernel's matmul operands are.
 template <bool kBf16>
 __global__ void splat_kernel(const float* __restrict__ coords,
                              const float* __restrict__ weights,
@@ -203,38 +305,40 @@ __global__ void splat_kernel(const float* __restrict__ coords,
                              int d) {
   const int64_t total = static_cast<int64_t>(renders) * n;
   const int64_t cells = static_cast<int64_t>(d) * d * d;
-  const float top = static_cast<float>(d - 1);
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t r = i / n;
     const int64_t p = i - r * n;
     const float* c = coords + r * 3 * n + p;
-    const float gz = c[0], gy = c[n], gx = c[2 * static_cast<int64_t>(n)];
-    const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
-    const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
+    splat_point<kBf16>(grid + r * cells, c[0], c[n],
+                       c[2 * static_cast<int64_t>(n)],
+                       weights != nullptr ? weights[i] : 1.f, d);
+  }
+}
+
+// (a) from world clouds (World): one thread per (cloud, point) reads the
+// point and its weight (weights [C, N] or null) once and splats it into
+// each of the cloud's per_cloud renders through that render's camera.
+// Bound by contended atomics like the coordinate form: the launch bounds
+// keep its registers, so that as many atomics are in flight.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads)
+    splat_kernel(World w, const float* __restrict__ weights,
+                             float* __restrict__ grid, int renders, int n,
+                             int d) {
+  const int64_t total = static_cast<int64_t>(renders / w.per_cloud) * n;
+  const int64_t cells = static_cast<int64_t>(d) * d * d;
+  const float fd = static_cast<float>(d);
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t c = i / n;
+    const float* p = w.points + 3 * i;
+    const float px = p[0], py = p[1], pz = p[2];
     const float pw = weights != nullptr ? weights[i] : 1.f;
-    float* g = grid + r * cells;
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz) {
-      const float cz = fz + dz;
-      // compare as floats: far-away points must not overflow an int cast
-      if (!(cz >= 0.f && cz <= top)) continue;
-      const float wzp = operand<kBf16>(hat(tz, dz) * pw);
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const float cy = fy + dy;
-        if (!(cy >= 0.f && cy <= top)) continue;
-        const float a = operand<kBf16>(wzp * operand<kBf16>(hat(ty, dy)));
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float cx = fx + dx;
-          if (!(cx >= 0.f && cx <= top)) continue;
-          const int64_t cell =
-              (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
-              static_cast<int64_t>(cx);
-          atomicAdd(g + cell, a * operand<kBf16>(hat(tx, dx)));
-        }
-      }
+    for (int s = 0; s < w.per_cloud; ++s) {
+      const int64_t r = c * w.per_cloud + s;
+      const Projected q = project(w, r, px, py, pz, fd);
+      splat_point<kBf16>(grid + r * cells, q.g[0], q.g[1], q.g[2], pw, d);
     }
   }
 }
@@ -741,15 +845,70 @@ __global__ void __launch_bounds__(32 * kDrcTileWarps)
   }
 }
 
-// (g) one thread per point: d(z, y, x) into dcoords [R, 3, N] and, when
-// dweights is not null, dw into dweights [R, N]. Reduced as the Pallas
-// kernel does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
+// (g) for one point of one render, dgrid g [D, D, D] of that render:
+// d(z, y, x) in grid units into dc, and dw. Reduced as the Pallas kernel
+// does: per z corner P = sum_y v h_y and Q = sum_y v dh_y with
 // v = sum_x dG h_x, per x corner t1 = sum_zy dG a with a = (h_z pw) h_y;
 // then d z = pw sum dh_z P, d y = pw sum h_z Q, d x = sum dh_x t1 and
 // dw = sum h_z P. The bf16 mode rounds h_y, h_x and a's operands
 // (rnd(rnd(h_z) rnd(pw)), not the forward's rnd(h_z pw)), and dG with
 // kRoundDg (K2's; K5's dG is a sum of rounded partials); h_z, dh_z, pw
 // enter the sums unrounded.
+template <bool kBf16, bool kRoundDg>
+__device__ __forceinline__ void splat_bwd_point(const float* __restrict__ g,
+                                                float gz, float gy, float gx,
+                                                float pw, int d, float* dc,
+                                                float& dw) {
+  const float top = static_cast<float>(d - 1);
+  const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
+  const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
+  float az = 0.f, ay = 0.f, aw = 0.f;
+  float t1[2] = {0.f, 0.f};
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const float cz = fz + dz;
+    if (!(cz >= 0.f && cz <= top)) continue;
+    const float hz = hat(tz, dz);
+    // dh = -1 / +1 on the low / high corner, 0 at an integer coordinate
+    const float sz = tz == 0.f ? 0.f : (dz ? 1.f : -1.f);
+    const float hzp = operand<kBf16>(operand<kBf16>(hz) *
+                                     operand<kBf16>(pw));
+    float pz = 0.f, qz = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const float cy = fy + dy;
+      if (!(cy >= 0.f && cy <= top)) continue;
+      const float hy = operand<kBf16>(hat(ty, dy));
+      const float sy = ty == 0.f ? 0.f : (dy ? 1.f : -1.f);
+      const float a = operand<kBf16>(hzp * hy);
+      float v = 0.f;
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const float cx = fx + dx;
+        if (!(cx >= 0.f && cx <= top)) continue;
+        const int64_t cell =
+            (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
+            static_cast<int64_t>(cx);
+        const float dg = operand<kRoundDg>(g[cell]);
+        v += dg * operand<kBf16>(hat(tx, dx));
+        t1[dx] += dg * a;
+      }
+      pz += v * hy;
+      qz += v * sy;
+    }
+    az += sz * pz;
+    ay += hz * qz;
+    aw += hz * pz;
+  }
+  const float sx = tx == 0.f ? 0.f : 1.f;
+  dc[0] = az * pw;
+  dc[1] = ay * pw;
+  dc[2] = (t1[1] - t1[0]) * sx;
+  dw = aw;
+}
+
+// (g) one thread per point: coords [R, 3, N] -> dcoords [R, 3, N] (z, y,
+// x) and, when dweights is not null, dweights [R, N].
 template <bool kBf16, bool kRoundDg>
 __global__ void splat_bwd_kernel(const float* __restrict__ coords,
                                  const float* __restrict__ weights,
@@ -759,61 +918,140 @@ __global__ void splat_bwd_kernel(const float* __restrict__ coords,
                                  int n, int d) {
   const int64_t total = static_cast<int64_t>(renders) * n;
   const int64_t cells = static_cast<int64_t>(d) * d * d;
-  const float top = static_cast<float>(d - 1);
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t r = i / n;
     const int64_t p = i - r * n;
     const float* c = coords + r * 3 * n + p;
-    const float gz = c[0], gy = c[n], gx = c[2 * static_cast<int64_t>(n)];
-    const float fz = floorf(gz), fy = floorf(gy), fx = floorf(gx);
-    const float tz = gz - fz, ty = gy - fy, tx = gx - fx;
-    const float* g = dgrid + r * cells;
     const float pw = weights != nullptr ? weights[i] : 1.f;
-    float az = 0.f, ay = 0.f, aw = 0.f;
-    float t1[2] = {0.f, 0.f};
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz) {
-      const float cz = fz + dz;
-      if (!(cz >= 0.f && cz <= top)) continue;
-      const float hz = hat(tz, dz);
-      // dh = -1 / +1 on the low / high corner, 0 at an integer coordinate
-      const float sz = tz == 0.f ? 0.f : (dz ? 1.f : -1.f);
-      const float hzp = operand<kBf16>(operand<kBf16>(hz) *
-                                       operand<kBf16>(pw));
-      float pz = 0.f, qz = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const float cy = fy + dy;
-        if (!(cy >= 0.f && cy <= top)) continue;
-        const float hy = operand<kBf16>(hat(ty, dy));
-        const float sy = ty == 0.f ? 0.f : (dy ? 1.f : -1.f);
-        const float a = operand<kBf16>(hzp * hy);
-        float v = 0.f;
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const float cx = fx + dx;
-          if (!(cx >= 0.f && cx <= top)) continue;
-          const int64_t cell =
-              (static_cast<int64_t>(cz) * d + static_cast<int64_t>(cy)) * d +
-              static_cast<int64_t>(cx);
-          const float dg = operand<kRoundDg>(g[cell]);
-          v += dg * operand<kBf16>(hat(tx, dx));
-          t1[dx] += dg * a;
-        }
-        pz += v * hy;
-        qz += v * sy;
-      }
-      az += sz * pz;
-      ay += hz * qz;
-      aw += hz * pz;
-    }
-    const float sx = tx == 0.f ? 0.f : 1.f;
+    float dc[3], dw;
+    splat_bwd_point<kBf16, kRoundDg>(dgrid + r * cells, c[0], c[n],
+                                     c[2 * static_cast<int64_t>(n)], pw, d,
+                                     dc, dw);
     float* out = dcoords + r * 3 * n + p;
-    out[0] = az * pw;
-    out[n] = ay * pw;
-    out[2 * static_cast<int64_t>(n)] = (t1[1] - t1[0]) * sx;
-    if (dweights != nullptr) dweights[i] = aw;
+    out[0] = dc[0];
+    out[n] = dc[1];
+    out[2 * static_cast<int64_t>(n)] = dc[2];
+    if (dweights != nullptr) dweights[i] = dw;
+  }
+}
+
+// Sums 16 values of every lane over the warp in 16 shuffles: each step
+// halves the values a lane keeps and adds its partner's copies of them.
+// Lane l returns the warp's sum of v[l / 2].
+__device__ __forceinline__ float warp_sum16(float (&v)[16], int lane) {
+#pragma unroll
+  for (int half = 8, o = 16; half >= 1; half >>= 1, o >>= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const float send = upper ? v[k] : v[k + half];
+      const float keep = upper ? v[k + half] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+}
+
+// (g) from world clouds (World), one thread per (cloud, point), with the
+// camera transform's backward in registers: per render, the grid cotangent
+// D d(z, y, x) through x f / z and y f / z (z + dist clamped: no gradient
+// where it was below kMinDepth), the chain rule autograd applies to the
+// torch ops, then d p = rot^T d p_cam. The cloud's renders sum into d points
+// [C, N, 3] and d weights [C, N] (or null), each written once. kCamGrad:
+// also d rot[r] = sum_n d p_cam p^T into drot [R, 3, 3] and d trans[r] =
+// sum_n d p_cam into dtrans [R, 3] (or null), both zeroed before: summed
+// over the warp by shuffles where its lanes share the render (N % 32 == 0
+// makes that every warp), then one atomicAdd a value a warp. The chain's
+// divides share one reciprocal of z + dist, so its gradients may differ
+// from autograd's in the last bits; the coordinates are the forward's,
+// bit for bit. The launch bounds hold it to 48 registers, for the gathers
+// in flight: the fastest of 4-6 blocks an SM at the car_64_depth and
+// chair_pred_pose renders, from training's clouds and the benchmark's.
+template <bool kBf16, bool kRoundDg, bool kCamGrad>
+__global__ void __launch_bounds__(kThreads, 5)
+    splat_bwd_kernel(World w, const float* __restrict__ weights,
+                                 const float* __restrict__ dgrid,
+                                 float* __restrict__ dpoints,
+                                 float* __restrict__ dweights,
+                                 float* __restrict__ drot,
+                                 float* __restrict__ dtrans, int renders,
+                                 int n, int d) {
+  const int64_t total = static_cast<int64_t>(renders / w.per_cloud) * n;
+  const int64_t cells = static_cast<int64_t>(d) * d * d;
+  const float fd = static_cast<float>(d);
+  const int lane = threadIdx.x & 31;
+  // warp-uniform trips: a lane past the end computes nothing and adds 0
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i - lane < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const bool live = i < total;
+    const int64_t c = (live ? i : i - lane) / n;
+    float px = 0.f, py = 0.f, pz = 0.f, pw = 0.f;
+    if (live) {
+      const float* p = w.points + 3 * i;
+      px = p[0], py = p[1], pz = p[2];
+      pw = weights != nullptr ? weights[i] : 1.f;
+    }
+    float dpx = 0.f, dpy = 0.f, dpz = 0.f, dw = 0.f;
+    for (int s = 0; s < w.per_cloud; ++s) {
+      const int64_t r = c * w.per_cloud + s;
+      const Projected q = project(w, r, px, py, pz, fd);
+      float dc[3] = {0.f, 0.f, 0.f}, dws = 0.f;
+      if (live) {
+        splat_bwd_point<kBf16, kRoundDg>(dgrid + r * cells, q.g[0], q.g[1],
+                                         q.g[2], pw, d, dc, dws);
+      }
+      // d ndc = D d(grid), then through the divides and the clamp
+      const float dzn = __fmul_rn(dc[0], fd);
+      const float dyn = __fmul_rn(dc[1], fd);
+      const float dxn = __fmul_rn(dc[2], fd);
+      const float inv = __frcp_rn(q.zs);
+      const float fi = __fmul_rn(w.focal, inv);
+      const float dx = __fmul_rn(dxn, fi);
+      const float dy = __fmul_rn(dyn, fi);
+      const float dzs = -__fmul_rn(
+          fmaf(dyn, q.yn, __fmul_rn(dxn, q.xn)), inv);
+      const float dz = q.clamped ? dzn : __fadd_rn(dzn, dzs);
+      const float* m = w.rot + r * 9;
+      dpx = __fadd_rn(dpx, fmaf(__ldg(m + 6), dz, fmaf(__ldg(m + 3), dy,
+                                __fmul_rn(__ldg(m), dx))));
+      dpy = __fadd_rn(dpy, fmaf(__ldg(m + 7), dz, fmaf(__ldg(m + 4), dy,
+                                __fmul_rn(__ldg(m + 1), dx))));
+      dpz = __fadd_rn(dpz, fmaf(__ldg(m + 8), dz, fmaf(__ldg(m + 5), dy,
+                                __fmul_rn(__ldg(m + 2), dx))));
+      dw = __fadd_rn(dw, dws);
+      if constexpr (kCamGrad) {
+        // d rot[r] row-major (9), then d trans[r] (3), padded to 16
+        float v[16] = {__fmul_rn(dx, px), __fmul_rn(dx, py),
+                       __fmul_rn(dx, pz), __fmul_rn(dy, px),
+                       __fmul_rn(dy, py), __fmul_rn(dy, pz),
+                       __fmul_rn(dz, px), __fmul_rn(dz, py),
+                       __fmul_rn(dz, pz), dx, dy, dz, 0.f, 0.f, 0.f, 0.f};
+        const int64_t r0 = __shfl_sync(0xffffffffu, r, 0);
+        if (__all_sync(0xffffffffu, r == r0)) {
+          const float sum = warp_sum16(v, lane);
+          const int k = lane >> 1;
+          if ((lane & 1) == 0 && k < 9) atomicAdd(drot + r * 9 + k, sum);
+          if ((lane & 1) == 0 && k >= 9 && k < 12 && dtrans != nullptr) {
+            atomicAdd(dtrans + r * 3 + (k - 9), sum);
+          }
+        } else if (live) {  // a warp across two clouds (N % 32 != 0)
+#pragma unroll
+          for (int k = 0; k < 9; ++k) atomicAdd(drot + r * 9 + k, v[k]);
+          if (dtrans != nullptr) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k) atomicAdd(dtrans + r * 3 + k, v[9 + k]);
+          }
+        }
+      }
+    }
+    if (live) {
+      float* out = dpoints + 3 * i;
+      out[0] = dpx;
+      out[1] = dpy;
+      out[2] = dpz;
+      if (dweights != nullptr) dweights[i] = dw;
+    }
   }
 }
 
@@ -877,23 +1115,46 @@ cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
   return cudaGetLastError();
 }
 
+// Where the splat stages read the points: grid coordinates coords
+// [R, 3, N] (rows z, y, x), or, where coords is null, the world clouds and
+// cameras of world.
+struct Source {
+  const float* coords;
+  World world;
+};
+
+// The splat stages' threads: one a (render, point) from coords, one a
+// (cloud, point) from world clouds.
+int64_t splat_units(const Source& src, int renders, int n) {
+  const int64_t rows =
+      src.coords != nullptr ? renders : renders / src.world.per_cloud;
+  return rows * n;
+}
+
 // (a) + (b) + (c): the fully blurred grid the DRC walk reads, into the
 // scratch grid (y/x, then z; K3's bf16 mode: z first).
-cudaError_t launch_grid(Mode m, const float* coords, const float* weights,
+cudaError_t launch_grid(Mode m, const Source& src, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
   const size_t cells = static_cast<size_t>(renders) * d * d * d;
   cudaError_t err = cudaMemsetAsync(grid, 0, cells * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const int64_t points = static_cast<int64_t>(renders) * n;
-  if (points > 0) {
-    const unsigned blocks = static_cast<unsigned>(splat_blocks(points));
-    if (m == Mode::kF32) {
-      splat_kernel<false><<<blocks, kThreads, 0, s>>>(coords, weights, grid,
-                                                      renders, n, d);
+  const int64_t units = splat_units(src, renders, n);
+  if (units > 0) {
+    const unsigned blocks = static_cast<unsigned>(splat_blocks(units));
+    const bool bf16 = m != Mode::kF32;
+    if (src.coords != nullptr && !bf16) {
+      splat_kernel<false><<<blocks, kThreads, 0, s>>>(src.coords, weights,
+                                                      grid, renders, n, d);
+    } else if (src.coords != nullptr) {
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(src.coords, weights,
+                                                     grid, renders, n, d);
+    } else if (!bf16) {
+      splat_kernel<false><<<blocks, kThreads, 0, s>>>(src.world, weights,
+                                                      grid, renders, n, d);
     } else {
-      splat_kernel<true><<<blocks, kThreads, 0, s>>>(coords, weights, grid,
-                                                     renders, n, d);
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(src.world, weights,
+                                                     grid, renders, n, d);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -959,14 +1220,51 @@ cudaError_t launch_drc_bwd(const float* grid, const float* dsil,
   return cudaGetLastError();
 }
 
+// (g) in the operand mode's form: from coords into dsrc = dcoords
+// [R, 3, N]; from world clouds into dsrc = dpoints [C, N, 3], and, where
+// drot is not null, the cameras' gradients into drot and dtrans (or null),
+// zeroed here first.
+template <bool kBf16, bool kRoundDg>
+cudaError_t launch_splat_bwd(const Source& src, const float* weights,
+                             const float* dgrid, float* dsrc,
+                             float* dweights, float* drot, float* dtrans,
+                             int renders, int n, int d, cudaStream_t s) {
+  const int64_t units = splat_units(src, renders, n);
+  const unsigned blocks = static_cast<unsigned>(splat_blocks(units));
+  if (src.coords != nullptr) {
+    if (units == 0) return cudaSuccess;
+    splat_bwd_kernel<kBf16, kRoundDg><<<blocks, kThreads, 0, s>>>(
+        src.coords, weights, dgrid, dsrc, dweights, renders, n, d);
+    return cudaGetLastError();
+  }
+  if (drot == nullptr) {
+    if (units == 0) return cudaSuccess;
+    splat_bwd_kernel<kBf16, kRoundDg, false><<<blocks, kThreads, 0, s>>>(
+        src.world, weights, dgrid, dsrc, dweights, nullptr, nullptr,
+        renders, n, d);
+    return cudaGetLastError();
+  }
+  cudaError_t err = cudaMemsetAsync(
+      drot, 0, static_cast<size_t>(renders) * 9 * sizeof(float), s);
+  if (err == cudaSuccess && dtrans != nullptr) {
+    err = cudaMemsetAsync(dtrans, 0,
+                          static_cast<size_t>(renders) * 3 * sizeof(float), s);
+  }
+  if (err != cudaSuccess || units == 0) return err;
+  splat_bwd_kernel<kBf16, kRoundDg, true><<<blocks, kThreads, 0, s>>>(
+      src.world, weights, dgrid, dsrc, dweights, drot, dtrans, renders, n,
+      d);
+  return cudaGetLastError();
+}
+
 // (e) + (f) + (g) on the grid launch_grid makes.
-cudaError_t launch_bwd_stages(Mode m, const float* coords,
+cudaError_t launch_bwd_stages(Mode m, const Source& src,
                               const float* weights, const float* taps,
                               int radius, const float* grid,
                               const float* dsil, const float* ddepth,
-                              float* dgrid, float* dcoords, float* dweights,
-                              int renders, int n, int d, int with_depth,
-                              cudaStream_t s) {
+                              float* dgrid, float* dsrc, float* dweights,
+                              float* drot, float* dtrans, int renders, int n,
+                              int d, int with_depth, cudaStream_t s) {
   cudaError_t err =
       launch_drc_bwd(grid, dsil, ddepth, dgrid, renders, d, with_depth, s);
   if (err == cudaSuccess) {
@@ -992,50 +1290,90 @@ cudaError_t launch_bwd_stages(Mode m, const float* coords,
         break;
     }
   }
-  if (err != cudaSuccess || n == 0) return err;
-  const unsigned blocks = static_cast<unsigned>(
-      splat_blocks(static_cast<int64_t>(renders) * n));
+  if (err != cudaSuccess) return err;
   switch (m) {
     case Mode::kF32:
-      splat_bwd_kernel<false, false><<<blocks, kThreads, 0, s>>>(
-          coords, weights, dgrid, dcoords, dweights, renders, n, d);
-      break;
+      return launch_splat_bwd<false, false>(src, weights, dgrid, dsrc,
+                                            dweights, drot, dtrans, renders,
+                                            n, d, s);
     case Mode::kBf16:  // K2 rounds dG
-      splat_bwd_kernel<true, true><<<blocks, kThreads, 0, s>>>(
-          coords, weights, dgrid, dcoords, dweights, renders, n, d);
-      break;
+      return launch_splat_bwd<true, true>(src, weights, dgrid, dsrc,
+                                          dweights, drot, dtrans, renders, n,
+                                          d, s);
     case Mode::kBf16Blocked:
-      splat_bwd_kernel<true, false><<<blocks, kThreads, 0, s>>>(
-          coords, weights, dgrid, dcoords, dweights, renders, n, d);
-      break;
+      return launch_splat_bwd<true, false>(src, weights, dgrid, dsrc,
+                                           dweights, drot, dtrans, renders,
+                                           n, d, s);
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
+}
+
+// The forward on either source; the backward on either, re-splatting and
+// re-blurring into grid first where recompute.
+cudaError_t forward(const Source& src, const float* weights,
+                    const float* taps, int radius, float* grid, float* sil,
+                    float* depth, int renders, int n, int d, int with_depth,
+                    int bf16, void* stream) {
+  if (bad_args(renders, n, d, radius, bf16) ||
+      (with_depth && depth == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (renders == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_grid(mode_of(bf16, d), src, weights, taps,
+                                      radius, grid, renders, n, d, s);
+  if (err != cudaSuccess) return err;
+  return launch_drc(grid, sil, depth, renders, d, with_depth, s);
+}
+
+cudaError_t backward(const Source& src, const float* weights,
+                     const float* taps, int radius, float* grid,
+                     bool recompute, const float* dsil, const float* ddepth,
+                     float* dgrid, float* dsrc, float* dweights, float* drot,
+                     float* dtrans, int renders, int n, int d, int with_depth,
+                     int bf16, void* stream) {
+  if (bad_args(renders, n, d, radius, bf16)) return cudaErrorInvalidValue;
+  if (renders == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Mode m = mode_of(bf16, d);
+  if (recompute) {
+    const cudaError_t err =
+        launch_grid(m, src, weights, taps, radius, grid, renders, n, d, s);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_bwd_stages(m, src, weights, taps, radius, grid, dsil, ddepth,
+                           dgrid, dsrc, dweights, drot, dtrans, renders, n,
+                           d, with_depth, s);
+}
+
+// World clouds and cameras as the C entries take them; a bad per_cloud
+// gives null points, which the entries refuse.
+Source world_source(const float* points, const float* rot,
+                    const float* trans, float focal, float dist,
+                    int per_cloud, int renders) {
+  const bool ok = points != nullptr && rot != nullptr && per_cloud >= 1 &&
+                  renders % per_cloud == 0;
+  return Source{nullptr,
+                World{ok ? points : nullptr, rot, trans, focal, dist,
+                      ok ? per_cloud : 1}};
 }
 
 }  // namespace
 
-// Forward. grid: scratch [R, D, D, D] f32 that holds the fully blurred grid
-// the DRC walk read afterwards; sil,
-// depth: [R, D, D] f32 (depth may be null when with_depth is 0); bf16: the
-// operand mode (1: bfloat16; above D 64, D % 8 == 0). Returns a cudaError_t
-// as int.
+// Forward. coords [R, 3, N] in grid units, rows (z, y, x); weights [R, N]
+// or null (every point weighs 1); taps [2 radius + 1]. grid: scratch
+// [R, D, D, D] f32 that holds the fully blurred grid the DRC walk read
+// afterwards; sil, depth: [R, D, D] f32 (depth may be null when with_depth
+// is 0); bf16: the operand mode (1: bfloat16; above D 64, D % 8 == 0).
+// Returns a cudaError_t as int.
 extern "C" int dpcx_fused_render(const float* coords, const float* weights,
                                  const float* taps, int radius, float* grid,
                                  float* sil, float* depth, int renders, int n,
                                  int d, int with_depth, int bf16,
                                  void* stream) {
-  if (bad_args(renders, n, d, radius, bf16) ||
-      (with_depth && depth == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (renders == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Mode m = mode_of(bf16, d);
-  cudaError_t err =
-      launch_grid(m, coords, weights, taps, radius, grid, renders, n, d, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_drc(grid, sil, depth, renders, d, with_depth, s));
+  return static_cast<int>(forward(Source{coords, World{}}, weights, taps,
+                                  radius, grid, sil, depth, renders, n, d,
+                                  with_depth, bf16, stream));
 }
 
 // Backward, saved-grid mode. grid: the forward's grid [R, D, D, D] (read
@@ -1050,14 +1388,10 @@ extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
                                      float* dcoords, float* dweights,
                                      int renders, int n, int d, int with_depth,
                                      int bf16, void* stream) {
-  if (bad_args(renders, n, d, radius, bf16)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (renders == 0) return 0;
-  return static_cast<int>(launch_bwd_stages(
-      mode_of(bf16, d), coords, weights, taps, radius, grid, dsil, ddepth,
-      dgrid, dcoords, dweights, renders, n, d, with_depth,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(backward(
+      Source{coords, World{}}, weights, taps, radius,
+      const_cast<float*>(grid), false, dsil, ddepth, dgrid, dcoords,
+      dweights, nullptr, nullptr, renders, n, d, with_depth, bf16, stream));
 }
 
 // Backward, recompute mode: as dpcx_fused_render_bwd, but grid is scratch
@@ -1068,15 +1402,51 @@ extern "C" int dpcx_fused_render_bwd_recompute(
     float* grid, const float* dsil, const float* ddepth, float* dgrid,
     float* dcoords, float* dweights, int renders, int n, int d,
     int with_depth, int bf16, void* stream) {
-  if (bad_args(renders, n, d, radius, bf16)) {
+  return static_cast<int>(backward(
+      Source{coords, World{}}, weights, taps, radius, grid, true, dsil,
+      ddepth, dgrid, dcoords, dweights, nullptr, nullptr, renders, n, d,
+      with_depth, bf16, stream));
+}
+
+// Forward from world clouds: points [C, N, 3] f32, weights [C, N] or null,
+// and per render r its camera, rot [R, 3, 3] and trans [R, 3] or null, with
+// focal and dist (render/transform.py's focal length and camera distance);
+// render r shows cloud r / per_cloud, R = C per_cloud. The splat stage
+// projects each point in registers (World). The rest as dpcx_fused_render.
+extern "C" int dpcx_fused_render_world(
+    const float* points, const float* weights, const float* rot,
+    const float* trans, float focal, float dist, int per_cloud,
+    const float* taps, int radius, float* grid, float* sil, float* depth,
+    int renders, int n, int d, int with_depth, int bf16, void* stream) {
+  const Source src =
+      world_source(points, rot, trans, focal, dist, per_cloud, renders);
+  if (src.world.points == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (renders == 0) return 0;
-  const cudaError_t err =
-      launch_grid(mode_of(bf16, d), coords, weights, taps, radius, grid,
-                  renders, n, d, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dpcx_fused_render_bwd(coords, weights, taps, radius, grid, dsil,
-                               ddepth, dgrid, dcoords, dweights, renders, n,
-                               d, with_depth, bf16, stream);
+  return static_cast<int>(forward(src, weights, taps, radius, grid, sil,
+                                  depth, renders, n, d, with_depth, bf16,
+                                  stream));
+}
+
+// Backward from world clouds, the inputs as dpcx_fused_render_world's:
+// grid is the forward's grid, or (recompute 1) scratch that is re-splatted
+// and re-blurred first. dpoints out [C, N, 3]; dweights out [C, N] or null;
+// drot out [R, 3, 3] or null (no camera gradient), dtrans out [R, 3] or
+// null. The rest as dpcx_fused_render_bwd.
+extern "C" int dpcx_fused_render_world_bwd(
+    const float* points, const float* weights, const float* rot,
+    const float* trans, float focal, float dist, int per_cloud,
+    const float* taps, int radius, float* grid, int recompute,
+    const float* dsil, const float* ddepth, float* dgrid, float* dpoints,
+    float* dweights, float* drot, float* dtrans, int renders, int n, int d,
+    int with_depth, int bf16, void* stream) {
+  const Source src =
+      world_source(points, rot, trans, focal, dist, per_cloud, renders);
+  if (src.world.points == nullptr || (dtrans != nullptr && trans == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(backward(
+      src, weights, taps, radius, grid, recompute != 0, dsil, ddepth, dgrid,
+      dpoints, dweights, drot, dtrans, renders, n, d, with_depth, bf16,
+      stream));
 }

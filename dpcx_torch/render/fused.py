@@ -10,6 +10,15 @@ tensors it runs the plain version, ``fused_project_reference``, and
 autograd differentiates that. Any other device raises. The plain version
 is also the yardstick the kernels are checked against on the card.
 
+``fused_project_world`` takes world clouds [C, N, 3] and cameras [R, 4]
+(R a multiple of C) instead of NDC coordinates: on CUDA tensors the splat
+stages of the same kernels run the camera transform of
+``pc_perspective_transform_t`` and the NDC -> grid affine in registers,
+forward and backward (the cameras' gradients included), so no [R, 3, N]
+tensor and no batched 3x3 GEMM reaches the card; on CPU tensors it is that
+transform followed by ``fused_project_t``. ``pointcloud_project_fn`` takes
+it.
+
 ``save_grid`` mirrors ``pallas_project_t``'s: at D > 64 the forward keeps
 its grid (8 MiB per render at 128^3) for the backward, or,
 when False (``cfg.remat``), keeps only coords, weights and taps, and the
@@ -40,12 +49,14 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from dpcx_torch.geometry.quaternion import quaternion_to_matrix
 from dpcx_torch.render.drc import drc_projection
 from dpcx_torch.render.gauss import (
     blur_matrix,
     gauss_kernel_1d,
     smoothen_voxels3d,
 )
+from dpcx_torch.render.transform import pc_perspective_transform_t
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
 from dpcx_torch.utils.profiling import span
 
@@ -373,9 +384,11 @@ def fused_project_plain(
     return out if with_depth else (out, None)
 
 
-def _check_inputs(ndc_t, vox_size, kernel_radius, point_weights) -> None:
-    if ndc_t.dim() != 3 or ndc_t.shape[1] != 3:
-        raise ValueError(f"ndc_t must be [R, 3, N], got {tuple(ndc_t.shape)}")
+def _check_grid(vox_size, kernel_radius, acc_dtype) -> None:
+    """The grid, blur and operand mode the kernels cover."""
+    if acc_dtype not in ACC_DTYPES:
+        raise ValueError(f"acc_dtype must be one of {ACC_DTYPES}, "
+                         f"got {acc_dtype!r}")
     if not 1 <= vox_size <= MAX_FUSED_VOX:
         raise ValueError(
             f"fused renderer covers 1 <= vox_size <= {MAX_FUSED_VOX}, "
@@ -385,16 +398,39 @@ def _check_inputs(ndc_t, vox_size, kernel_radius, point_weights) -> None:
         raise ValueError(
             f"kernel_radius must be in [0, {vox_size}), got {kernel_radius}"
         )
-    R, _, N = ndc_t.shape
-    if point_weights is not None and tuple(point_weights.shape) != (R, N):
-        raise ValueError(
-            f"point_weights must be [{R}, {N}], "
-            f"got {tuple(point_weights.shape)}"
-        )
+    if blocked_mode(vox_size, acc_dtype):
+        blocked_dz(vox_size)  # raises where dpcx's blocked kernels do
+
+
+def _check_shape(name, t, shape) -> None:
+    if t is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got {tuple(t.shape)}")
+
+
+def _check_f32(device, **tensors) -> None:
+    """The kernels read float32 on the card they run on."""
+    for name, t in tensors.items():
+        if t is not None and (t.device != device or t.dtype != torch.float32):
+            raise ValueError(
+                f"{name} must be float32 on {device}, "
+                f"got {t.dtype} on {t.device}"
+            )
 
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
+
+
+def _counted(name: str, err: int) -> None:
+    """Raise on a launcher's CUDA error, else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _bwd_name(vox: int, recompute: bool, bf16: bool) -> str:
+    return (f"{launch_family(vox)}_render_bwd"
+            + ("_recompute" if recompute else "") + ("_bf16" if bf16 else ""))
 
 
 def _launch_forward(coords, weights, taps, radius, vox, with_depth,
@@ -419,10 +455,7 @@ def _launch_forward(coords, weights, taps, radius, vox, with_depth,
             int(with_depth), int(bf16),
             torch.cuda.current_stream(coords.device).cuda_stream,
         )
-    name = f"{launch_family(vox)}_render" + ("_bf16" if bf16 else "")
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    _counted(f"{launch_family(vox)}_render" + ("_bf16" if bf16 else ""), err)
     return sil, depth, grid
 
 
@@ -456,11 +489,7 @@ def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
             dcoords.data_ptr(), _ptr(dweights), R, N, D, int(with_depth),
             int(bf16), torch.cuda.current_stream(coords.device).cuda_stream,
         )
-    name = (f"{launch_family(vox)}_render_bwd"
-            + ("_recompute" if recompute else "") + ("_bf16" if bf16 else ""))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    _counted(_bwd_name(vox, recompute, bf16), err)
     return dcoords, dweights
 
 
@@ -505,18 +534,112 @@ class _FusedRender(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
+def _launch_world_forward(points, weights, rot, trans, camera, taps, radius,
+                          vox, with_depth, bf16):
+    """Forward (K1, or K3 at D > 64) from world clouds: points [C, N, 3],
+    weights [C, N] or None, rot [R, 3, 3], trans [R, 3] or None, camera
+    (focal length, camera distance); the splat stage projects each point
+    through its render's camera in registers. -> (sil, depth or None, the
+    fully blurred grid [R, D, D, D])."""
+    from dpcx_torch import _build
+
+    C, N, _ = points.shape
+    R, D = rot.shape[0], vox
+    dev = points.device
+    grid = torch.empty((R, D, D, D), dtype=torch.float32, device=dev)
+    sil = torch.empty((R, D, D), dtype=torch.float32, device=dev)
+    depth = torch.empty_like(sil) if with_depth else None
+    with torch.cuda.device(dev):
+        err = _build.load().dpcx_fused_render_world(
+            points.data_ptr(), _ptr(weights), rot.data_ptr(), _ptr(trans),
+            *camera, R // C, taps.data_ptr(), radius, grid.data_ptr(),
+            sil.data_ptr(), _ptr(depth), R, N, D, int(with_depth), int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _counted(f"{launch_family(vox)}_render" + ("_bf16" if bf16 else ""), err)
+    return sil, depth, grid
+
+
+def _launch_world_backward(points, weights, rot, trans, camera, taps, radius,
+                           grid, dsil, ddepth, vox, with_depth,
+                           want_dweights, want_camera, bf16):
+    """Backward (K2, or K4 + K5 at D > 64) from world clouds, the inputs as
+    ``_launch_world_forward``'s; ``grid`` the forward's, or None: re-splat
+    and re-blur first. -> (d points [C, N, 3], d weights [C, N] or None,
+    d rot [R, 3, 3] and d trans [R, 3] (None without ``want_camera``; d
+    trans None without trans))."""
+    from dpcx_torch import _build
+
+    C, N, _ = points.shape
+    R, D = rot.shape[0], vox
+    dev = points.device
+    recompute = grid is None
+    if recompute:
+        grid = torch.empty((R, D, D, D), dtype=torch.float32, device=dev)
+    dgrid = torch.empty_like(grid)
+    dpoints = torch.empty_like(points)
+    dweights = (torch.empty((C, N), dtype=torch.float32, device=dev)
+                if want_dweights else None)
+    drot = torch.empty_like(rot) if want_camera else None
+    dtrans = (torch.empty_like(trans)
+              if want_camera and trans is not None else None)
+    with torch.cuda.device(dev):
+        err = _build.load().dpcx_fused_render_world_bwd(
+            points.data_ptr(), _ptr(weights), rot.data_ptr(), _ptr(trans),
+            *camera, R // C, taps.data_ptr(), radius, grid.data_ptr(),
+            int(recompute), dsil.data_ptr(), _ptr(ddepth), dgrid.data_ptr(),
+            dpoints.data_ptr(), _ptr(dweights), _ptr(drot), _ptr(dtrans), R,
+            N, D, int(with_depth), int(bf16),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _counted(_bwd_name(vox, recompute, bf16), err)
+    return dpoints, dweights, drot, dtrans
+
+
+class _FusedWorldRender(torch.autograd.Function):
+    """Kernel forward and backward from world clouds and their cameras
+    (``fused_project_world``). Returns sil, or (sil, depth) with depth.
+    Gradients reach the points, the weights, the rotations and the
+    translations; none the taps, as ``_FusedRender``."""
+
+    @staticmethod
+    def forward(ctx, points, weights, rot, trans, camera, taps, radius, vox,
+                with_depth, save_grid, bf16):
+        with span("render.fwd"):
+            sil, depth, grid = _launch_world_forward(
+                points, weights, rot, trans, camera, taps, radius, vox,
+                with_depth, bf16)
+        keep = save_grid or vox <= BLOCKED_VOX
+        ctx.save_for_backward(points, weights, rot, trans, taps,
+                              grid if keep else None)
+        ctx.camera, ctx.radius, ctx.vox = camera, radius, vox
+        ctx.with_depth, ctx.bf16 = with_depth, bf16
+        ctx.set_materialize_grads(False)
+        return (sil, depth) if with_depth else sil
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dsil, ddepth=None):
+        points, weights, rot, trans, taps, grid = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        with span("render.bwd"):
+            if dsil is None:  # only the depth output reached the loss
+                dsil = torch.zeros_like(ddepth)
+            dpoints, dweights, drot, dtrans = _launch_world_backward(
+                points, weights, rot, trans, ctx.camera, taps, ctx.radius,
+                grid, dsil.contiguous(),
+                None if ddepth is None else ddepth.contiguous(), ctx.vox,
+                ctx.with_depth, want[1], want[2] or want[3], ctx.bf16)
+        return (dpoints if want[0] else None, dweights,
+                drot if want[2] else None, dtrans if want[3] else None,
+                None, None, None, None, None, None, None)
+
+
 def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
                     with_depth, save_grid=True, bf16=False):
     """The kernel path: the NDC -> grid affine stays outside the Function,
     so autograd chains d/d(ndc) = D d/d(coords), as pallas_project_t."""
-    for name, t in (("ndc_t", ndc_t), ("point_weights", point_weights)):
-        if t is not None and (
-            t.device != ndc_t.device or t.dtype != torch.float32
-        ):
-            raise ValueError(
-                f"{name} must be float32 on {ndc_t.device}, "
-                f"got {t.dtype} on {t.device}"
-            )
+    _check_f32(ndc_t.device, ndc_t=ndc_t, point_weights=point_weights)
     D = vox_size
     # NDC -> grid units, rows (z, y, x), as pallas_project_t does
     coords = ((ndc_t.flip(1) + 0.5) * D - 0.5).contiguous()
@@ -547,13 +670,12 @@ def fused_project_t(
     CUDA kernels, CPU tensors through the plain version (where
     ``save_grid`` changes nothing).
     """
-    if acc_dtype not in ACC_DTYPES:
-        raise ValueError(f"acc_dtype must be one of {ACC_DTYPES}, "
-                         f"got {acc_dtype!r}")
     bf16 = acc_dtype == "bfloat16"
-    _check_inputs(ndc_t, vox_size, kernel_radius, point_weights)
-    if blocked_mode(vox_size, acc_dtype):
-        blocked_dz(vox_size)  # raises where dpcx's blocked kernels do
+    _check_grid(vox_size, kernel_radius, acc_dtype)
+    if ndc_t.dim() != 3 or ndc_t.shape[1] != 3:
+        raise ValueError(f"ndc_t must be [R, 3, N], got {tuple(ndc_t.shape)}")
+    R, _, N = ndc_t.shape
+    _check_shape("point_weights", point_weights, (R, N))
     if ndc_t.device.type == "cpu":
         if bf16:
             return fused_project_plain(ndc_t, vox_size, sigma_vox,
@@ -572,3 +694,69 @@ def fused_project_t(
         ndc_t, vox_size, sigma_vox, kernel_radius, point_weights, with_depth,
         save_grid, bf16,
     )
+
+
+def fused_project_world(
+    points: torch.Tensor,
+    quat: torch.Tensor,
+    vox_size: int,
+    sigma_vox: torch.Tensor | float,
+    kernel_radius: int,
+    point_weights: torch.Tensor | None = None,
+    translation: torch.Tensor | None = None,
+    focal_length: float = 1.875,
+    camera_distance: float = 2.0,
+    with_depth: bool = False,
+    acc_dtype: str = "float32",
+    save_grid: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """World clouds through cameras: points [C, N, 3], quat [R, 4] and
+    translation [R, 3] or None, R a multiple of C (render r shows cloud
+    r // (R / C)), point_weights [C, N] or None -> (sil [R, D, D], depth or
+    None): ``pc_perspective_transform_t`` and ``fused_project_t`` in one.
+
+    CUDA tensors: the rotations ``quaternion_to_matrix(quat)`` [R, 3, 3],
+    then the kernels, whose splat stages run the camera transform in
+    registers; no [R, 3, N] coordinates reach memory, and each cloud is
+    read once for its R / C renders. Gradients reach points, point_weights,
+    quat (through the rotations) and translation. CPU tensors: the clouds
+    fanned out to R rows, ``pc_perspective_transform_t``, then
+    ``fused_project_t``: the composition the kernels are held to.
+    """
+    if points.dim() != 3 or points.shape[-1] != 3:
+        raise ValueError(
+            f"points must be [C, N, 3], got {tuple(points.shape)}")
+    C, N, _ = points.shape
+    R = quat.shape[0]
+    if quat.shape != (R, 4) or C == 0 or R % C:
+        raise ValueError(
+            f"quat must be [R, 4] with R a multiple of the {C} clouds, got "
+            f"{tuple(quat.shape)}")
+    _check_shape("point_weights", point_weights, (C, N))
+    _check_shape("translation", translation, (R, 3))
+    if points.device.type != "cuda":
+        fan = R // C
+        if fan > 1:
+            points = points.repeat_interleave(fan, dim=0)
+            if point_weights is not None:
+                point_weights = point_weights.repeat_interleave(fan, dim=0)
+        ndc_t = pc_perspective_transform_t(
+            points, quat, focal_length=focal_length,
+            camera_distance=camera_distance, translation=translation)
+        return fused_project_t(ndc_t, vox_size, sigma_vox, kernel_radius,
+                               point_weights, with_depth, acc_dtype,
+                               save_grid)
+    _check_grid(vox_size, kernel_radius, acc_dtype)
+    _check_f32(points.device, points=points, quat=quat,
+               point_weights=point_weights, translation=translation)
+    sigma = torch.as_tensor(sigma_vox, dtype=torch.float32,
+                            device=points.device)
+    taps = gauss_kernel_1d(sigma, kernel_radius).contiguous()
+    out = _FusedWorldRender.apply(
+        points.contiguous(),
+        None if point_weights is None else point_weights.contiguous(),
+        quaternion_to_matrix(quat).contiguous(),
+        None if translation is None else translation.contiguous(),
+        (float(focal_length), float(camera_distance)), taps, kernel_radius,
+        vox_size, with_depth, save_grid, acc_dtype == "bfloat16")
+    return out if with_depth else (out, None)

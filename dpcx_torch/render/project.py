@@ -4,8 +4,9 @@
 ``cfg.renderer`` selects the path as in the reference: "xla" runs the eager
 ops below; "pallas" runs the fused renderer (``render/fused.py``), which is
 the hand-written CUDA kernel for CUDA tensors and its plain version for CPU
-tensors. Configurations the fused kernel does not cover fall through to the
-eager ops, as the reference falls through to XLA. Colour (``rgb``) always
+tensors; on the card its splat stages also run the camera transform
+(``fused_project_world``). Configurations the fused kernel does not cover
+fall through to the eager ops, as the reference falls through to XLA. Colour (``rgb``) always
 takes the eager ops, as in the reference.
 """
 
@@ -22,7 +23,7 @@ from dpcx_torch.render.drc import (
     drc_projection,
     sum_projection,
 )
-from dpcx_torch.render.fused import MAX_FUSED_VOX, fused_project_t
+from dpcx_torch.render.fused import MAX_FUSED_VOX, fused_project_world
 from dpcx_torch.render.gauss import kernel_radius, smoothen_voxels3d
 from dpcx_torch.render.transform import (
     pc_perspective_transform,
@@ -69,7 +70,19 @@ def keep_prob_schedule(cfg: Config, step) -> torch.Tensor:
     return cfg.pc_point_dropout + (1.0 - cfg.pc_point_dropout) * frac
 
 
-@span("render.project")
+def _fused_route(cfg: Config, rgb, return_voxels: bool) -> bool:
+    """Whether a call takes the fused renderer (else the eager ops)."""
+    return (
+        cfg.renderer == "pallas"
+        and rgb is None  # colour never reaches the fused renderer
+        and cfg.proj_type == "drc"
+        and not cfg.drc_logsum
+        and not return_voxels
+        and cfg.vox_size % 8 == 0
+        and cfg.vox_size <= MAX_FUSED_VOX  # 128, as dpcx; larger: eager ops
+    )
+
+
 def pointcloud_project_fn(
     cfg: Config,
     points: torch.Tensor,
@@ -84,8 +97,24 @@ def pointcloud_project_fn(
     """Project world-frame clouds [B, N, 3] through cameras [B, 4]; with
     ``rgb`` [B, N, 3], also the expected colour along each ray [B, Y, X, 3].
     ``project_fn``: the fused renderer, with ``fused_project_t``'s
-    signature (None: ``fused_project_t``, the CUDA kernels on the card).
+    signature (None: ``fused_project_world``, whose kernels on the card run
+    the camera transform in their splat stages).
+
+    Spanned as ``render.project``, counting the renders x points whose
+    camera transform ran inside the kernels (``front_points``) or as torch
+    ops (``eager_front_points``).
     """
+    fused = _fused_route(cfg, rgb, return_voxels)
+    in_kernel = fused and project_fn is None and points.device.type == "cuda"
+    front = quat.shape[0] * points.shape[-2]
+    with span("render.project", front_points=front if in_kernel else 0,
+              eager_front_points=0 if in_kernel else front):
+        return _project(cfg, points, quat, sigma_rel, point_weights, rgb,
+                        translation, return_voxels, project_fn, fused)
+
+
+def _project(cfg, points, quat, sigma_rel, point_weights, rgb, translation,
+             return_voxels, project_fn, fused) -> RenderOut:
     dtype = getattr(torch, cfg.renderer_dtype)
     points = points.to(dtype)
     quat = quat.to(dtype)
@@ -100,27 +129,8 @@ def pointcloud_project_fn(
     )
     sigma_vox = torch.as_tensor(sigma_rel, dtype=dtype, device=points.device) * D
 
-    if (
-        cfg.renderer == "pallas"
-        and rgb is None  # colour never reaches the fused renderer
-        and cfg.proj_type == "drc"
-        and not cfg.drc_logsum
-        and not return_voxels
-        and D % 8 == 0
-        and D <= MAX_FUSED_VOX  # 128, as dpcx; larger D takes the eager ops
-    ):
-        ndc_t = pc_perspective_transform_t(
-            points,
-            quat,
-            focal_length=cfg.focal_length,
-            camera_distance=cfg.camera_distance,
-            translation=trans,
-        )
-        sil, depth = (project_fn or fused_project_t)(
-            ndc_t,
-            D,
-            sigma_vox,
-            radius,
+    if fused:
+        kw = dict(
             point_weights=point_weights,
             with_depth=cfg.proj_depth,
             acc_dtype=cfg.pallas_acc_dtype,
@@ -128,6 +138,20 @@ def pointcloud_project_fn(
             # of keeping the blurred grid (8 MiB per render at 128^3)
             save_grid=not cfg.remat,
         )
+        if project_fn is None:
+            sil, depth = fused_project_world(
+                points, quat, D, sigma_vox, radius, translation=trans,
+                focal_length=cfg.focal_length,
+                camera_distance=cfg.camera_distance, **kw)
+        else:
+            ndc_t = pc_perspective_transform_t(
+                points,
+                quat,
+                focal_length=cfg.focal_length,
+                camera_distance=cfg.camera_distance,
+                translation=trans,
+            )
+            sil, depth = project_fn(ndc_t, D, sigma_vox, radius, **kw)
         return RenderOut(silhouette=sil, depth=depth)
 
     ndc = pc_perspective_transform(

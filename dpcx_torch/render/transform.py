@@ -42,7 +42,13 @@ def pc_perspective_transform_t(
     translation: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Same math, CHANNEL-MAJOR output: points [..., N, 3] -> NDC [..., 3, N]
-    (rows x, y, z_ndc), the layout the fused renderer takes."""
+    (rows x, y, z_ndc), the layout ``fused_project_t`` takes.
+
+    On the card the fused renderer runs this transform inside its splat
+    stages (``render/fused.py::fused_project_world``). These ops remain the
+    CPU route of that entry, the route of ``pointcloud_project_fn`` when a
+    ``project_fn`` is handed in (the kernel-vs-plain checks), and the
+    composition the card's tests hold the kernels to."""
     # out[j, n] = sum_i R[j, i] * p[n, i]
     p = quaternion_to_matrix(quat) @ points.transpose(-1, -2)
     if translation is not None:

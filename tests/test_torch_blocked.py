@@ -156,15 +156,15 @@ def test_dispatch_save_grid_matches_dpcx(vox, remat, takes_fused, rng,
     cfg = BASE.replace(vox_size=vox, remat=remat)
     seen = {"port": [], "dpcx": []}
 
-    def t_spy(ndc_t, vox_size, *a, save_grid=None, **k):
+    def t_spy(points, quat, vox_size, *a, save_grid=None, **k):
         seen["port"].append(save_grid)
-        return torch.zeros(ndc_t.shape[0], vox_size, vox_size), None
+        return torch.zeros(quat.shape[0], vox_size, vox_size), None
 
     def j_spy(ndc_t, vox_size, *a, save_grid=None, **k):
         seen["dpcx"].append(save_grid)
         return jnp.zeros((ndc_t.shape[0], vox_size, vox_size)), None
 
-    monkeypatch.setattr(tproject, "fused_project_t", t_spy)
+    monkeypatch.setattr(tproject, "fused_project_world", t_spy)
     monkeypatch.setattr(jpk, "pallas_project_t", j_spy)
     pts, q, _ = _scene(rng, 1, 64, lim=0.3)
     out_j, out_t = _render_both(cfg, pts, q, None)

@@ -386,13 +386,13 @@ def test_project_dispatch_matches_dpcx(overrides, takes_fused, rng,
     q = rng.normal(size=(2, 4)).astype(np.float32)
     sigma_rel = 0.08
     calls = []
-    real = tproject.fused_project_t
+    real = tproject.fused_project_world
 
     def spy(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    monkeypatch.setattr(tproject, "fused_project_t", spy)
+    monkeypatch.setattr(tproject, "fused_project_world", spy)
     out_t = tproject.pointcloud_project_fn(
         _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
         torch.tensor(sigma_rel),
@@ -453,8 +453,8 @@ def test_project_refuses_unported_paths(rng, monkeypatch):
     q = rng.normal(size=(2, 4)).astype(np.float32)
     cfg = Config(vox_size=72, renderer="pallas")  # the blocked kernel (K3)
     calls = []
-    real = tproject.fused_project_t
-    monkeypatch.setattr(tproject, "fused_project_t",
+    real = tproject.fused_project_world
+    monkeypatch.setattr(tproject, "fused_project_world",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     out_t = tproject.pointcloud_project_fn(_t(cfg), torch.from_numpy(pts),
                                            torch.from_numpy(q),
@@ -469,7 +469,7 @@ def test_project_refuses_unported_paths(rng, monkeypatch):
     rgb = rng.uniform(0, 1, (2, 50, 3)).astype(np.float32)
     cfg = dataclasses.replace(cfg, vox_size=D, pc_relative_sigma=0.1,
                               proj_depth=True)
-    monkeypatch.setattr(tproject, "fused_project_t",
+    monkeypatch.setattr(tproject, "fused_project_world",
                         lambda *a, **k: pytest.fail("rgb reached the kernel"))
     out_t = tproject.pointcloud_project(
         _t(cfg), torch.from_numpy(pts), torch.from_numpy(q),
