@@ -29,31 +29,25 @@ non-zero):
               (B, V, V_use) over 32 and 200 models, with and without the
               second input view (their times: phases 10 and 11, so that
               torch.profiler's first use stays in phase 11).
-2. kernel   — the fused splat->blur->DRC forward against its plain
-              PyTorch version on the card: K1 at the car_64_depth training
-              render shape (32 renders x 16000 points, D 64, with depth),
-              the chair_gt_pose one (64 x 8000, D 32, no depth) and the
-              chair_pred_pose one (256 x 2048, D 32, no depth); the
-              counterpart of the depth-blocked K3 at the multicat_128_fused
-              one (16 x 16000, D 128, no depth), at D 128 with depth (8
-              renders) and at D 72.
-3. backward — the backward kernels against the plain version with K2's
-              backward written out (fused_project_plain) for a random
-              linear functional of sil and depth, at every shape of phase
-              2, with dropout weights: K2 at D <= 64;
-              at D > 64 the counterpart of K4 + K5 with the saved grid and
-              with the recompute (remat), each against plain and against
-              each other.
-3c. bf16    — the bfloat16 operand mode against the plain bfloat16
-              forward and fused_backward_reference, with dropout weights:
-              K1 and K2 at the car_64_depth and chair_pred_pose renders,
-              and the counterparts of K3 and K4 + K5 at the
-              multicat_128_fused render (16 x 16000, D 128, R 16; the
-              backward with the saved grid and with the recompute): the
-              forward within 1e-5 of the largest plain value, the
-              gradients within 2^-8 of it and 1e-3 in relative L2; the
-              float32 mode on the same inputs must miss the forward's and
-              the relative L2 limits.
+3h. world   — the renderer the main path runs, fused_project_world
+              (world clouds and cameras in: the splat stages of K1-K5 run
+              the camera transform), against the plain version on the same
+              inputs (pc_perspective_transform_t, then fused_project_plain,
+              whose backward is K2's function written out), with keep
+              weights and random cotangents, in both operand modes and at
+              D > 64 with the saved grid and with the recompute (remat):
+              K1/K2 at the car_64_depth render (32 x 16000, D 64, depth),
+              the chair_gt_pose one (64 x 8000, D 32) and the
+              chair_pred_pose one (256 x 2048, D 32, the cameras'
+              gradient); the counterparts of K3 and K4 + K5 at the
+              multicat_128_fused one (16 x 16000, D 128), at D 128 with
+              depth (8 renders) and at D 72 with depth (4 x 4000). sil and
+              depth within KERNEL_ATOL in float32 and 1e-5 of the largest
+              plain value in bfloat16; the gradients within GRAD_RTOL of
+              the largest plain one in float32, 2^-7 of it and 1e-3
+              relative L2 in bfloat16 (the rotation's sums may move a
+              coordinate by an ulp); the float32 mode on the same inputs
+              must miss bfloat16's forward and relative L2 limits.
 3b. splats  — the anisotropic splat forward (the counterpart of K6)
               against its plain version at the rgb_splats training render
               (32 renders x 4096 points, D 32, rgb), density only, and at
@@ -210,8 +204,8 @@ non-zero):
 10. time    — CUDA-event medians: each draw kernel and its plain version
               at the car_64_depth step's shapes beside its bound; each
               forward and backward kernel
-              against its plain version at the shapes of phases 2, 3b and
-              3c (the recompute backward too) and at the rgb_splats render
+              against its plain version at the shapes of phases 3h (the
+              recompute backward too) and 3b and at the rgb_splats render
               of phase 3d (K6/K7 beside their bound, the floor of one exp a
               point-cell on the MUFU, and the kernels' own operation
               count); host-clock serve latency at batch 16 and the
@@ -280,6 +274,7 @@ from dpcx_torch.bench import (
     draw_bound,
     render_bound,
 )
+from dpcx_torch.render.transform import CAMERA_DISTANCE, FOCAL_LENGTH
 
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "experiments" / "car_64_depth.yaml"
@@ -317,21 +312,21 @@ TRAIN_STEPS, RESUME_STEPS, CHAIR_STEPS, MODELS = 200, 10, 20, 32
 MULTICAT_STEPS, REMAT_STEPS, SPLAT_STEPS = 100, 3, 200
 MULTICAT_BF16_STEPS, LARGECLOUD_STEPS, SPLAT_BF16_STEPS = 40, 30, 100
 POSE_STEPS, RESEED_STEPS, RESEED_CHECK, POSE_BF16_STEPS = 200, 60, 30, 100
-# K1/K2 bf16 vs the plain bf16 version, of the largest plain value: the
-# forward within BF16_FWD_SHARE (its bf16 operands are products of bf16
+# the bf16 modes vs the plain bf16 version, of the largest plain value:
+# the forward within BF16_FWD_SHARE (its bf16 operands are products of bf16
 # values, whose f32 sums rarely depend on their order); the gradients within
-# BF16_SHARE in max abs and BF16_GRAD_L2 in relative L2 (a rounded
-# cotangent flips where two f32 sums in other orders straddle a bf16
-# boundary). The float32 mode on the same inputs must miss the forward's and
-# the relative L2 limits, which shows the rounding points are the kernels'
+# BF16_SHARE in max abs (at the same grid coordinates on both sides, as K6
+# and K7 take them) and BF16_GRAD_L2 in relative L2 (a rounded cotangent
+# flips where two f32 sums in other orders straddle a bf16 boundary). The
+# float32 mode on the same inputs must miss the forward's and the relative
+# L2 limits, which shows the rounding points are the kernels'
 BF16_FWD_SHARE, BF16_SHARE, BF16_GRAD_L2 = 1e-5, 2.0**-8, 1e-3
 # phase 3h's bf16 gradients in max abs, of the largest plain one: the
 # kernels sum the rotation in another order than the plain version's GEMM,
 # so a coordinate an ulp away can move a bf16-rounded hat weight by one
 # bf16 ulp, up to 2^-7 of it (the pose render's d points read 4.31e-3 of
-# the largest, where phase 3c's, at the same coordinates on both sides,
-# read 5.4e-4; NVIDIA H100 80GB HBM3, 700 W); relative L2 stays
-# BF16_GRAD_L2
+# the largest, where the same render from shared grid coordinates read
+# 5.4e-4; NVIDIA H100 80GB HBM3, 700 W); relative L2 stays BF16_GRAD_L2
 BF16_FLIP_SHARE = 2.0**-7
 SPLAT_GRAD_RTOL = 2e-4  # K7 vs plain: relative L2, dpcx's own bound for
 # its Pallas backward against the dense oracle
@@ -354,17 +349,19 @@ OLD_RENDER_KERNELS = ("zblur_kernel", "zblock_transpose_kernel",
 NO_FRAME_KERNELS = ("blur_slab_kernel", "blur_z_kernel", "zblur_drc_kernel",
                     "drc_bwd_kernel", "drc_bwd_tile_kernel")
 # their C entry points (csrc/*.cu), which launch_event_ms times
-C_ENTRIES = ("dpcx_fused_render", "dpcx_fused_render_bwd",
-             "dpcx_fused_render_bwd_recompute", "dpcx_fused_render_world",
-             "dpcx_fused_render_world_bwd", "dpcx_aniso_render",
-             "dpcx_aniso_render_bwd")
-# the renders the main path makes (pointcloud_project_fn on the card: world
-# clouds through fused_project_world, one render a cloud as the losses call
-# it): (name, renders, points, D, depth, whether the cameras learn)
+C_ENTRIES = ("dpcx_fused_render_world", "dpcx_fused_render_world_bwd",
+             "dpcx_aniso_render", "dpcx_aniso_render_bwd")
+# phase 3h's renders: those the main path makes (pointcloud_project_fn on
+# the card: world clouds through fused_project_world, one render a cloud as
+# the losses call it), chair_gt_pose's, and D 128 and D 72 with depth:
+# (name, renders, points, D, depth, whether the cameras learn)
 WORLD_SHAPES = (
     ("car_64_depth", 32, 16000, 64, True, False),
+    ("chair_gt_pose", 64, 8000, 32, False, False),
     ("chair_pred_pose", 256, 2048, 32, False, True),
     ("multicat_128", 16, 16000, 128, False, False),
+    ("multicat_128_depth", 8, 16000, 128, True, False),
+    ("d72_depth", 4, 4000, 72, True, False),
 )
 SHARD_WARNING = "shard_points on a single device is a no-op"
 # phase 9g: two ranks (torch.distributed.run) share the one card over gloo
@@ -839,52 +836,6 @@ def phase_rbf() -> None:
           f"err {err:.3e} of peak {peak:.3f} (rtol {RBF_RTOL})", flush=True)
 
 
-def phase_kernel(cfg, fused, gauss) -> list[dict]:
-    """Each forward shape against the plain version; one case per shape,
-    with its max abs error."""
-    rng = np.random.default_rng(SEED)
-    shapes = [
-        ("car_64_depth", 32, cfg.pc_num_points, cfg.vox_size, True),
-        ("chair_gt_pose", 64, 8000, 32, False),
-        ("chair_pred_pose", 256, 2048, 32, False),
-        ("multicat_128", 16, 16000, 128, False),
-        ("multicat_128_depth", 8, 16000, 128, True),
-        ("d72_depth", 4, 4000, 72, True),
-    ]
-    cases = []
-    for name, renders, n, vox, with_depth in shapes:
-        ndc = torch.from_numpy(seeded_ndc(rng, renders, n)).cuda()
-        pw = torch.from_numpy(
-            rng.uniform(0.0, 1.0, (renders, n)).astype(np.float32)
-        ).cuda()
-        radius = gauss.kernel_radius(
-            max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
-            cfg.gauss_kernel_truncate,
-        )
-        sigma = torch.tensor(cfg.pc_relative_sigma * vox, device="cuda")
-        args = (ndc, vox, sigma, radius)
-        kw = dict(point_weights=pw, with_depth=with_depth)
-        key = f"{fused.launch_family(vox)}_render"
-        before = fused.LAUNCHES[key]
-        sil_k, dep_k = fused.fused_project_t(*args, **kw)
-        sil_p, dep_p = fused.fused_project_reference(*args, **kw)
-        torch.cuda.synchronize()
-        assert fused.LAUNCHES[key] == before + 1, (key, fused.LAUNCHES)
-        assert sil_k.shape == (renders, vox, vox), sil_k.shape
-        err = (sil_k - sil_p).abs().max().item()
-        if with_depth:
-            err = max(err, (dep_k - dep_p).abs().max().item())
-        else:
-            assert dep_k is None and dep_p is None
-        print(f"kernel check {name} ({key}): {renders} renders x {n} "
-              f"points, D {vox}, R {radius}, depth {with_depth}: max abs err "
-              f"{err:.3e} (atol {KERNEL_ATOL}), mean sil "
-              f"{sil_k.mean().item():.4f}", flush=True)
-        assert np.isfinite(err) and err <= KERNEL_ATOL, err
-        cases.append(dict(name=name, vox=vox, args=args, kw=kw, err=err))
-    return cases
-
-
 def world_grads(render, points, quat, pw, cam, dsil, ddepth):
     """render(points, quat, pw) -> (sil, depth or None): its outputs and
     the gradients of <dsil, sil> + <ddepth, depth> into points, pw and,
@@ -901,19 +852,25 @@ def world_grads(render, points, quat, pw, cam, dsil, ddepth):
 
 
 def phase_world(cfg, fused, gauss) -> list[dict]:
-    """3h. The main path's renderer, fused_project_world (world clouds and
-    cameras in; K1-K5's splat stages run the camera transform), against
-    the plain version on the same inputs (pc_perspective_transform_t, then
-    fused_project_plain, whose backward is K2's function) at the renders
-    the cells make (WORLD_SHAPES), with keep weights and seeded_ndc's
+    """3h. The renderer, fused_project_world (world clouds and cameras in;
+    K1-K5's splat stages run the camera transform), against the plain
+    version on the same inputs (pc_perspective_transform_t, then
+    fused_project_plain, whose backward is K2's function, hat derivative 0
+    at an exactly integer grid coordinate included) at every render of
+    WORLD_SHAPES, with keep weights, random cotangents and seeded_ndc's
     shell and box as world clouds (some points project outside the grid),
     in both operand modes and at D > 64 in both backward modes: sil and
-    depth within KERNEL_ATOL; the gradients of points, weights and, where
+    depth within KERNEL_ATOL in float32 and BF16_FWD_SHARE of the largest
+    plain value in bfloat16; the gradients of points, weights and, where
     the cameras learn, quaternions within GRAD_RTOL of the largest plain
-    one in f32, BF16_FLIP_SHARE of it and BF16_GRAD_L2 relative L2 in
-    bf16. The rotation's sums (FMAs in the kernels, a GEMM in the plain
+    one in float32, BF16_FLIP_SHARE of it and BF16_GRAD_L2 relative L2 in
+    bfloat16. The rotation's sums (FMAs in the kernels, a GEMM in the plain
     version) may move a coordinate by an ulp, inside these limits
-    (tests/test_torch_front_cuda.py). One case per shape and mode."""
+    (tests/test_torch_front_cuda.py). Control: the float32-mode kernels'
+    sil, depth, d points and d weights (saved grid) against the plain
+    bfloat16 version must miss the bfloat16 forward limit and
+    BF16_GRAD_L2, which shows the rounding points are the kernels'. One
+    case per shape and mode."""
     from dpcx_torch.render.transform import pc_perspective_transform_t
 
     rng = np.random.default_rng(SEED + 5)
@@ -927,11 +884,16 @@ def phase_world(cfg, fused, gauss) -> list[dict]:
         pw = torch.from_numpy(
             rng.uniform(0.0, 1.0, (renders, n)).astype(np.float32)
         ).to(DEVICE)
+        dsil, ddepth = (torch.from_numpy(rng.normal(
+            size=(renders, vox, vox)).astype(np.float32)).to(DEVICE)
+            for _ in range(2))
+        ddepth = ddepth if wd else None
         radius = gauss.kernel_radius(
             max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
             cfg.gauss_kernel_truncate,
         )
         sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
+        f32_kernels = None  # the float32 mode's outputs: bfloat16's control
         for acc in ("float32", "bfloat16"):
             bf16 = acc == "bfloat16"
 
@@ -940,10 +902,8 @@ def phase_world(cfg, fused, gauss) -> list[dict]:
                 return fused.fused_project_plain(ndc, vox, sigma, radius, w,
                                                  wd, acc)
 
-            with torch.no_grad():
-                sil_p, dep_p = plain(points, quat, pw)
-            dsil, ddepth = linear_functional(rng, sil_p, dep_p)
-            _, g_p = world_grads(plain, points, quat, pw, cam, dsil, ddepth)
+            (sil_p, dep_p), g_p = world_grads(plain, points, quat, pw, cam,
+                                              dsil, ddepth)
             fwd_key = f"{fused.launch_family(vox)}_render" + (
                 "_bf16" if bf16 else "")
             label = f"{name} ({acc})"
@@ -962,6 +922,8 @@ def phase_world(cfg, fused, gauss) -> list[dict]:
                 made = {k: v - before[k] for k, v in launch_counts().items()}
                 assert made == only(**{fwd_key: 1, bwd_key: 1}), (label,
                                                                   made)
+                if save and not bf16:
+                    f32_kernels = (sil_k, dep_k), g_k
                 for what, a, b in (("sil", sil_k, sil_p),
                                    ("depth", dep_k, dep_p)):
                     assert (a is None) == (b is None) == (
@@ -969,9 +931,11 @@ def phase_world(cfg, fused, gauss) -> list[dict]:
                     if b is None:
                         continue
                     err = (a - b).abs().max().item()
+                    bound = (BF16_FWD_SHARE * b.abs().max().item() if bf16
+                             else KERNEL_ATOL)
                     print(f"world check {label} {what}: max abs err "
-                          f"{err:.3e} (atol {KERNEL_ATOL})", flush=True)
-                    if not err <= KERNEL_ATOL:
+                          f"{err:.3e} (bound {bound:.3e})", flush=True)
+                    if not err <= bound:
                         missed.append((what, err))
                     fwd_err = max(fwd_err, err)
                 names = ("d points", "d weights", "d quat")[:len(g_p)]
@@ -992,6 +956,26 @@ def phase_world(cfg, fused, gauss) -> list[dict]:
                             and (l2 is None or rel <= l2)):
                         missed.append((what, bwd_key, err, peak, rel))
                     bwd_err = max(bwd_err, err)
+            if bf16:
+                (sil_f, dep_f), g_f = f32_kernels
+                for what, f, b in (("sil", sil_f, sil_p),
+                                   ("depth", dep_f, dep_p)):
+                    if b is None:
+                        continue
+                    ratio = ((f - b).abs().max() / b.abs().max()).item()
+                    print(f"world control {label} {what}: the float32 "
+                          f"mode's ratio {ratio:.3e} (must exceed "
+                          f"{BF16_FWD_SHARE:.1e})", flush=True)
+                    if not ratio > BF16_FWD_SHARE:
+                        missed.append(("control", what, ratio))
+                for what, f, b in zip(("d points", "d weights"), g_f, g_p):
+                    rel = (torch.linalg.vector_norm(f - b)
+                           / torch.linalg.vector_norm(b)).item()
+                    print(f"world control {label} {what}: the float32 "
+                          f"mode's relative L2 {rel:.3e} (must exceed "
+                          f"{BF16_GRAD_L2:.1e})", flush=True)
+                    if not rel > BF16_GRAD_L2:
+                        missed.append(("control", what, rel))
             assert not missed, (label, missed)
             out.append(dict(name=name, acc=acc, points=points, quat=quat,
                             pw=pw, vox=vox, sigma=sigma, radius=radius,
@@ -1034,119 +1018,21 @@ def time_world(fused, case, save_grid: bool = True):
     return f_ms, cuda_ms(bwd), bwd
 
 
-def linear_functional(rng, sil, depth):
-    """Random cotangents (dsil, ddepth or None) of <dsil, sil> +
-    <ddepth, depth>."""
-    def like(t):
-        return torch.from_numpy(
-            rng.normal(size=tuple(t.shape)).astype(np.float32)).to(DEVICE)
+def time_plain(fused, case):
+    """CUDA-event ms of the plain version's forward
+    (fused_project_reference) and backward (fused_backward_reference,
+    which recomputes the grid) in the case's operand mode, on the grid
+    coordinates of its clouds: no transform."""
+    from dpcx_torch.render.transform import pc_perspective_transform_t
 
-    return like(sil), None if depth is None else like(depth)
-
-
-def render_grads(render, ndc, pw, dsil, ddepth):
-    """d/d(ndc) and d/d(weights) of the linear functional through
-    render(ndc, pw) -> (sil, depth)."""
-    ndc = ndc.detach().requires_grad_()
-    pw = pw.detach().requires_grad_()
-    sil, depth = render(ndc, pw)
-    loss = (sil * dsil).sum()
-    if depth is not None:
-        loss = loss + (depth * ddepth).sum()
-    return torch.autograd.grad(loss, (ndc, pw))
-
-
-def check_grads(label, got, want) -> float:
-    """Kernel gradients (d ndc, d weights) against ``want``: max abs error
-    within GRAD_RTOL of the largest |want|."""
-    worst = 0.0
-    for name, a, b in zip(("d ndc", "d weights"), got, want):
-        err = (a - b).abs().max().item()
-        scale = b.abs().max().item()
-        print(f"backward check {label} {name}: max abs err {err:.3e}, max "
-              f"|ref| {scale:.3e}, ratio {err / scale:.3e} (bound "
-              f"{GRAD_RTOL})", flush=True)
-        assert np.isfinite(err) and scale > 0, (err, scale)
-        assert err <= GRAD_RTOL * scale, (label, name, err, scale)
-        worst = max(worst, err)
-    return worst
-
-
-def phase_backward(cases, fused) -> list[dict]:
-    """The backward kernels against the plain version with K2's backward
-    written out (fused_project_plain: its hat derivative is 0 at an exactly
-    integer grid coordinate, as the kernels' and dpcx's _dhat_t), at the
-    forward's shapes, with dropout weights (keep-prob 0.1: weights 0 or
-    10); at D > 64 in both modes, and the two modes against each other."""
-    from dpcx_torch.render.voxelize import pc_point_dropout_weights
-    from dpcx_torch.utils import prng
-
-    rng = np.random.default_rng(SEED + 3)
-    out = []
-    for i, case in enumerate(cases):
-        ndc, vox, sigma, radius = case["args"]
-        with_depth = case["kw"]["with_depth"]
-        pw = pc_point_dropout_weights(
-            prng.fold_in(prng.prng_key(SEED + 3), i), ndc.shape[0],
-            ndc.shape[2], 0.1, DEVICE)
-        kw = dict(with_depth=with_depth)
-        sil, depth = fused.fused_project_reference(ndc, vox, sigma, radius,
-                                                   pw, **kw)
-        dsil, ddepth = linear_functional(rng, sil, depth)
-        g_p = render_grads(
-            lambda x, w: fused.fused_project_plain(x, vox, sigma, radius, w,
-                                                   **kw),
-            ndc, pw, dsil, ddepth)
-        modes = (True, False) if vox > 64 else (True,)
-        grads, errs = {}, {}
-        for save in modes:
-            key = (f"{fused.launch_family(vox)}_render_bwd"
-                   + ("" if save else "_recompute"))
-            before = fused.LAUNCHES[key]
-            grads[save] = render_grads(
-                lambda x, w: fused.fused_project_t(
-                    x, vox, sigma, radius, w, save_grid=save, **kw),
-                ndc, pw, dsil, ddepth)
-            torch.cuda.synchronize()
-            assert fused.LAUNCHES[key] == before + 1, (key, fused.LAUNCHES)
-            errs[save] = check_grads(f"{case['name']} ({key})", grads[save],
-                                     g_p)
-        if len(modes) == 2:
-            check_grads(f"{case['name']} saved grid vs recompute",
-                        grads[True], grads[False])
-        out.append(dict(name=case["name"], ndc=ndc, pw=pw, vox=vox,
-                        sigma=sigma, radius=radius, with_depth=with_depth,
-                        dsil=dsil, ddepth=ddepth, err=max(errs.values()),
-                        grads=grads[True]))
-    return out
-
-
-def time_backward(fused, case, save_grid: bool = True, bf16: bool = False):
-    """CUDA-event ms of the backward kernel alone (the launch on saved
-    residuals, or the recompute launch from coords alone) and of the plain
-    version's backward (fused_backward_reference, which recomputes the
-    grid), in ``bf16``'s operand mode; and the kernel's launch itself for
-    the profiler."""
-    from dpcx_torch.render.gauss import gauss_kernel_1d
-
-    ndc, pw, vox, radius = case["ndc"], case["pw"], case["vox"], case["radius"]
-    wd = case["with_depth"]
-    coords = ((ndc.flip(1) + 0.5) * vox - 0.5).contiguous()
-    taps = gauss_kernel_1d(case["sigma"], radius).contiguous()
-    _, _, grid = fused._launch_forward(coords, pw, taps, radius, vox, wd,
-                                       bf16)
-    if not save_grid:
-        grid = None
-
-    def bwd():
-        fused._launch_backward(coords, pw, taps, radius, grid, case["dsil"],
-                               case["ddepth"], vox, wd, True, bf16)
-
-    k_ms = cuda_ms(bwd)
-    p_ms = cuda_ms(lambda: fused.fused_backward_reference(
-        ndc, vox, case["sigma"], radius, pw, wd, case["dsil"],
-        case["ddepth"], "bfloat16" if bf16 else "float32"))
-    return k_ms, p_ms, bwd
+    ndc = pc_perspective_transform_t(case["points"], case["quat"],
+                                     *case["camera"])
+    args = (ndc, case["vox"], case["sigma"], case["radius"], case["pw"],
+            case["with_depth"])
+    return (cuda_ms(lambda: fused.fused_project_reference(
+                *args, acc_dtype=case["acc"])),
+            cuda_ms(lambda: fused.fused_backward_reference(
+                *args, case["dsil"], case["ddepth"], case["acc"])))
 
 
 def post_npz(port: int, images: np.ndarray) -> dict[str, np.ndarray]:
@@ -2598,89 +2484,6 @@ def phase_splats(cli, fused, tmp: Path):
     return cfg, bf, ds, launches, bf_launches
 
 
-def phase_bf16(bwd_cases, fused) -> list[dict]:
-    """The bfloat16 operand mode at the car_64_depth and chair_pred_pose
-    renders (K1, K2) and the multicat_128 one (D 128: the counterparts of
-    K3 and K4 + K5, the backward also in the recompute form), on phase 3's
-    inputs (dropout weights 0 or 10, random cotangents): the kernel forward
-    against the plain bfloat16 forward within BF16_FWD_SHARE of the largest
-    plain value, the kernel backward against fused_backward_reference
-    within BF16_SHARE (max abs) and BF16_GRAD_L2 (relative L2). Control:
-    the float32-mode kernels on the same inputs (phase 3's gradients) must
-    miss the forward's and the relative L2 limits."""
-    out = []
-    for case in bwd_cases:
-        if case["name"] not in ("car_64_depth", "chair_pred_pose",
-                                "multicat_128"):
-            continue
-        ndc, pw, vox, sigma, radius, wd = (case[k] for k in (
-            "ndc", "pw", "vox", "sigma", "radius", "with_depth"))
-        fam = fused.launch_family(vox)
-        kw = dict(with_depth=wd, acc_dtype="bfloat16")
-        saves = (True, False) if vox > 64 else (True,)
-        before = launch_counts()
-        g_k = {save: render_grads(
-            lambda x, w: fused.fused_project_t(x, vox, sigma, radius, w,
-                                               save_grid=save, **kw),
-            ndc, pw, case["dsil"], case["ddepth"]) for save in saves}
-        with torch.no_grad():
-            sil_k, dep_k = fused.fused_project_t(ndc, vox, sigma, radius, pw,
-                                                 **kw)
-            sil_f, dep_f = fused.fused_project_t(ndc, vox, sigma, radius, pw,
-                                                 with_depth=wd)
-        torch.cuda.synchronize()
-        made = {k: v - before[k] for k, v in launch_counts().items()}
-        want = {f"{fam}_render_bf16": len(saves) + 1,
-                f"{fam}_render_bwd_bf16": 1, f"{fam}_render": 1}
-        if vox > 64:
-            want[f"{fam}_render_bwd_recompute_bf16"] = 1
-        assert made == only(**want), made
-        sil_p, dep_p = fused.fused_project_reference(ndc, vox, sigma, radius,
-                                                     pw, **kw)
-        g_p = fused.fused_backward_reference(
-            ndc, vox, sigma, radius, pw, wd, case["dsil"], case["ddepth"],
-            "bfloat16")
-        g_f = case["grads"]
-        rows = [("sil", sil_k, sil_f, sil_p)] + (
-            [("depth", dep_k, dep_f, dep_p)] if wd else [])
-        for save in saves:
-            mode = "" if save else " (recompute)"
-            rows += [(f"d ndc{mode}", g_k[save][0], g_f[0], g_p[0]),
-                     (f"d weights{mode}", g_k[save][1], g_f[1], g_p[1])]
-        fwd_err = bwd_err = 0.0
-        label = f"{case['name']} ({fam})"
-        missed = []  # every row is printed before any limit is enforced
-        for name, a, f, b in rows:
-            err, ctl = ((x - b).abs().max().item() for x in (a, f))
-            peak = b.abs().max().item()
-            assert np.isfinite(err) and peak > 0, (name, err, peak)
-            if name in ("sil", "depth"):
-                print(f"bf16 check {label} {name}: max abs err {err:.3e}, "
-                      f"largest plain value {peak:.3e}, ratio "
-                      f"{err / peak:.3e} (bound {BF16_FWD_SHARE:.1e}); "
-                      f"float32 mode's ratio {ctl / peak:.3e} (must exceed "
-                      "the bound)", flush=True)
-                if not err <= BF16_FWD_SHARE * peak < ctl:
-                    missed.append((name, err, ctl, peak))
-                fwd_err = max(fwd_err, err)
-                continue
-            rel, rel_f = ((torch.linalg.vector_norm(x - b)
-                           / torch.linalg.vector_norm(b)).item()
-                          for x in (a, f))
-            print(f"bf16 check {label} {name}: max abs err {err:.3e}, "
-                  f"largest plain value {peak:.3e}, ratio {err / peak:.3e} "
-                  f"(bound {BF16_SHARE:.3e}), relative L2 {rel:.3e} (bound "
-                  f"{BF16_GRAD_L2:.1e}); float32 mode's ratio "
-                  f"{ctl / peak:.3e}, relative L2 {rel_f:.3e} (must exceed "
-                  "the bound)", flush=True)
-            if not (err <= BF16_SHARE * peak and rel <= BF16_GRAD_L2 < rel_f):
-                missed.append((name, err, peak, rel, rel_f))
-            bwd_err = max(bwd_err, err)
-        assert not missed, (label, missed)
-        out.append(dict(case, fwd_err=fwd_err, bwd_err=bwd_err))
-    return out
-
-
 def pose_train(cli, path: str, run_dir: Path, steps: int, mode: str,
                label: str) -> dict:
     """`cli train` for ``steps`` with the counts set to 0 just before and
@@ -3206,30 +3009,41 @@ def stage_name(key: str) -> str:
     return m.group(1) if m else key
 
 
-def lattice_coords(renders: int, vox: int, seed: int) -> torch.Tensor:
-    """Grid coordinates [R, 3, N] on the card of one point in each 2 x 2 x 2
-    block of cells, at a seeded offset in [0, 1) from the block's first
-    cell: every cell takes at most one splat contribution, so the atomics'
-    order cannot change a sum, and a renderer's outputs are a function of
-    its sum order alone."""
+LATTICE_CAMERA = (FOCAL_LENGTH, CAMERA_DISTANCE)
+
+
+def lattice_world(renders: int, vox: int, seed: int) -> torch.Tensor:
+    """World points [R, N, 3] on the card, in front of an identity camera
+    at the shipped configs' focal length and camera distance, whose grid
+    coordinates put one point in each 2 x 2 x 2 block of cells at a seeded
+    offset in [0.01, 0.99) from the block's first cell (the margin takes
+    the transform's rounding): every cell takes at most one splat
+    contribution, so the atomics' order cannot change a sum, and a
+    renderer's outputs are a function of its sum order alone."""
     rng = np.random.default_rng(seed)
     base = np.stack(np.meshgrid(*[np.arange(0, vox - 1, 2)] * 3,
                                 indexing="ij")).reshape(3, -1)
-    g = base[None] + rng.uniform(0, 1, (renders, 3, base.shape[1]))
-    return torch.tensor(g, dtype=torch.float32, device=DEVICE).contiguous()
+    g = base[None] + rng.uniform(0.01, 0.99, (renders, 3, base.shape[1]))
+    x, y, z = ((g[:, ::-1] + 0.5) / vox - 0.5).transpose(1, 0, 2)
+    scale = (z + LATTICE_CAMERA[1]) / LATTICE_CAMERA[0]
+    pts = np.stack([x * scale, y * scale, z], axis=-1)
+    return torch.tensor(pts, dtype=torch.float32, device=DEVICE).contiguous()
 
 
 def outputs_sha(fused, renders: int, vox: int, radius: int,
                 with_depth: bool, bf16: bool) -> str:
-    """sha256 of the forward's sil (and depth) and of the saved-grid and
-    recompute backwards' gradients on lattice_coords (weights and
-    cotangents seeded), after checking that two runs agree: equal digests
-    for two trees show their kernels compute the same bits."""
+    """sha256 of the world forward's sil (and depth) and of the saved-grid
+    backward's gradients (and above D 64 the recompute's) on
+    lattice_world (weights and cotangents seeded; no camera gradient,
+    whose sums over warps are atomic), after checking that two runs
+    agree: equal digests for two trees show their kernels compute the same
+    bits."""
     from dpcx_torch.render import gauss
 
-    coords = lattice_coords(renders, vox, SEED + vox)
+    points = lattice_world(renders, vox, SEED + vox)
+    rot = torch.eye(3, device=DEVICE).expand(renders, 3, 3).contiguous()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    pw = torch.rand(renders, coords.shape[2], device=DEVICE,
+    pw = torch.rand(renders, points.shape[1], device=DEVICE,
                     generator=gen) * 2
     dsil = torch.randn(renders, vox, vox, device=DEVICE, generator=gen)
     ddepth = (torch.randn(renders, vox, vox, device=DEVICE, generator=gen)
@@ -3238,13 +3052,14 @@ def outputs_sha(fused, renders: int, vox: int, radius: int,
                                  radius).contiguous()
 
     def digest() -> str:
-        sil, depth, grid = fused._launch_forward(coords, pw, taps, radius,
-                                                 vox, with_depth, bf16)
+        sil, depth, grid = fused._launch_world_forward(
+            points, pw, rot, None, LATTICE_CAMERA, taps, radius, vox,
+            with_depth, bf16)
         outs = [sil, depth]
-        for g in (grid, None):
-            outs += fused._launch_backward(coords, pw, taps, radius, g, dsil,
-                                           ddepth, vox, with_depth, True,
-                                           bf16)
+        for g in (grid, None) if vox > 64 else (grid,):
+            outs += fused._launch_world_backward(
+                points, pw, rot, None, LATTICE_CAMERA, taps, radius, g, dsil,
+                ddepth, vox, with_depth, True, False, bf16)
         h = hashlib.sha256()
         for t in outs:
             if t is not None:
@@ -3256,19 +3071,24 @@ def outputs_sha(fused, renders: int, vox: int, radius: int,
     return first[:16]
 
 
-def fwd_errors(fused, ndc, vox, sigma, radius, pw, with_depth, mode,
-               runs: int = 8) -> list[float]:
-    """The distinct largest errors of ``runs`` forward launches against the
-    plain version on the same inputs: more than one where the splat's
-    atomics add a cell's contributions in another order from launch to
-    launch."""
-    want = fused.fused_project_reference(ndc, vox, sigma, radius, pw,
-                                         with_depth, acc_dtype=mode)
+def fwd_errors(fused, points, quat, camera, vox, sigma, radius, pw,
+               with_depth, mode, runs: int = 8) -> list[float]:
+    """The distinct largest errors of ``runs`` world forwards against the
+    plain version on the same inputs (the torch transform, then
+    fused_project_reference): more than one where the splat's atomics add
+    a cell's contributions in another order from launch to launch."""
+    from dpcx_torch.render.transform import pc_perspective_transform_t
+
+    want = fused.fused_project_reference(
+        pc_perspective_transform_t(points, quat, *camera), vox, sigma,
+        radius, pw, with_depth, acc_dtype=mode)
     errs = set()
     for _ in range(runs):
         with torch.no_grad():
-            got = fused.fused_project_t(ndc, vox, sigma, radius, pw,
-                                        with_depth, acc_dtype=mode)
+            got = fused.fused_project_world(
+                points, quat, vox, sigma, radius, pw,
+                focal_length=camera[0], camera_distance=camera[1],
+                with_depth=with_depth, acc_dtype=mode)
         errs.add(max((a - b).abs().max().item() for a, b in zip(got, want)
                      if a is not None))
     return sorted(errs)
@@ -3278,17 +3098,20 @@ def render_times(tree: Path) -> int:
     """``--render-times TREE``: the A/B of a change to the renderer kernels
     (K1, K2 at D <= 64; K3, K4 + K5 above), for the checkout at TREE, as
     splat_times does for the splats (one process per tree, in turns: old,
-    new, new, old). Prints ptxas's report of the tree's
+    new, new, old). It drives the world launchers
+    (render/fused.py::_launch_world_forward, _launch_world_backward), so
+    TREE must have them. Prints ptxas's report of the tree's
     csrc/fused_render.cu kernels, then one JSON line for each render and
     operand mode, at the car_64_depth render (32 x 16000, D 64, R 8,
-    depth), the chair_pred_pose one (256 x 2048, D 32, R 6) and the
-    multicat_128 one (16 x 16000, D 128, R 16), each with seeded clouds and
-    dropout weights: the torch.profiler device us per call of the forward
-    launch, the backward launch on the saved grid and the recompute
-    launch, each in all and per kernel (stage), the forward's and the
-    backward's render_bound, outputs_sha (equal for two trees whose
-    kernels compute the same bits) and fwd_errors on the seeded clouds
-    with the dropout weights and with phase 2's uniform ones; and the
+    depth), the chair_pred_pose one (256 x 2048, D 32, R 6, the cameras'
+    gradient) and the multicat_128 one (16 x 16000, D 128, R 16), each
+    with seeded world clouds (seeded_ndc's shell and box), random cameras
+    and dropout weights: the torch.profiler device us per call of the
+    forward launch, the backward launch on the saved grid and (D > 64) the
+    recompute launch, each in all and per kernel (stage), the forward's
+    and the backward's render_bound, outputs_sha (equal for two trees
+    whose kernels compute the same bits) and fwd_errors on the seeded
+    clouds with the dropout weights and with uniform ones; and the
     host-clock median, 10th and 90th percentiles of 30 training steps
     (after 3) on 32 synthetic models: car_64_depth in float32,
     chair_pred_pose in bfloat16, multicat_128 in both."""
@@ -3296,11 +3119,9 @@ def render_times(tree: Path) -> int:
                        lambda name: "aniso" not in name)
     from dpcx_torch.config import load_config
     from dpcx_torch.data.dataset import load_or_make
+    from dpcx_torch.geometry.quaternion import quaternion_to_matrix
     from dpcx_torch.render import fused, gauss
 
-    # an older tree's wrapper has no counter for a D <= 64 recompute
-    for suffix in ("", "_bf16"):
-        fused.LAUNCHES.setdefault(f"fused_render_bwd_recompute{suffix}", 0)
     renders_of = {"car_64_depth": 32, "chair_pred_pose": 256,
                   "multicat_128": 16}
     steps_of = {"car_64_depth": ("float32",),
@@ -3313,13 +3134,16 @@ def render_times(tree: Path) -> int:
             cfg = load_config(path).validate()
             renders, n, vox = (renders_of[label], cfg.pc_num_points,
                                cfg.vox_size)
-            wd = cfg.proj_depth
+            wd, cam = cfg.proj_depth, cfg.predict_pose
+            camera = (float(cfg.focal_length), float(cfg.camera_distance))
             radius = gauss.kernel_radius(
                 max(cfg.pc_relative_sigma, cfg.pc_relative_sigma_end), vox,
                 cfg.gauss_kernel_truncate)
             rng = np.random.default_rng(SEED)
-            ndc = torch.from_numpy(seeded_ndc(rng, renders, n)).to(DEVICE)
-            # phase 2's weights (its very inputs at the car_64_depth render)
+            points = torch.from_numpy(np.ascontiguousarray(seeded_ndc(
+                rng, renders, n).transpose(0, 2, 1))).to(DEVICE)
+            quat = torch.from_numpy(rng.normal(size=(renders, 4)).astype(
+                np.float32)).to(DEVICE)
             pw_uniform = torch.from_numpy(rng.uniform(
                 0.0, 1.0, (renders, n)).astype(np.float32)).to(DEVICE)
             # dropout weights at keep-prob 0.1 drawn by numpy: the same
@@ -3332,28 +3156,31 @@ def render_times(tree: Path) -> int:
                 for _ in range(2))
             ddepth = ddepth if wd else None
             sigma = torch.tensor(cfg.pc_relative_sigma * vox, device=DEVICE)
-            coords = ((ndc.flip(1) + 0.5) * vox - 0.5).contiguous()
+            rot = quaternion_to_matrix(quat).contiguous()
             taps = gauss.gauss_kernel_1d(sigma, radius).contiguous()
             cfg = cfg.replace(data_dir=str(Path(tmp) / label / "data"),
                               checkpoint_dir=str(Path(tmp) / label / "run"))
             ds = load_or_make(cfg, MODELS, seed=cfg.seed, device=DEVICE)
             for mode in ("float32", "bfloat16"):
                 bf16 = mode == "bfloat16"
-                grid = fused._launch_forward(coords, pw, taps, radius, vox,
-                                             wd, bf16)[2]
-                launches = {
-                    "fwd": lambda: fused._launch_forward(
-                        coords, pw, taps, radius, vox, wd, bf16),
-                    "bwd_saved_grid": lambda: fused._launch_backward(
-                        coords, pw, taps, radius, grid, dsil, ddepth, vox,
-                        wd, True, bf16),
-                    "bwd_recompute": lambda: fused._launch_backward(
-                        coords, pw, taps, radius, None, dsil, ddepth, vox,
-                        wd, True, bf16),
-                }
+
+                def fwd():
+                    return fused._launch_world_forward(
+                        points, pw, rot, None, camera, taps, radius, vox, wd,
+                        bf16)
+
+                def bwd(grid):
+                    return lambda: fused._launch_world_backward(
+                        points, pw, rot, None, camera, taps, radius, grid,
+                        dsil, ddepth, vox, wd, True, cam, bf16)
+
+                launches = {"fwd": fwd, "bwd_saved_grid": bwd(fwd()[2])}
+                if vox > 64:
+                    launches["bwd_recompute"] = bwd(None)
                 rec = {"tree": str(tree), "render": label, "mode": mode,
                        "renders": renders, "points": n, "vox": vox,
                        "radius": radius, "with_depth": wd,
+                       "camera_grad": cam,
                        "bound_ms": {key: render_bound(
                            renders, n, vox, radius, wd, True, key == "bwd",
                            bf16) for key in ("fwd", "bwd")}}
@@ -3370,8 +3197,8 @@ def render_times(tree: Path) -> int:
                 rec["outputs_sha"] = outputs_sha(fused, 3, vox, radius, wd,
                                                  bf16)
                 rec["fwd_errors"] = {
-                    label_w: fwd_errors(fused, ndc, vox, sigma, radius, w, wd,
-                                        mode)
+                    label_w: fwd_errors(fused, points, quat, camera, vox,
+                                        sigma, radius, w, wd, mode)
                     for label_w, w in (("dropout", pw),
                                        ("uniform", pw_uniform))}
                 if mode in steps_of[label]:
@@ -3388,7 +3215,8 @@ def main() -> int:
                     help="time only K6, K7 and the rgb_splats step of the "
                          "checkout at TREE (see splat_times)")
     ap.add_argument("--render-times", metavar="TREE", type=Path,
-                    help="time only the renderer kernels (K1-K5) and the "
+                    help="time only the renderer kernels (K1-K5), through "
+                         "the world launchers, which TREE must have, and the "
                          "car_64_depth, chair_pred_pose and multicat_128 "
                          "steps of the checkout at TREE (see render_times)")
     ap.add_argument("--parallel", metavar="WORLD", type=int,
@@ -3446,14 +3274,8 @@ def main() -> int:
     cfg = load_config(CONFIG).validate()
     assert cfg.renderer == "pallas" and cfg.proj_depth
 
-    # 2. each forward kernel vs its plain version
-    cases = phase_kernel(cfg, fused, gauss)
-    # 3. each backward kernel vs autograd through the plain version
-    bwd_cases = phase_backward(cases, fused)
-    # 3c. K1 and K2 in bfloat16 mode vs their plain bfloat16 version
-    bf16_cases = phase_bf16(bwd_cases, fused)
-    # 3h. the main path's renderer (world clouds, the camera transform in
-    # the splat stages) vs the plain version, both modes
+    # 3h. the renderer (world clouds, the camera transform in the splat
+    # stages) vs the plain version, both modes
     world_cases = phase_world(cfg, fused, gauss)
     # 3b. K6 and K7 vs their plain version
     aniso_cases = phase_aniso_kernel(aniso)
@@ -3568,33 +3390,10 @@ def main() -> int:
 
             # 10. time
             draw_times = time_draws(draw_errs)
-            timings = {}
-            for case in cases:
-                args, kw = case["args"], case["kw"]
-                k_ms = cuda_ms(lambda: fused.fused_project_t(*args, **kw))
-                p_ms = cuda_ms(
-                    lambda: fused.fused_project_reference(*args, **kw))
-                timings[case["name"]] = (k_ms, p_ms)
-                which = "K3" if args[1] > 64 else "K1"
-                print(f"time {which} {case['name']} ({args[0].shape[0]} "
-                      f"renders x {args[0].shape[2]} points, D {args[1]}): "
-                      f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms | {card}",
-                      flush=True)
-            bwd_timings = {}
-            for case in bwd_cases:
-                modes = (True, False) if case["vox"] > 64 else (True,)
-                for save in modes:
-                    k_ms, p_ms, _ = time_backward(fused, case, save)
-                    bwd_timings[case["name"], save] = k_ms, p_ms
-                    which = ("K2" if case["vox"] <= 64 else
-                             "K4 + K5" + ("" if save else " (recompute)"))
-                    print(f"time {which} {case['name']} "
-                          f"({case['ndc'].shape[0]} renders x "
-                          f"{case['ndc'].shape[2]} points, D {case['vox']}): "
-                          f"kernel {k_ms:.4f} ms, plain backward "
-                          f"{p_ms:.4f} ms | {card}", flush=True)
-            world_timings, world_launch = {}, {}
+            world_timings, world_launch, plain_timings = {}, {}, {}
             for case in world_cases:
+                pf_ms, pb_ms = time_plain(fused, case)
+                plain_timings[case["name"], case["acc"]] = pf_ms, pb_ms
                 for save in (True, False) if case["vox"] > 64 else (True,):
                     f_ms, b_ms, bwd = time_world(fused, case, save)
                     world_timings[case["name"], case["acc"], save] = (f_ms,
@@ -3608,8 +3407,9 @@ def main() -> int:
                           f"{case['vox']}{'' if save else ', recompute'}"
                           f"{', camera gradient' if case['cam'] else ''}): "
                           f"{fwd} through fused_project_world {f_ms:.4f} ms, "
-                          f"{bwd_name} launch {b_ms:.4f} ms | {card}",
-                          flush=True)
+                          f"{bwd_name} launch {b_ms:.4f} ms; plain forward "
+                          f"{pf_ms:.4f} ms, plain backward {pb_ms:.4f} ms "
+                          f"| {card}", flush=True)
             imgs16 = requests[2][:16]
             direct_ms = host_ms(lambda: srv.model(imgs16))
             http_ms = host_ms(lambda: post_npz(port, imgs16))
@@ -3684,30 +3484,6 @@ def main() -> int:
                 print(f"time train step rgb_splats {label} operands (B 8 x 4 "
                       f"views, N 4096, D 32, rgb + gauss, bf16 compute): "
                       f"median {ms:.3f} ms per step | {card}", flush=True)
-            bf16_timings = {}
-            for case in bf16_cases:
-                fwd_args = tuple(case[k] for k in (
-                    "ndc", "vox", "sigma", "radius", "pw", "with_depth"))
-                f_ms = cuda_ms(lambda: fused.fused_project_t(
-                    *fwd_args, acc_dtype="bfloat16"))
-                pf_ms = cuda_ms(lambda: fused.fused_project_reference(
-                    *fwd_args, acc_dtype="bfloat16"))
-                fwd, bwd_name = (("K3", "K4 + K5") if case["vox"] > 64
-                                 else ("K1", "K2"))
-                for save in (True, False) if case["vox"] > 64 else (True,):
-                    b_ms, pb_ms, _ = time_backward(fused, case, save, True)
-                    bf16_timings[case["name"], save] = (f_ms, b_ms, pf_ms,
-                                                        pb_ms)
-                    print(f"time {fwd}/{bwd_name} bf16 {case['name']} "
-                          f"({case['ndc'].shape[0]} renders x "
-                          f"{case['ndc'].shape[2]} points, D {case['vox']}"
-                          f"{'' if save else ', recompute'}): {fwd} "
-                          f"{f_ms:.4f} ms (f32 mode "
-                          f"{timings[case['name']][0]:.4f}), plain forward "
-                          f"{pf_ms:.4f} ms; {bwd_name} {b_ms:.4f} ms (f32 "
-                          f"mode {bwd_timings[case['name'], save][0]:.4f}), "
-                          f"plain backward {pb_ms:.4f} ms | {card}",
-                          flush=True)
             pp_step_fns = {}
             for label, c in (("float32", pp_cfg), ("bfloat16", pp_bf)):
                 pp_step_fns[label] = training_step_fn(c, pp_ds)
@@ -3824,10 +3600,7 @@ def main() -> int:
         checks of its kernel family and mode."""
         case = by_world[shape, acc]
         f_ms, b_ms = world_timings[shape, acc, True]
-        if acc == "bfloat16":
-            _, _, pf_ms, pb_ms = bf16_timings[shape, True]
-        else:
-            pf_ms, pb_ms = timings[shape][1], bwd_timings[shape, True][1]
+        pf_ms, pb_ms = plain_timings[shape, acc]
         bound_ms, bound_by = render_bound(
             case["points"].shape[0], case["points"].shape[1], case["vox"],
             case["radius"], case["with_depth"], True, backward,
@@ -3929,9 +3702,9 @@ def main() -> int:
                "multicat_128_fused render (16 x 16000, D 128), launches "
                "from its bfloat16 cli train run")
 
-    shared = ("K4 and K5 are one launch, dpcx_fused_render_bwd (the suffix "
-              "form makes K4's Total the suffix after the downward walk); "
-              "ms and bound_ms are that launch's")
+    shared = ("K4 and K5 are one launch, dpcx_fused_render_world_bwd (the "
+              "suffix form makes K4's Total the suffix after the downward "
+              "walk); ms and bound_ms are that launch's")
     print(json.dumps({"kernels": [
         entry("fused_render", "dpcx/render/pallas_kernel.py:75",
               launches["fused_render"], "car_64_depth", False),

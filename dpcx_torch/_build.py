@@ -105,22 +105,12 @@ def load() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C symbols."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # the last int before the stream: the operand mode (1: bfloat16)
-    lib.dpcx_fused_render.argtypes = [
-        ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
-    ]
-    lib.dpcx_fused_render.restype = i32
-    # the saved-grid and the recompute backward take the same arguments
-    for fn in (lib.dpcx_fused_render_bwd, lib.dpcx_fused_render_bwd_recompute):
-        fn.argtypes = [
-            ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-            i32, i32, ptr,
-        ]
-        fn.restype = i32
-    # the same renderer from world clouds: points, weights, rot, trans,
-    # focal length, camera distance, renders per cloud, then as above (the
-    # backward: grid, recompute, the cotangents, dgrid, dpoints, dweights,
-    # drot, dtrans)
+    # csrc/fused_render.cu, the renderer from world clouds: points, weights,
+    # rot, trans, focal length, camera distance, renders per cloud, taps,
+    # radius, then the forward's grid, sil, depth (the backward's grid,
+    # recompute, the cotangents, dgrid, dpoints, dweights, drot, dtrans);
+    # renders, N, D, with_depth, and the operand mode (1: bfloat16) last
+    # before the stream
     f32 = ctypes.c_float
     lib.dpcx_fused_render_world.argtypes = [
         ptr, ptr, ptr, ptr, f32, f32, i32, ptr, i32, ptr, ptr, ptr, i32, i32,

@@ -20,16 +20,15 @@
 // fit in VMEM. Hopper has fast atomics, and its 80 GB of device memory hold
 // the whole grid of every render (128 MiB at 16 renders of 128^3), so this
 // design keeps none of that, and one kernel family covers every D <= 128:
-//   (a) splat: one thread per point, 8 atomicAdds into a zeroed f32 grid
+//   (a) splat: 8 atomicAdds a point and render into a zeroed f32 grid
 //       [R, D, D, D] in device memory (R = renders). Bound by atomics:
 //       8 per point, contended where many points share a cell. The points
-//       come as grid coordinates [R, 3, N], or as world clouds [C, N, 3]
-//       with each render's camera (the _world entries): then a thread takes
-//       one point of a cloud, reads it once, and for each of the cloud's
-//       R / C renders runs dpcx's camera transform (rotation, translation,
-//       perspective divide with its clamp) and the NDC -> grid affine in
-//       registers before it splats. No coordinate tensor, and no batched
-//       3x3 GEMM, reaches device memory.
+//       come as world clouds [C, N, 3] with each render's camera: a thread
+//       takes one point of a cloud, reads it once, and for each of the
+//       cloud's R / C renders runs dpcx's camera transform (rotation,
+//       translation, perspective divide with its clamp) and the NDC -> grid
+//       affine in registers before it splats. No coordinate tensor, and no
+//       batched 3x3 GEMM, reaches device memory.
 //   (b) blur y and x (blur_slab_kernel): one block per (render, z) holds
 //       the slab in one buffer of padded(D) rows of slab_pitch(D) floats
 //       (17 KiB at D 64, 66 KiB at D 128, where three blocks share an SM
@@ -64,12 +63,13 @@
 // dpcx/render/pallas_blocked.py::_blocked_total_kernel (K4: per-ray Total)
 // and ::_blocked_bwd_kernel (K5: dL/do_z, the blur transposes, the splat
 // backward): the gradient of (sil, depth) with respect to each point's
-// (z, y, x, w) in grid units. The TPU kernels recompute the grid because a
-// second D^3 buffer does not fit in VMEM. Here the forward's grid may stay
-// in device memory as the residual (dpcx_fused_render_bwd; the saved-grid
-// mode), or the backward re-splats and re-blurs into fresh scratch first
-// (dpcx_fused_render_bwd_recompute; the recompute mode that remat
-// selects). On the fully blurred grid:
+// (z, y, x, w) in grid units, carried back to the world clouds and the
+// cameras. The TPU kernels recompute the grid because a second D^3 buffer
+// does not fit in VMEM. Here the forward's grid may stay in device memory as
+// the residual (the saved-grid mode), or the backward re-splats and
+// re-blurs into fresh scratch first (recompute 1 of
+// dpcx_fused_render_world_bwd; the recompute mode that remat selects). On
+// the fully blurred grid:
 //   (e) DRC backward (drc_bwd_kernel): one thread per ray walks z up to
 //       form T_z, then down with the suffix
 //         S_{D-1} = ddepth * 1.0,  S_{z-1} = o_z phi_z + (1 - o_z) S_z,
@@ -97,13 +97,12 @@
 //       grouping (below), dh = -1 / +1 on the low / high corner, and dh = 0
 //       along an axis whose coordinate is an exact integer, as the
 //       reference's _dhat_t gives (a floor-based form would be one-sided
-//       there). From world clouds the thread projects the point again, as
-//       the forward did, carries d(grid) through the affine, the divide and
-//       the clamp and the transposed rotation, and sums the cloud's renders
-//       in registers into d points [C, N, 3] and d weights [C, N], each
-//       written once; where the cameras want a gradient, d rot and d trans
-//       of each render are summed over a warp by shuffles, one atomicAdd a
-//       value a warp.
+//       there). The thread projects the point again, as the forward did,
+//       carries d(grid) through the affine, the divide and the clamp and
+//       the transposed rotation, and sums the cloud's renders in registers
+//       into d points [C, N, 3] and d weights [C, N], each written once;
+//       where the cameras want a gradient, d rot and d trans of each render
+//       are summed over a warp by shuffles, one atomicAdd a value a warp.
 // (e) and (g) are bound by bytes like (d) and the forward splat.
 //
 // Operand mode (bf16 = 1: dpcx's pallas_acc_dtype "bfloat16"). The Pallas
@@ -297,30 +296,11 @@ __device__ __forceinline__ void splat_point(float* __restrict__ g, float gz,
   }
 }
 
-// (a) coords [R, 3, N] rows (z, y, x) in grid units; weights [R, N] or null.
-template <bool kBf16>
-__global__ void splat_kernel(const float* __restrict__ coords,
-                             const float* __restrict__ weights,
-                             float* __restrict__ grid, int renders, int n,
-                             int d) {
-  const int64_t total = static_cast<int64_t>(renders) * n;
-  const int64_t cells = static_cast<int64_t>(d) * d * d;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = i / n;
-    const int64_t p = i - r * n;
-    const float* c = coords + r * 3 * n + p;
-    splat_point<kBf16>(grid + r * cells, c[0], c[n],
-                       c[2 * static_cast<int64_t>(n)],
-                       weights != nullptr ? weights[i] : 1.f, d);
-  }
-}
-
 // (a) from world clouds (World): one thread per (cloud, point) reads the
 // point and its weight (weights [C, N] or null) once and splats it into
 // each of the cloud's per_cloud renders through that render's camera.
-// Bound by contended atomics like the coordinate form: the launch bounds
-// keep its registers, so that as many atomics are in flight.
+// Bound by contended atomics: the launch bounds keep its registers, so
+// that as many atomics are in flight.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2048 / kThreads)
     splat_kernel(World w, const float* __restrict__ weights,
@@ -907,35 +887,6 @@ __device__ __forceinline__ void splat_bwd_point(const float* __restrict__ g,
   dw = aw;
 }
 
-// (g) one thread per point: coords [R, 3, N] -> dcoords [R, 3, N] (z, y,
-// x) and, when dweights is not null, dweights [R, N].
-template <bool kBf16, bool kRoundDg>
-__global__ void splat_bwd_kernel(const float* __restrict__ coords,
-                                 const float* __restrict__ weights,
-                                 const float* __restrict__ dgrid,
-                                 float* __restrict__ dcoords,
-                                 float* __restrict__ dweights, int renders,
-                                 int n, int d) {
-  const int64_t total = static_cast<int64_t>(renders) * n;
-  const int64_t cells = static_cast<int64_t>(d) * d * d;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = i / n;
-    const int64_t p = i - r * n;
-    const float* c = coords + r * 3 * n + p;
-    const float pw = weights != nullptr ? weights[i] : 1.f;
-    float dc[3], dw;
-    splat_bwd_point<kBf16, kRoundDg>(dgrid + r * cells, c[0], c[n],
-                                     c[2 * static_cast<int64_t>(n)], pw, d,
-                                     dc, dw);
-    float* out = dcoords + r * 3 * n + p;
-    out[0] = dc[0];
-    out[n] = dc[1];
-    out[2 * static_cast<int64_t>(n)] = dc[2];
-    if (dweights != nullptr) dweights[i] = dw;
-  }
-}
-
 // Sums 16 values of every lane over the warp in 16 shuffles: each step
 // halves the values a lane keeps and adds its partner's copies of them.
 // Lane l returns the warp's sum of v[l / 2].
@@ -1115,46 +1066,28 @@ cudaError_t launch_blur_z(float* grid, const float* taps, int radius,
   return cudaGetLastError();
 }
 
-// Where the splat stages read the points: grid coordinates coords
-// [R, 3, N] (rows z, y, x), or, where coords is null, the world clouds and
-// cameras of world.
-struct Source {
-  const float* coords;
-  World world;
-};
-
-// The splat stages' threads: one a (render, point) from coords, one a
-// (cloud, point) from world clouds.
-int64_t splat_units(const Source& src, int renders, int n) {
-  const int64_t rows =
-      src.coords != nullptr ? renders : renders / src.world.per_cloud;
-  return rows * n;
+// The splat stages' threads: one a (cloud, point).
+int64_t splat_units(const World& w, int renders, int n) {
+  return static_cast<int64_t>(renders / w.per_cloud) * n;
 }
 
 // (a) + (b) + (c): the fully blurred grid the DRC walk reads, into the
 // scratch grid (y/x, then z; K3's bf16 mode: z first).
-cudaError_t launch_grid(Mode m, const Source& src, const float* weights,
+cudaError_t launch_grid(Mode m, const World& w, const float* weights,
                         const float* taps, int radius, float* grid,
                         int renders, int n, int d, cudaStream_t s) {
   const size_t cells = static_cast<size_t>(renders) * d * d * d;
   cudaError_t err = cudaMemsetAsync(grid, 0, cells * sizeof(float), s);
   if (err != cudaSuccess) return err;
-  const int64_t units = splat_units(src, renders, n);
+  const int64_t units = splat_units(w, renders, n);
   if (units > 0) {
     const unsigned blocks = static_cast<unsigned>(splat_blocks(units));
-    const bool bf16 = m != Mode::kF32;
-    if (src.coords != nullptr && !bf16) {
-      splat_kernel<false><<<blocks, kThreads, 0, s>>>(src.coords, weights,
-                                                      grid, renders, n, d);
-    } else if (src.coords != nullptr) {
-      splat_kernel<true><<<blocks, kThreads, 0, s>>>(src.coords, weights,
-                                                     grid, renders, n, d);
-    } else if (!bf16) {
-      splat_kernel<false><<<blocks, kThreads, 0, s>>>(src.world, weights,
-                                                      grid, renders, n, d);
+    if (m == Mode::kF32) {
+      splat_kernel<false><<<blocks, kThreads, 0, s>>>(w, weights, grid,
+                                                      renders, n, d);
     } else {
-      splat_kernel<true><<<blocks, kThreads, 0, s>>>(src.world, weights,
-                                                     grid, renders, n, d);
+      splat_kernel<true><<<blocks, kThreads, 0, s>>>(w, weights, grid,
+                                                     renders, n, d);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -1220,28 +1153,21 @@ cudaError_t launch_drc_bwd(const float* grid, const float* dsil,
   return cudaGetLastError();
 }
 
-// (g) in the operand mode's form: from coords into dsrc = dcoords
-// [R, 3, N]; from world clouds into dsrc = dpoints [C, N, 3], and, where
-// drot is not null, the cameras' gradients into drot and dtrans (or null),
+// (g) in the operand mode's form into dpoints [C, N, 3], and, where drot
+// is not null, the cameras' gradients into drot and dtrans (or null),
 // zeroed here first.
 template <bool kBf16, bool kRoundDg>
-cudaError_t launch_splat_bwd(const Source& src, const float* weights,
-                             const float* dgrid, float* dsrc,
+cudaError_t launch_splat_bwd(const World& w, const float* weights,
+                             const float* dgrid, float* dpoints,
                              float* dweights, float* drot, float* dtrans,
                              int renders, int n, int d, cudaStream_t s) {
-  const int64_t units = splat_units(src, renders, n);
+  const int64_t units = splat_units(w, renders, n);
   const unsigned blocks = static_cast<unsigned>(splat_blocks(units));
-  if (src.coords != nullptr) {
-    if (units == 0) return cudaSuccess;
-    splat_bwd_kernel<kBf16, kRoundDg><<<blocks, kThreads, 0, s>>>(
-        src.coords, weights, dgrid, dsrc, dweights, renders, n, d);
-    return cudaGetLastError();
-  }
   if (drot == nullptr) {
     if (units == 0) return cudaSuccess;
     splat_bwd_kernel<kBf16, kRoundDg, false><<<blocks, kThreads, 0, s>>>(
-        src.world, weights, dgrid, dsrc, dweights, nullptr, nullptr,
-        renders, n, d);
+        w, weights, dgrid, dpoints, dweights, nullptr, nullptr, renders, n,
+        d);
     return cudaGetLastError();
   }
   cudaError_t err = cudaMemsetAsync(
@@ -1252,17 +1178,16 @@ cudaError_t launch_splat_bwd(const Source& src, const float* weights,
   }
   if (err != cudaSuccess || units == 0) return err;
   splat_bwd_kernel<kBf16, kRoundDg, true><<<blocks, kThreads, 0, s>>>(
-      src.world, weights, dgrid, dsrc, dweights, drot, dtrans, renders, n,
-      d);
+      w, weights, dgrid, dpoints, dweights, drot, dtrans, renders, n, d);
   return cudaGetLastError();
 }
 
 // (e) + (f) + (g) on the grid launch_grid makes.
-cudaError_t launch_bwd_stages(Mode m, const Source& src,
+cudaError_t launch_bwd_stages(Mode m, const World& w,
                               const float* weights, const float* taps,
                               int radius, const float* grid,
                               const float* dsil, const float* ddepth,
-                              float* dgrid, float* dsrc, float* dweights,
+                              float* dgrid, float* dpoints, float* dweights,
                               float* drot, float* dtrans, int renders, int n,
                               int d, int with_depth, cudaStream_t s) {
   cudaError_t err =
@@ -1293,24 +1218,24 @@ cudaError_t launch_bwd_stages(Mode m, const Source& src,
   if (err != cudaSuccess) return err;
   switch (m) {
     case Mode::kF32:
-      return launch_splat_bwd<false, false>(src, weights, dgrid, dsrc,
+      return launch_splat_bwd<false, false>(w, weights, dgrid, dpoints,
                                             dweights, drot, dtrans, renders,
                                             n, d, s);
     case Mode::kBf16:  // K2 rounds dG
-      return launch_splat_bwd<true, true>(src, weights, dgrid, dsrc,
+      return launch_splat_bwd<true, true>(w, weights, dgrid, dpoints,
                                           dweights, drot, dtrans, renders, n,
                                           d, s);
     case Mode::kBf16Blocked:
-      return launch_splat_bwd<true, false>(src, weights, dgrid, dsrc,
+      return launch_splat_bwd<true, false>(w, weights, dgrid, dpoints,
                                            dweights, drot, dtrans, renders,
                                            n, d, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// The forward on either source; the backward on either, re-splatting and
-// re-blurring into grid first where recompute.
-cudaError_t forward(const Source& src, const float* weights,
+// The forward; the backward, re-splatting and re-blurring into grid first
+// where recompute.
+cudaError_t forward(const World& w, const float* weights,
                     const float* taps, int radius, float* grid, float* sil,
                     float* depth, int renders, int n, int d, int with_depth,
                     int bf16, void* stream) {
@@ -1320,16 +1245,16 @@ cudaError_t forward(const Source& src, const float* weights,
   }
   if (renders == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_grid(mode_of(bf16, d), src, weights, taps,
+  const cudaError_t err = launch_grid(mode_of(bf16, d), w, weights, taps,
                                       radius, grid, renders, n, d, s);
   if (err != cudaSuccess) return err;
   return launch_drc(grid, sil, depth, renders, d, with_depth, s);
 }
 
-cudaError_t backward(const Source& src, const float* weights,
+cudaError_t backward(const World& w, const float* weights,
                      const float* taps, int radius, float* grid,
                      bool recompute, const float* dsil, const float* ddepth,
-                     float* dgrid, float* dsrc, float* dweights, float* drot,
+                     float* dgrid, float* dpoints, float* dweights, float* drot,
                      float* dtrans, int renders, int n, int d, int with_depth,
                      int bf16, void* stream) {
   if (bad_args(renders, n, d, radius, bf16)) return cudaErrorInvalidValue;
@@ -1338,101 +1263,57 @@ cudaError_t backward(const Source& src, const float* weights,
   const Mode m = mode_of(bf16, d);
   if (recompute) {
     const cudaError_t err =
-        launch_grid(m, src, weights, taps, radius, grid, renders, n, d, s);
+        launch_grid(m, w, weights, taps, radius, grid, renders, n, d, s);
     if (err != cudaSuccess) return err;
   }
-  return launch_bwd_stages(m, src, weights, taps, radius, grid, dsil, ddepth,
-                           dgrid, dsrc, dweights, drot, dtrans, renders, n,
+  return launch_bwd_stages(m, w, weights, taps, radius, grid, dsil, ddepth,
+                           dgrid, dpoints, dweights, drot, dtrans, renders, n,
                            d, with_depth, s);
 }
 
 // World clouds and cameras as the C entries take them; a bad per_cloud
 // gives null points, which the entries refuse.
-Source world_source(const float* points, const float* rot,
-                    const float* trans, float focal, float dist,
-                    int per_cloud, int renders) {
+World world_source(const float* points, const float* rot,
+                   const float* trans, float focal, float dist,
+                   int per_cloud, int renders) {
   const bool ok = points != nullptr && rot != nullptr && per_cloud >= 1 &&
                   renders % per_cloud == 0;
-  return Source{nullptr,
-                World{ok ? points : nullptr, rot, trans, focal, dist,
-                      ok ? per_cloud : 1}};
+  return World{ok ? points : nullptr, rot, trans, focal, dist,
+               ok ? per_cloud : 1};
 }
 
 }  // namespace
-
-// Forward. coords [R, 3, N] in grid units, rows (z, y, x); weights [R, N]
-// or null (every point weighs 1); taps [2 radius + 1]. grid: scratch
-// [R, D, D, D] f32 that holds the fully blurred grid the DRC walk read
-// afterwards; sil, depth: [R, D, D] f32 (depth may be null when with_depth
-// is 0); bf16: the operand mode (1: bfloat16; above D 64, D % 8 == 0).
-// Returns a cudaError_t as int.
-extern "C" int dpcx_fused_render(const float* coords, const float* weights,
-                                 const float* taps, int radius, float* grid,
-                                 float* sil, float* depth, int renders, int n,
-                                 int d, int with_depth, int bf16,
-                                 void* stream) {
-  return static_cast<int>(forward(Source{coords, World{}}, weights, taps,
-                                  radius, grid, sil, depth, renders, n, d,
-                                  with_depth, bf16, stream));
-}
-
-// Backward, saved-grid mode. grid: the forward's grid [R, D, D, D] (read
-// only); dgrid: scratch [R, D, D, D]; dsil [R, D, D];
-// ddepth [R, D, D] or null (zero); dcoords out [R, 3, N] (z, y, x);
-// dweights out [R, N] or null (not wanted). weights null means every point
-// weighs 1; bf16 as the forward's. Returns a cudaError_t as int.
-extern "C" int dpcx_fused_render_bwd(const float* coords, const float* weights,
-                                     const float* taps, int radius,
-                                     const float* grid, const float* dsil,
-                                     const float* ddepth, float* dgrid,
-                                     float* dcoords, float* dweights,
-                                     int renders, int n, int d, int with_depth,
-                                     int bf16, void* stream) {
-  return static_cast<int>(backward(
-      Source{coords, World{}}, weights, taps, radius,
-      const_cast<float*>(grid), false, dsil, ddepth, dgrid, dcoords,
-      dweights, nullptr, nullptr, renders, n, d, with_depth, bf16, stream));
-}
-
-// Backward, recompute mode: as dpcx_fused_render_bwd, but grid is scratch
-// [R, D, D, D] that is first re-splatted and re-blurred from coords, weights
-// and taps, as the forward made it.
-extern "C" int dpcx_fused_render_bwd_recompute(
-    const float* coords, const float* weights, const float* taps, int radius,
-    float* grid, const float* dsil, const float* ddepth, float* dgrid,
-    float* dcoords, float* dweights, int renders, int n, int d,
-    int with_depth, int bf16, void* stream) {
-  return static_cast<int>(backward(
-      Source{coords, World{}}, weights, taps, radius, grid, true, dsil,
-      ddepth, dgrid, dcoords, dweights, nullptr, nullptr, renders, n, d,
-      with_depth, bf16, stream));
-}
 
 // Forward from world clouds: points [C, N, 3] f32, weights [C, N] or null,
 // and per render r its camera, rot [R, 3, 3] and trans [R, 3] or null, with
 // focal and dist (render/transform.py's focal length and camera distance);
 // render r shows cloud r / per_cloud, R = C per_cloud. The splat stage
-// projects each point in registers (World). The rest as dpcx_fused_render.
+// projects each point in registers (World). taps [2 radius + 1]. grid:
+// scratch [R, D, D, D] f32 that holds the fully blurred grid the DRC walk
+// read afterwards; sil, depth: [R, D, D] f32 (depth may be null when
+// with_depth is 0); bf16: the operand mode (1: bfloat16; above D 64,
+// D % 8 == 0). Returns a cudaError_t as int.
 extern "C" int dpcx_fused_render_world(
     const float* points, const float* weights, const float* rot,
     const float* trans, float focal, float dist, int per_cloud,
     const float* taps, int radius, float* grid, float* sil, float* depth,
     int renders, int n, int d, int with_depth, int bf16, void* stream) {
-  const Source src =
+  const World w =
       world_source(points, rot, trans, focal, dist, per_cloud, renders);
-  if (src.world.points == nullptr) {
+  if (w.points == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(forward(src, weights, taps, radius, grid, sil,
+  return static_cast<int>(forward(w, weights, taps, radius, grid, sil,
                                   depth, renders, n, d, with_depth, bf16,
                                   stream));
 }
 
 // Backward from world clouds, the inputs as dpcx_fused_render_world's:
 // grid is the forward's grid, or (recompute 1) scratch that is re-splatted
-// and re-blurred first. dpoints out [C, N, 3]; dweights out [C, N] or null;
-// drot out [R, 3, 3] or null (no camera gradient), dtrans out [R, 3] or
-// null. The rest as dpcx_fused_render_bwd.
+// and re-blurred first. dgrid: scratch [R, D, D, D]; dsil [R, D, D];
+// ddepth [R, D, D] or null (zero); dpoints out [C, N, 3]; dweights out
+// [C, N] or null (not wanted); drot out [R, 3, 3] or null (no camera
+// gradient), dtrans out [R, 3] or null. Returns a cudaError_t as int.
 extern "C" int dpcx_fused_render_world_bwd(
     const float* points, const float* weights, const float* rot,
     const float* trans, float focal, float dist, int per_cloud,
@@ -1440,13 +1321,13 @@ extern "C" int dpcx_fused_render_world_bwd(
     const float* dsil, const float* ddepth, float* dgrid, float* dpoints,
     float* dweights, float* drot, float* dtrans, int renders, int n, int d,
     int with_depth, int bf16, void* stream) {
-  const Source src =
+  const World w =
       world_source(points, rot, trans, focal, dist, per_cloud, renders);
-  if (src.world.points == nullptr || (dtrans != nullptr && trans == nullptr)) {
+  if (w.points == nullptr || (dtrans != nullptr && trans == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(backward(
-      src, weights, taps, radius, grid, recompute != 0, dsil, ddepth, dgrid,
+      w, weights, taps, radius, grid, recompute != 0, dsil, ddepth, dgrid,
       dpoints, dweights, drot, dtrans, renders, n, d, with_depth, bf16,
       stream));
 }

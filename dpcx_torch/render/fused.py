@@ -3,21 +3,23 @@
 K2 backward for D <= 64, and the depth-blocked K3 forward and K4/K5
 backward of ``dpcx/render/pallas_blocked.py`` for 64 < D <= 128).
 
-``fused_project_t`` runs, for CUDA tensors, a ``torch.autograd.Function``
-whose forward and backward launch the hand-written CUDA kernels of
-``csrc/fused_render.cu``; one kernel family covers every D <= 128. For CPU
-tensors it runs the plain version, ``fused_project_reference``, and
-autograd differentiates that. Any other device raises. The plain version
-is also the yardstick the kernels are checked against on the card.
-
-``fused_project_world`` takes world clouds [C, N, 3] and cameras [R, 4]
-(R a multiple of C) instead of NDC coordinates: on CUDA tensors the splat
-stages of the same kernels run the camera transform of
+One route reaches the card: ``fused_project_world`` takes world clouds
+[C, N, 3] and cameras [R, 4] (R a multiple of C), and on CUDA tensors runs a
+``torch.autograd.Function`` whose forward and backward launch the
+hand-written CUDA kernels of ``csrc/fused_render.cu``; one kernel family
+covers every D <= 128. Their splat stages run the camera transform of
 ``pc_perspective_transform_t`` and the NDC -> grid affine in registers,
 forward and backward (the cameras' gradients included), so no [R, 3, N]
-tensor and no batched 3x3 GEMM reaches the card; on CPU tensors it is that
-transform followed by ``fused_project_t``. ``pointcloud_project_fn`` takes
-it.
+tensor and no batched 3x3 GEMM reaches the card. ``pointcloud_project_fn``
+takes it. On CPU tensors it is that transform followed by
+``fused_project_t``.
+
+``fused_project_t`` takes NDC coordinates [R, 3, N] on CPU tensors and is
+the plain version: ``fused_project_reference``, differentiated by
+autograd, in float32 mode, and ``fused_project_plain`` in bfloat16 mode.
+It refuses tensors on the card, where the kernels take world clouds. The
+plain versions run on any device, and are the yardstick the kernels are
+checked against on the card.
 
 ``save_grid`` mirrors ``pallas_project_t``'s: at D > 64 the forward keeps
 its grid (8 MiB per render at 128^3) for the backward, or,
@@ -56,7 +58,11 @@ from dpcx_torch.render.gauss import (
     gauss_kernel_1d,
     smoothen_voxels3d,
 )
-from dpcx_torch.render.transform import pc_perspective_transform_t
+from dpcx_torch.render.transform import (
+    CAMERA_DISTANCE,
+    FOCAL_LENGTH,
+    pc_perspective_transform_t,
+)
 from dpcx_torch.render.voxelize import pointcloud2voxels_scatter
 from dpcx_torch.utils.profiling import span
 
@@ -66,15 +72,13 @@ ACC_DTYPES = ("float32", "bfloat16")
 
 # kernel launches by name; counted only where a launch happens. D <= 64
 # counts as fused_*, D > 64 as blocked_* (the K3-K5 counterparts); the
-# bfloat16 mode adds _bf16. A recompute backward at D <= 64 is launched
-# only by a direct _launch_backward call (training keeps the grid there)
+# bfloat16 mode adds _bf16. The recompute backward runs only at D > 64
+# (_FusedWorldRender keeps the grid at D <= 64)
 LAUNCHES: dict[str, int] = {
     "fused_render": 0,
     "fused_render_bwd": 0,
     "fused_render_bf16": 0,
     "fused_render_bwd_bf16": 0,
-    "fused_render_bwd_recompute": 0,
-    "fused_render_bwd_recompute_bf16": 0,
     "blocked_render": 0,
     "blocked_render_bwd": 0,
     "blocked_render_bwd_recompute": 0,
@@ -433,107 +437,6 @@ def _bwd_name(vox: int, recompute: bool, bf16: bool) -> str:
             + ("_recompute" if recompute else "") + ("_bf16" if bf16 else ""))
 
 
-def _launch_forward(coords, weights, taps, radius, vox, with_depth,
-                    bf16=False):
-    """Forward (K1, or K3 at D > 64): coords [R, 3, N] (z, y, x grid
-    units), weights [R, N] or None, taps [2 radius + 1] -> (sil, depth or
-    None, the fully blurred grid [R, D, D, D] that the backward may
-    read). ``bf16``: the bfloat16 operand mode (K1's at D <= 64, K3's
-    above)."""
-    from dpcx_torch import _build
-
-    R, _, N = coords.shape
-    D = vox
-    grid = torch.empty((R, D, D, D), dtype=torch.float32, device=coords.device)
-    sil = torch.empty((R, D, D), dtype=torch.float32, device=coords.device)
-    depth = torch.empty_like(sil) if with_depth else None
-    lib = _build.load()
-    with torch.cuda.device(coords.device):
-        err = lib.dpcx_fused_render(
-            coords.data_ptr(), _ptr(weights), taps.data_ptr(), radius,
-            grid.data_ptr(), sil.data_ptr(), _ptr(depth), R, N, D,
-            int(with_depth), int(bf16),
-            torch.cuda.current_stream(coords.device).cuda_stream,
-        )
-    _counted(f"{launch_family(vox)}_render" + ("_bf16" if bf16 else ""), err)
-    return sil, depth, grid
-
-
-def _launch_backward(coords, weights, taps, radius, grid, dsil, ddepth,
-                     vox, with_depth, want_dweights, bf16=False):
-    """Backward (K2, or K4 + K5 at D > 64): cotangents dsil [R, D, D] and
-    ddepth (or None: zero) -> (d coords [R, 3, N], d weights [R, N] or
-    None). ``grid`` is the forward's saved grid, or None: then the
-    recompute launcher re-splats and re-blurs it into scratch first."""
-    from dpcx_torch import _build
-
-    R, _, N = coords.shape
-    D = vox
-    recompute = grid is None
-    if recompute:
-        grid = torch.empty((R, D, D, D), dtype=torch.float32,
-                           device=coords.device)
-    dgrid = torch.empty_like(grid)
-    dcoords = torch.empty_like(coords)
-    dweights = (
-        torch.empty((R, N), dtype=torch.float32, device=coords.device)
-        if want_dweights else None
-    )
-    lib = _build.load()
-    launch = (lib.dpcx_fused_render_bwd_recompute if recompute
-              else lib.dpcx_fused_render_bwd)
-    with torch.cuda.device(coords.device):
-        err = launch(
-            coords.data_ptr(), _ptr(weights), taps.data_ptr(), radius,
-            grid.data_ptr(), dsil.data_ptr(), _ptr(ddepth), dgrid.data_ptr(),
-            dcoords.data_ptr(), _ptr(dweights), R, N, D, int(with_depth),
-            int(bf16), torch.cuda.current_stream(coords.device).cuda_stream,
-        )
-    _counted(_bwd_name(vox, recompute, bf16), err)
-    return dcoords, dweights
-
-
-class _FusedRender(torch.autograd.Function):
-    """Kernel forward, kernel backward. Returns sil, or (sil, depth) with
-    depth.
-
-    No gradient reaches the taps (the blur sigma is a schedule, not a
-    learned parameter), as the zero ``dkmat`` of ``_fused_bwd`` in
-    ``dpcx/render/pallas_kernel.py``.
-    """
-
-    @staticmethod
-    def forward(ctx, coords, weights, taps, radius, vox, with_depth,
-                save_grid, bf16):
-        with span("render.fwd"):
-            sil, depth, grid = _launch_forward(
-                coords, weights, taps, radius, vox, with_depth, bf16
-            )
-        keep = save_grid or vox <= BLOCKED_VOX
-        ctx.save_for_backward(coords, weights, taps, grid if keep else None)
-        ctx.radius, ctx.vox, ctx.with_depth = radius, vox, with_depth
-        ctx.bf16 = bf16
-        # an output the loss never reads arrives as None, not as zeros
-        ctx.set_materialize_grads(False)
-        return (sil, depth) if with_depth else sil
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dsil, ddepth=None):
-        coords, weights, taps, grid = ctx.saved_tensors
-        want_coords, want_weights = ctx.needs_input_grad[:2]
-        with span("render.bwd"):
-            if dsil is None:  # only the depth output reached the loss
-                dsil = torch.zeros_like(ddepth)
-            dcoords, dweights = _launch_backward(
-                coords, weights, taps, ctx.radius, grid, dsil.contiguous(),
-                None if ddepth is None else ddepth.contiguous(),
-                ctx.vox, ctx.with_depth, want_weights, ctx.bf16,
-            )
-        return (dcoords if want_coords else None, dweights,
-                None, None, None, None, None, None)
-
-
 def _launch_world_forward(points, weights, rot, trans, camera, taps, radius,
                           vox, with_depth, bf16):
     """Forward (K1, or K3 at D > 64) from world clouds: points [C, N, 3],
@@ -564,16 +467,20 @@ def _launch_world_backward(points, weights, rot, trans, camera, taps, radius,
                            grid, dsil, ddepth, vox, with_depth,
                            want_dweights, want_camera, bf16):
     """Backward (K2, or K4 + K5 at D > 64) from world clouds, the inputs as
-    ``_launch_world_forward``'s; ``grid`` the forward's, or None: re-splat
-    and re-blur first. -> (d points [C, N, 3], d weights [C, N] or None,
-    d rot [R, 3, 3] and d trans [R, 3] (None without ``want_camera``; d
-    trans None without trans))."""
+    ``_launch_world_forward``'s; ``grid`` the forward's, or None at
+    D > 64: re-splat and re-blur first. -> (d points [C, N, 3], d weights
+    [C, N] or None, d rot [R, 3, 3] and d trans [R, 3] (None without
+    ``want_camera``; d trans None without trans))."""
     from dpcx_torch import _build
 
     C, N, _ = points.shape
     R, D = rot.shape[0], vox
     dev = points.device
     recompute = grid is None
+    if recompute and vox <= BLOCKED_VOX:
+        raise ValueError(
+            f"the recompute backward runs only above D {BLOCKED_VOX} "
+            f"(_FusedWorldRender keeps the grid below), got D {vox}")
     if recompute:
         grid = torch.empty((R, D, D, D), dtype=torch.float32, device=dev)
     dgrid = torch.empty_like(grid)
@@ -600,7 +507,9 @@ class _FusedWorldRender(torch.autograd.Function):
     """Kernel forward and backward from world clouds and their cameras
     (``fused_project_world``). Returns sil, or (sil, depth) with depth.
     Gradients reach the points, the weights, the rotations and the
-    translations; none the taps, as ``_FusedRender``."""
+    translations; none the taps (the blur sigma is a schedule, not a
+    learned parameter), as the zero ``dkmat`` of ``_fused_bwd`` in
+    ``dpcx/render/pallas_kernel.py``."""
 
     @staticmethod
     def forward(ctx, points, weights, rot, trans, camera, taps, radius, vox,
@@ -635,23 +544,6 @@ class _FusedWorldRender(torch.autograd.Function):
                 None, None, None, None, None, None, None)
 
 
-def _kernel_project(ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
-                    with_depth, save_grid=True, bf16=False):
-    """The kernel path: the NDC -> grid affine stays outside the Function,
-    so autograd chains d/d(ndc) = D d/d(coords), as pallas_project_t."""
-    _check_f32(ndc_t.device, ndc_t=ndc_t, point_weights=point_weights)
-    D = vox_size
-    # NDC -> grid units, rows (z, y, x), as pallas_project_t does
-    coords = ((ndc_t.flip(1) + 0.5) * D - 0.5).contiguous()
-    pw = None if point_weights is None else point_weights.contiguous()
-    sigma = torch.as_tensor(sigma_vox, dtype=torch.float32,
-                            device=ndc_t.device)
-    taps = gauss_kernel_1d(sigma, kernel_radius).contiguous()
-    out = _FusedRender.apply(coords, pw, taps, kernel_radius, D, with_depth,
-                             save_grid, bf16)
-    return out if with_depth else (out, None)
-
-
 def fused_project_t(
     ndc_t: torch.Tensor,
     vox_size: int,
@@ -666,34 +558,26 @@ def fused_project_t(
     from pc_perspective_transform_t) -> (sil [R, D, D], depth or None).
 
     Mirrors ``dpcx.render.pallas_kernel.pallas_project_t``, gradients,
-    ``acc_dtype`` and ``save_grid`` included. CUDA tensors go through the
-    CUDA kernels, CPU tensors through the plain version (where
-    ``save_grid`` changes nothing).
+    ``acc_dtype`` and ``save_grid`` included, by the plain version (where
+    ``save_grid`` changes nothing), on CPU tensors only: the kernels take
+    world clouds (``fused_project_world``), and tensors on the card are
+    refused rather than rendered by the plain version.
     """
-    bf16 = acc_dtype == "bfloat16"
     _check_grid(vox_size, kernel_radius, acc_dtype)
     if ndc_t.dim() != 3 or ndc_t.shape[1] != 3:
         raise ValueError(f"ndc_t must be [R, 3, N], got {tuple(ndc_t.shape)}")
     R, _, N = ndc_t.shape
     _check_shape("point_weights", point_weights, (R, N))
-    if ndc_t.device.type == "cpu":
-        if bf16:
-            return fused_project_plain(ndc_t, vox_size, sigma_vox,
-                                       kernel_radius, point_weights,
-                                       with_depth, acc_dtype)
-        return fused_project_reference(
-            ndc_t, vox_size, sigma_vox, kernel_radius, point_weights,
-            with_depth,
-        )
-    if ndc_t.device.type != "cuda":
+    if ndc_t.device.type != "cpu":
         raise ValueError(
-            f"fused renderer runs on cuda (kernel) or cpu (plain version), "
-            f"not {ndc_t.device.type}"
-        )
-    return _kernel_project(
-        ndc_t, vox_size, sigma_vox, kernel_radius, point_weights, with_depth,
-        save_grid, bf16,
-    )
+            f"fused_project_t runs on cpu, not {ndc_t.device.type}: on the "
+            "card the fused renderer takes world clouds and cameras, "
+            "fused_project_world")
+    if acc_dtype == "bfloat16":
+        return fused_project_plain(ndc_t, vox_size, sigma_vox, kernel_radius,
+                                   point_weights, with_depth, acc_dtype)
+    return fused_project_reference(ndc_t, vox_size, sigma_vox, kernel_radius,
+                                   point_weights, with_depth)
 
 
 def fused_project_world(
@@ -704,8 +588,8 @@ def fused_project_world(
     kernel_radius: int,
     point_weights: torch.Tensor | None = None,
     translation: torch.Tensor | None = None,
-    focal_length: float = 1.875,
-    camera_distance: float = 2.0,
+    focal_length: float = FOCAL_LENGTH,
+    camera_distance: float = CAMERA_DISTANCE,
     with_depth: bool = False,
     acc_dtype: str = "float32",
     save_grid: bool = True,

@@ -100,21 +100,15 @@ def pointcloud_project_fn(
     signature (None: ``fused_project_world``, whose kernels on the card run
     the camera transform in their splat stages).
 
-    Spanned as ``render.project``, counting the renders x points whose
-    camera transform ran inside the kernels (``front_points``) or as torch
-    ops (``eager_front_points``).
+    Spanned as ``render.project``.
     """
-    fused = _fused_route(cfg, rgb, return_voxels)
-    in_kernel = fused and project_fn is None and points.device.type == "cuda"
-    front = quat.shape[0] * points.shape[-2]
-    with span("render.project", front_points=front if in_kernel else 0,
-              eager_front_points=0 if in_kernel else front):
+    with span("render.project"):
         return _project(cfg, points, quat, sigma_rel, point_weights, rgb,
-                        translation, return_voxels, project_fn, fused)
+                        translation, return_voxels, project_fn)
 
 
 def _project(cfg, points, quat, sigma_rel, point_weights, rgb, translation,
-             return_voxels, project_fn, fused) -> RenderOut:
+             return_voxels, project_fn) -> RenderOut:
     dtype = getattr(torch, cfg.renderer_dtype)
     points = points.to(dtype)
     quat = quat.to(dtype)
@@ -129,7 +123,7 @@ def _project(cfg, points, quat, sigma_rel, point_weights, rgb, translation,
     )
     sigma_vox = torch.as_tensor(sigma_rel, dtype=dtype, device=points.device) * D
 
-    if fused:
+    if _fused_route(cfg, rgb, return_voxels):
         kw = dict(
             point_weights=point_weights,
             with_depth=cfg.proj_depth,

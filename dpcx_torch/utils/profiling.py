@@ -17,10 +17,9 @@ A span marks one layer's stretch of the program:
                     they materialise
 ``pose.select``     predicted pose: the candidates' scores, the hard
                     min, its gathers, the student and the telemetry
-``render.project``  ``pointcloud_project_fn``, counting the renders x
-                    points whose camera transform ran in the kernels'
-                    splat stages (``front_points``) or as torch ops
-                    (``eager_front_points``)
+``render.project``  ``pointcloud_project_fn``: the camera transform (on
+                    the card, in the kernels' splat stages) and the
+                    renderer
 ``render.fwd``      the renderer's forward launch (K1 / K3; K6)
 ``train.backward``  ``loss.backward()``
 ``render.bwd``      the renderer's backward launch (K2 / K4 + K5; K7),

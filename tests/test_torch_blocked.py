@@ -39,7 +39,9 @@ from dpcx_torch.convert import adam_state_from_optax, params_from_flax
 from dpcx_torch.models import losses as tlosses
 from dpcx_torch.render import fused
 from dpcx_torch.render import project as tproject
+from dpcx_torch.render.transform import CAMERA_DISTANCE, FOCAL_LENGTH
 from dpcx_torch.utils import prng
+import plain_world
 from torch_workers import share_cores
 
 share_cores()
@@ -181,54 +183,30 @@ def test_dispatch_save_grid_matches_dpcx(vox, remat, takes_fused, rng,
     (16, False, True),  # save_grid has no effect at D <= 64, as in dpcx
 ])
 def test_save_grid_wiring(vox, save_grid, keeps_grid, rng, monkeypatch):
-    """The autograd.Function on the CPU with its launches replaced by the
-    plain forward and the plain VJP: at D > 64 with save_grid False it
-    keeps no grid and its backward asks for the recompute (grid None);
-    either way its gradients are plain autograd's."""
-    R, N, radius = 2, 150, 3
-    seen = {}
+    """The autograd.Function the card runs (``_FusedWorldRender``) on the
+    CPU with its launches replaced by the plain forward and the plain VJP
+    (``tests/plain_world.py``): at D > 64 with save_grid False it keeps no
+    grid and its backward asks for the recompute (grid None); either way
+    its gradients, the cameras' included, are plain autograd's through
+    ``fused_project_world``'s CPU route."""
+    radius = 3
+    seen = plain_world.patch_launches(monkeypatch, 1.5)
+    scene = plain_world.scene(rng, 2, 1, 150, True, True)
 
-    def plain(coords, w):
-        ndc = ((coords + 0.5) / vox - 0.5).flip(1)
-        return fused.fused_project_reference(ndc, vox, 1.5, radius, w, True)
+    def world(p, w, q, t):
+        return plain_world.render_world(p, w, q, t, vox, torch.tensor(1.5),
+                                        radius, True, save_grid)
 
-    def launch_forward(coords, w, taps, radius_, vox_, wd, bf16):
-        assert not bf16
-        sil, depth = plain(coords, w)
-        return sil, depth, torch.full((1,), 7.0)
+    def plain(p, w, q, t):
+        return fused.fused_project_world(
+            p, q, vox, 1.5, radius, w, t, FOCAL_LENGTH,
+            CAMERA_DISTANCE, True)
 
-    def launch_backward(coords, w, taps, radius_, grid, dsil, ddepth, vox_,
-                        wd, want_w, bf16):
-        assert not bf16
-        seen["grid"] = grid
-        with torch.enable_grad():
-            c = coords.detach().requires_grad_()
-            ww = w.detach().requires_grad_()
-            sil, depth = plain(c, ww)
-            loss = (sil * dsil).sum() + (depth * ddepth).sum()
-            return torch.autograd.grad(loss, [c, ww])
-
-    monkeypatch.setattr(fused, "_launch_forward", launch_forward)
-    monkeypatch.setattr(fused, "_launch_backward", launch_backward)
-    ndc_t = torch.from_numpy(rng.uniform(-0.6, 0.6, (R, 3, N))
-                             .astype(np.float32))
-    pw = torch.from_numpy(rng.uniform(0, 2, (R, N)).astype(np.float32))
-
-    def grads(render):
-        x = ndc_t.clone().requires_grad_()
-        w = pw.clone().requires_grad_()
-        sil, depth = render(x, w)
-        ((sil**2).sum() + (depth**2).sum()).backward()
-        return x.grad, w.grad
-
-    g_f = grads(lambda x, w: fused._kernel_project(
-        x, vox, torch.tensor(1.5), radius, w, True, save_grid))
+    g_f = plain_world.world_grads(world, *scene, "cameras", True, True)
     assert (seen["grid"] is not None) == keeps_grid
-    g_p = grads(lambda x, w: fused.fused_project_reference(
-        x, vox, 1.5, radius, w, True))
+    g_p = plain_world.world_grads(plain, *scene, "cameras", True, True)
     for a, b in zip(g_f, g_p):
         assert b.abs().max() > 0
-        # atol 1e-4: the NDC -> grid -> NDC round trip is inexact at D 72
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
 
 

@@ -30,11 +30,13 @@ import pytest
 import torch
 
 from dpcx_torch.render import fused
-from dpcx_torch.render.transform import pc_perspective_transform_t
+from dpcx_torch.render.transform import (
+    FOCAL_LENGTH as FOCAL,
+    pc_perspective_transform_t,
+)
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
-FOCAL = 1.875
 
 
 @pytest.fixture

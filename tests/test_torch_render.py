@@ -12,8 +12,8 @@ Tolerances:
   divided by the occupancy);
 - the renderer's gradients against the Pallas backward kernel (interpret
   mode): atol 1e-4, ROADMAP's gradient tolerance; the autograd.Function's
-  wiring against plain autograd: atol 1e-5 (the same plain ops, with an
-  NDC -> grid -> NDC round trip).
+  wiring against plain autograd: atol 1e-5 (the same plain ops; the
+  cameras' rotations formed outside the Function).
 """
 
 import dataclasses
@@ -36,8 +36,10 @@ from dpcx_torch.render import drc as tdrc
 from dpcx_torch.render import fused
 from dpcx_torch.render import gauss as tgauss
 from dpcx_torch.render import project as tproject
+from dpcx_torch.render.transform import CAMERA_DISTANCE, FOCAL_LENGTH
 from dpcx_torch.render import voxelize as tvox
 from dpcx_torch.utils import prng
+import plain_world
 from torch_workers import share_cores
 
 share_cores()
@@ -219,69 +221,46 @@ def test_fused_gradients_match_pallas_backward(vox, with_depth, weights,
         np.testing.assert_allclose(a, np.asarray(b), atol=1e-4)
 
 
-@pytest.mark.parametrize("with_depth,weights,use_sil,use_depth", [
-    (True, True, True, True),
-    (True, True, True, False),  # depth rendered, never read: no cotangent
-    (True, False, False, True),  # only depth read: no sil cotangent
-    (False, False, True, False),
-])
-def test_fused_function_wiring(with_depth, weights, use_sil, use_depth, rng,
-                               monkeypatch):
-    """The autograd.Function around the kernels, run on the CPU with its
-    two launches replaced by the plain forward and the plain VJP: it gives
-    plain autograd's gradients (the chained NDC -> grid affine, no
-    gradient for sigma, an absent sil or depth cotangent)."""
-    R, N, radius = 2, 200, 2
+@pytest.mark.parametrize(
+    "with_depth,weights,use_sil,use_depth,learn,translation,fan", [
+        (True, True, True, True, "cameras", True, 1),
+        # depth rendered, never read: no cotangent
+        (True, True, True, False, "none", False, 2),
+        (True, False, False, True, "cameras", False, 3),  # only depth read
+        (False, False, True, False, "translation", True, 1),
+        (False, True, True, False, "cameras", True, 2),
+        (True, True, True, True, "none", True, 4),
+    ])
+def test_fused_function_wiring(with_depth, weights, use_sil, use_depth,
+                               learn, translation, fan, rng, monkeypatch):
+    """The autograd.Function the card runs (``_FusedWorldRender``), on the
+    CPU with its two launches replaced by the plain forward and the plain
+    VJP (``tests/plain_world.py``): it gives the gradients of plain
+    autograd through ``fused_project_world``'s CPU route, to the clouds and
+    weights summed over each cloud's ``fan`` renders, to the cameras
+    through the rotations (quat) and the translations where they learn
+    ("cameras", or "translation" alone) and None where they do not, none
+    to sigma, and no cotangent for an output the loss never reads."""
+    C, N, radius = 2, 200, 2
     sigma = torch.tensor(1.2, requires_grad=True)
-    seen = {}
+    seen = plain_world.patch_launches(monkeypatch, sigma.detach())
+    scene = plain_world.scene(rng, C, fan, N, weights, translation)
 
-    def plain(coords, w):
-        ndc = ((coords + 0.5) / D - 0.5).flip(1)
-        return fused.fused_project_reference(ndc, D, sigma.detach(), radius,
-                                             w, with_depth)
+    def world(p, w, q, t):
+        return plain_world.render_world(p, w, q, t, D, sigma, radius,
+                                        with_depth)
 
-    def launch_forward(coords, w, taps, radius_, vox, wd, bf16):
-        assert not bf16
-        sil, depth = plain(coords, w)
-        return sil, depth, torch.zeros(1)
+    def plain(p, w, q, t):
+        return fused.fused_project_world(
+            p, q, D, sigma.detach(), radius, w, t, FOCAL_LENGTH,
+            CAMERA_DISTANCE, with_depth)
 
-    def launch_backward(coords, w, taps, radius_, grid, dsil, ddepth, vox,
-                        wd, want_w, bf16):
-        assert not bf16
-        seen["ddepth"] = ddepth
-        with torch.enable_grad():
-            c = coords.detach().requires_grad_()
-            ww = None if w is None else w.detach().requires_grad_()
-            sil, depth = plain(c, ww)
-            loss = (sil * dsil).sum()
-            if ddepth is not None:
-                loss = loss + (depth * ddepth).sum()
-            grads = torch.autograd.grad(loss, [c] + ([ww] if want_w else []))
-        return grads[0], (grads[1] if want_w else None)
-
-    monkeypatch.setattr(fused, "_launch_forward", launch_forward)
-    monkeypatch.setattr(fused, "_launch_backward", launch_backward)
-    ndc_t = torch.from_numpy(rng.uniform(-0.6, 0.6, (R, 3, N))
-                             .astype(np.float32))
-    pw = (torch.from_numpy(rng.uniform(0, 2, (R, N)).astype(np.float32))
-          if weights else None)
-
-    def grads(render):
-        x = ndc_t.clone().requires_grad_()
-        w = None if pw is None else pw.clone().requires_grad_()
-        sil, depth = render(x, w)
-        loss = (sil**2).sum() if use_sil else 0.0
-        if use_depth:
-            loss = loss + (depth**2).sum()
-        loss.backward()
-        return x.grad, None if w is None else w.grad
-
-    g_f = grads(lambda x, w: fused._kernel_project(x, D, sigma, radius, w,
-                                                   with_depth))
+    g_f = plain_world.world_grads(world, *scene, learn, use_sil, use_depth)
     assert sigma.grad is None  # the taps get no gradient
     assert (seen["ddepth"] is not None) == use_depth
-    g_p = grads(lambda x, w: fused.fused_project_reference(
-        x, D, sigma.detach(), radius, w, with_depth))
+    assert seen["want_camera"] == (learn != "none")
+    assert seen["want_dweights"] == weights
+    g_p = plain_world.world_grads(plain, *scene, learn, use_sil, use_depth)
     for a, b in zip(g_f, g_p):
         if b is None:
             assert a is None
@@ -360,9 +339,16 @@ def test_fused_wrapper_refuses(rng):
     with pytest.raises(ValueError, match="point_weights"):
         fused.fused_project_t(ndc_t, D, sigma, 2,
                               point_weights=torch.ones(2, 63))
-    # neither cpu nor cuda: no silent fallback to the plain version
-    with pytest.raises(ValueError, match="runs on cuda"):
+    # not cpu: no silent plain version where the kernels take world clouds
+    with pytest.raises(ValueError, match="runs on cpu.*fused_project_world"):
         fused.fused_project_t(ndc_t.to("meta"), D, sigma, 2)
+    # the recompute backward exists only above D 64: refused before a launch
+    points, rot = torch.zeros(2, 64, 3), torch.eye(3).expand(2, 3, 3)
+    with pytest.raises(ValueError, match="only above D 64"):
+        fused._launch_world_backward(
+            points, None, rot, None, (FOCAL_LENGTH, CAMERA_DISTANCE),
+            torch.ones(5), 2, None, torch.zeros(2, D, D), None, D, False,
+            False, False, False)
 
 
 # (config overrides, whether the fused renderer is taken) — the dispatch
